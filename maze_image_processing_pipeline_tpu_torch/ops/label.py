@@ -1,0 +1,163 @@
+"""Connected-component labelling (CCL) and label utilities.
+
+Counterpart of ``maze_image_processing_pipeline_tpu/ops/label.py``, with the
+same results:
+
+1. **Init** — every foreground pixel takes its linear index + 1 as label.
+2. **Propagate** — sweeps of horizontal pass, vertical pass down, vertical
+   pass up, horizontal pass, to a fixpoint capped at ``max_iters`` sweeps.
+   The horizontal pass is :func:`.row_scan.hpass` (a CUDA kernel on the
+   card); the vertical pass walks the rows one at a time.
+3. **Compact** — each component's final label is the linear index of its
+   raster-first pixel, so the raster rank of the roots (a per-row prefix
+   sum, :func:`.row_scan.cumsum_rows`, plus a prefix sum of row totals) gives
+   consecutive ids in scipy/skimage order; the rank spreads through each
+   component with the same sweep.
+
+Region tables (areas, border contact, the id remap) use ``bincount`` and
+``gather`` over the region axis instead of one-hot compares.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .row_scan import INF, cumsum_rows, hpass
+
+__all__ = ["label", "remove_small_objects", "clear_border", "region_areas"]
+
+
+def _vertical_pass(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, reverse: bool):
+    """Row-sequential min propagation through foreground (with diagonal
+    links for 8-connectivity), top to bottom or bottom to top."""
+    H = lab.shape[-2]
+    out = torch.empty_like(lab)
+    carry = torch.full_like(lab[..., 0, :], INF)
+    inf = torch.tensor(INF, dtype=lab.dtype, device=lab.device)
+    order = range(H - 1, -1, -1) if reverse else range(H)
+    for r in order:
+        neigh = carry
+        if connectivity == 2:
+            neigh = carry.clone()
+            neigh[..., 1:] = torch.minimum(neigh[..., 1:], carry[..., :-1])
+            neigh[..., :-1] = torch.minimum(neigh[..., :-1], carry[..., 1:])
+        carry = torch.where(fg[..., r, :], torch.minimum(lab[..., r, :], neigh), inf)
+        out[..., r, :] = carry
+    return out
+
+
+def _fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters: int):
+    def sweep(lab):
+        lab = hpass(lab, fg)
+        lab = _vertical_pass(lab, fg, connectivity, reverse=False)
+        lab = _vertical_pass(lab, fg, connectivity, reverse=True)
+        return hpass(lab, fg)
+
+    lab = sweep(lab0)
+    prev = lab0
+    i = 1
+    while i < max_iters and bool((lab != prev).any()):
+        lab, prev = sweep(lab), lab
+        i += 1
+    return lab
+
+
+def label(
+    mask: torch.Tensor, connectivity: int = 2, max_iters: int = 256
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Label connected components of a boolean mask.
+
+    Args:
+        mask: (..., H, W) foreground mask.
+        connectivity: 2 = 8-connected, 1 = 4-connected.
+        max_iters: cap on the fixpoint sweeps (blob-like masks converge in
+            1-2; a serpentine needs about one per switchback).
+
+    Returns:
+        (labels, n_regions): int32 labels in [0, R], 0 = background, in
+        raster order; int32 (...,) component counts.
+    """
+    if connectivity not in (1, 2):
+        raise ValueError("connectivity must be 1 or 2")
+    H, W = mask.shape[-2:]
+    batch_shape = mask.shape[:-2]
+    fg = mask.bool().reshape(-1, H, W).contiguous()
+    dev = fg.device
+
+    lin = torch.arange(H * W, dtype=torch.int32, device=dev).reshape(1, H, W)
+    inf = torch.tensor(INF, dtype=torch.int32, device=dev)
+    lab0 = torch.where(fg, lin + 1, inf)
+    lab = _fixpoint(lab0, fg, connectivity, max_iters)
+
+    # Compaction: rank the roots in raster order, then spread the rank.
+    is_root = fg & (lab == lin + 1)
+    within_row = cumsum_rows(is_root.to(torch.int32))
+    row_counts = within_row[..., -1]  # (B, H)
+    row_prefix_incl = torch.cumsum(row_counts, dim=1, dtype=torch.int32)
+    ranks = within_row + (row_prefix_incl - row_counts)[..., None]
+    n_regions = row_prefix_incl[..., -1]  # (B,)
+
+    rank_seed = torch.where(is_root, ranks, inf)
+    rank_img = _fixpoint(rank_seed, fg, connectivity, max_iters)
+    compact = torch.where(fg, rank_img, torch.zeros((), dtype=torch.int32, device=dev))
+    return compact.reshape(batch_shape + (H, W)), n_regions.reshape(batch_shape)
+
+
+def _per_frame_bincount(values: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(B, N) int ids → (B, num_segments) int32 counts; ids outside
+    [0, num_segments) are not counted."""
+    B = values.shape[0]
+    v = values.reshape(B, -1).long()
+    ok = (v >= 0) & (v < num_segments)
+    offs = torch.arange(B, device=v.device)[:, None] * (num_segments + 1)
+    idx = torch.where(ok, v, num_segments) + offs
+    counts = torch.bincount(idx.reshape(-1), minlength=B * (num_segments + 1))
+    return counts.reshape(B, num_segments + 1)[:, :num_segments].to(torch.int32)
+
+
+def region_areas(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Pixel counts per label id (index 0 = background), batched."""
+    H, W = labels.shape[-2:]
+    batch_shape = labels.shape[:-2]
+    out = _per_frame_bincount(labels.reshape(-1, H * W), num_segments)
+    return out.reshape(batch_shape + (num_segments,))
+
+
+def _relabel_keep(labels: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Relabel so kept ids become consecutive (raster order kept); ids at or
+    beyond ``keep.shape[-1]`` map to 0."""
+    R = keep.shape[-1]
+    H, W = labels.shape[-2:]
+    lab = labels.reshape(-1, H * W).long()
+    keep = keep.reshape(-1, R)
+    new_ids = torch.cumsum(keep.to(torch.int32), dim=-1, dtype=torch.int32) * keep
+    table = torch.cat([new_ids, torch.zeros_like(new_ids[:, :1])], dim=1)  # (B, R+1)
+    idx = torch.where((lab >= 0) & (lab < R), lab, R)
+    out = torch.gather(table, 1, idx)
+    return out.reshape(labels.shape).to(torch.int32)
+
+
+def remove_small_objects(
+    labels: torch.Tensor, min_area: int, num_segments: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop regions below ``min_area`` pixels; re-compact ids."""
+    keep = region_areas(labels, num_segments) >= min_area
+    keep[..., 0] = False
+    return _relabel_keep(labels, keep), keep.sum(-1).to(torch.int32)
+
+
+def clear_border(
+    labels: torch.Tensor, num_segments: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop regions touching the image border; re-compact ids."""
+    border_vals = torch.cat(
+        [labels[..., 0, :], labels[..., -1, :], labels[..., :, 0], labels[..., :, -1]],
+        dim=-1,
+    )
+    batch_shape = labels.shape[:-2]
+    touches = _per_frame_bincount(border_vals.reshape(-1, border_vals.shape[-1]), num_segments) > 0
+    keep = ~touches.reshape(batch_shape + (num_segments,))
+    keep[..., 0] = False
+    return _relabel_keep(labels, keep), keep.sum(-1).to(torch.int32)

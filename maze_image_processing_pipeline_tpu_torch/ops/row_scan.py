@@ -1,0 +1,148 @@
+"""The CCL row scans: hand-written CUDA kernels and their plain versions.
+
+* :func:`hpass` — the horizontal pass of the connected-component labelling:
+  every foreground pixel receives the minimum label of its horizontal run,
+  background receives ``2**30`` (K1, ``csrc/row_scan.cu:hpass_kernel``).
+* :func:`cumsum_rows` — the inclusive int32 prefix sum along each row, which
+  ranks component roots in raster order (K2,
+  ``csrc/row_scan.cu:cumsum_rows_kernel``).
+
+A tensor on the CPU goes through the plain PyTorch version; a CUDA tensor
+always launches the kernel, and the wrapper raises if the kernel does not
+take it or does not launch. Each wrapper counts its kernel launches in a
+plain integer attribute (``hpass.launches``, ``cumsum_rows.launches``) so a
+run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["hpass", "hpass_plain", "cumsum_rows", "cumsum_rows_plain", "INF"]
+
+INF = 2**30  # background label of the CCL
+
+
+def _shift(v: torch.Tensor, d: int, fill, reverse: bool) -> torch.Tensor:
+    """Shift along the last axis by ``d``, filling the vacated places."""
+    pad = torch.full(v.shape[:-1] + (d,), fill, dtype=v.dtype, device=v.device)
+    if reverse:
+        return torch.cat([v[..., d:], pad], dim=-1)
+    return torch.cat([pad, v[..., :-d]], dim=-1)
+
+
+def _segmented_min_doubling(v, r, reverse: bool):
+    """Log-depth inclusive min-scan along the last axis that restarts where
+    ``r`` is set; out-of-row neighbours act as restarts."""
+    W = v.shape[-1]
+    d = 1
+    while d < W:
+        v_sh = _shift(v, d, INF, reverse)
+        r_sh = _shift(r, d, True, reverse)
+        v = torch.where(r, v, torch.minimum(v, v_sh))
+        r = r | r_sh
+        d *= 2
+    return v
+
+
+def hpass_plain(lab: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1: forward then reverse segmented min-scan."""
+    fg = fg.bool()
+    inf = torch.tensor(INF, dtype=torch.int32, device=lab.device)
+    v = torch.where(fg, lab, inf)
+    resets = ~fg
+    v = _segmented_min_doubling(v, resets, reverse=False)
+    v = _segmented_min_doubling(v, resets, reverse=True)
+    return torch.where(fg, v, inf)
+
+
+def cumsum_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2."""
+    return torch.cumsum(x, dim=-1, dtype=torch.int32)
+
+
+def _rows(x: torch.Tensor):
+    W = x.shape[-1]
+    return x.numel() // W, W
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors must lie on the CPU or a CUDA device, got {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.dim() < 1 or t.shape[-1] < 1:
+            raise ValueError(f"{name}: rows must hold at least one element, got {tuple(t.shape)}")
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+def hpass(lab: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
+    """CCL horizontal pass over (..., W) rows.
+
+    Args:
+        lab: int32 labels, any shape (..., W).
+        fg: bool or uint8 foreground mask of the same shape.
+
+    Returns:
+        int32 (..., W): the run minimum on foreground, ``2**30`` elsewhere.
+    """
+    if lab.dtype != torch.int32:
+        raise TypeError(f"hpass: labels must be int32, got {lab.dtype}")
+    if fg.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"hpass: mask must be bool or uint8, got {fg.dtype}")
+    if lab.shape != fg.shape:
+        raise ValueError(f"hpass: shapes differ: {tuple(lab.shape)} vs {tuple(fg.shape)}")
+    if lab.device.type == "cpu":
+        return hpass_plain(lab, fg)
+    _check_cuda("hpass", lab, fg)
+    out = torch.empty_like(lab)
+    rows, W = _rows(lab)
+    if rows == 0:
+        return out
+    from .._build import kernels
+
+    with torch.cuda.device(lab.device):
+        stream = torch.cuda.current_stream(lab.device).cuda_stream
+        err = kernels().hpass_launch(
+            lab.data_ptr(), fg.data_ptr(), out.data_ptr(), rows, W, stream
+        )
+    _raise_on("hpass", err)
+    hpass.launches += 1
+    return out
+
+
+hpass.launches = 0
+
+
+def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 prefix sum along the last axis of (..., W)."""
+    if x.dtype != torch.int32:
+        raise TypeError(f"cumsum_rows: input must be int32, got {x.dtype}")
+    if x.device.type == "cpu":
+        return cumsum_rows_plain(x)
+    _check_cuda("cumsum_rows", x)
+    out = torch.empty_like(x)
+    rows, W = _rows(x)
+    if rows == 0:
+        return out
+    from .._build import kernels
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = kernels().cumsum_rows_launch(
+            x.data_ptr(), out.data_ptr(), rows, W, stream
+        )
+    _raise_on("cumsum_rows", err)
+    cumsum_rows.launches += 1
+    return out
+
+
+cumsum_rows.launches = 0
