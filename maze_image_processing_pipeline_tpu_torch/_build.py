@@ -1,11 +1,13 @@
 """Build and load the package's hand-written CUDA kernels.
 
 Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, loaded with
-:mod:`ctypes`. The library goes into ``build/`` beside this file, named by a
-hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing is compiled at import time: the
-first :func:`kernels` call builds. A failed build raises.
+(``sm_90a``) into a shared library of its own with a plain C interface,
+loaded with :mod:`ctypes`. The ``nvcc`` processes of all sources start
+together, so the build takes as long as the slowest source. Each library
+goes into ``build/`` beside this file, named by the source's stem and a
+hash of the source, the headers and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Nothing is compiled at
+import time: the first :func:`kernels` call builds. A failed build raises.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from types import SimpleNamespace
+from typing import List
 
 __all__ = ["kernels", "build", "NVCC_FLAGS"]
 
@@ -35,6 +39,17 @@ NVCC_FLAGS = [
     "-fPIC",
 ]
 
+_vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# The C entry points: argument types (every pointer and the stream as
+# c_void_p, or ctypes would cut them to 32 bits); each returns a CUDA error
+# code as int.
+SIGNATURES = {
+    "hpass_launch": [_vp, _vp, _vp, _ll, _i, _vp],
+    "cumsum_rows_launch": [_vp, _vp, _ll, _i, _vp],
+    "vertical_pass_launch": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    "remove_small_objects_launch": [_vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _vp],
+}
+
 _lock = threading.Lock()
 _lib = None
 
@@ -48,44 +63,63 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into the cached library; returns its path.
-    ``verbose`` prints ptxas' register and shared-memory report."""
-    srcs = sorted(CSRC.glob("*.cu"))
+def _library(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    out = BUILD_DIR / f"libmaze_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> List[Path]:
+    """Compile each ``csrc/*.cu`` into its cached library, all sources in
+    parallel; returns the libraries' paths. ``verbose`` prints ptxas'
+    register and shared-memory report."""
+    srcs = sorted(CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    cmd = [_nvcc(), *flags, "-o", tmp, *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
-        )
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    jobs = []
+    for src in srcs:
+        out = _library(src)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+        cmd = [_nvcc(), *flags, "-o", tmp, str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((out, tmp, cmd, proc))
+    failures = []
+    for out, tmp, cmd, proc in jobs:
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stderr}")
+            continue
+        if verbose:
+            print(stderr, end="")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return [_library(src) for src in srcs]
 
 
-def kernels() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
+def kernels() -> SimpleNamespace:
+    """The C entry points of all kernel libraries (built at first use), by
+    name, with their argument types set."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.hpass_launch.argtypes = [vp, vp, vp, ll, i, vp]
-            lib.hpass_launch.restype = i
-            lib.cumsum_rows_launch.argtypes = [vp, vp, ll, i, vp]
-            lib.cumsum_rows_launch.restype = i
-            _lib = lib
+            fns = {}
+            for path in build():
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name, None)
+                    if fn is not None:
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
+                        fns[name] = fn
+            missing = sorted(set(SIGNATURES) - set(fns))
+            if missing:
+                raise RuntimeError(f"kernel entry points missing from the built libraries: {missing}")
+            _lib = SimpleNamespace(**fns)
         return _lib

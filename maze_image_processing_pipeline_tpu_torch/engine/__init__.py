@@ -1,10 +1,67 @@
-"""Streaming engine of the port.
+"""Streaming dataflow engine of the port.
 
-The dataflow engine (``Pipeline``, ``Node``, ``Call``, stream nodes) is pure
-Python and shared with the JAX package: it is re-exported here from
-``maze_image_processing_pipeline_tpu.engine``, whose modules import neither
-jax nor any accelerator library. The image nodes of the slice live in
-:mod:`.image`.
+``Pipeline``, ``Node``, ``Call`` and the stream nodes are the port's own
+copies of the JAX package's pure-Python engine (``core``, ``stream``,
+``pipelines``, ``batch``, ``tiles``, ``stitch``; each names its original),
+so the port imports nothing of the JAX package. The image nodes of the
+LOKI workload live in :mod:`.image`.
 """
 
-from maze_image_processing_pipeline_tpu.engine import Call, Pipeline, Unpack  # noqa: F401
+from .core import (
+    Call,
+    Node,
+    Output,
+    Pipeline,
+    RawOrVariable,
+    ReturnOutputs,
+    Stream,
+    StreamObject,
+    Variable,
+    closing_if_closable,
+)
+from .stream import (
+    Filter,
+    Progress,
+    Slice,
+    StreamBuffer,
+    StreamEstimator,
+    Unpack,
+    stream_groupby,
+)
+from .pipelines import (
+    AggregateErrorsPipeline,
+    BatchedPipeline,
+    DataParallelPipeline,
+    MergeNodesPipeline,
+)
+from .batch import Batch
+from .tiles import TiledPipeline
+from .stitch import Stitch, StitchedImage
+
+__all__ = [
+    "Pipeline",
+    "Node",
+    "Variable",
+    "StreamObject",
+    "Stream",
+    "Call",
+    "Output",
+    "ReturnOutputs",
+    "RawOrVariable",
+    "closing_if_closable",
+    "Filter",
+    "Slice",
+    "StreamBuffer",
+    "Unpack",
+    "Progress",
+    "stream_groupby",
+    "StreamEstimator",
+    "BatchedPipeline",
+    "DataParallelPipeline",
+    "MergeNodesPipeline",
+    "AggregateErrorsPipeline",
+    "Batch",
+    "TiledPipeline",
+    "Stitch",
+    "StitchedImage",
+]

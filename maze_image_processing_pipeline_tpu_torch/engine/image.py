@@ -1,12 +1,13 @@
-"""Image stream nodes of the segmentation slice: region fan-out, ROI crops,
-ZooProcess features.
+"""Image stream nodes of the LOKI workload: region fan-out, ROI crops,
+whole-crop properties, ZooProcess features, scalebar, expression filter.
 
 Host (numpy) code, the same as ``RegionInfo``, ``FindRegions``,
-``ExtractROI`` and ``CalculateZooProcessFeatures`` in
+``ExtractROI``, ``ImageProperties``, ``CalculateZooProcessFeatures``,
+``DrawScalebar`` and ``FilterEval`` in
 ``maze_image_processing_pipeline_tpu/engine/image.py``, with only the
-imports changed: the original module is reachable only through
-``maze_image_processing_pipeline_tpu/ops/__init__.py``, which imports jax.
-Keep the two in step (``tests/test_torch_host_copies.py`` holds them equal).
+imports changed. ``BatchedImageProperties`` (the threshold path's device
+measurement) is not ported yet. Keep the two in step
+(``tests/test_torch_host_copies.py`` holds them equal).
 """
 
 from __future__ import annotations
@@ -16,24 +17,27 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import scipy.ndimage as ndi
 
-from maze_image_processing_pipeline_tpu.engine.core import (
+from ..ops.host_props import host_region_props
+from ..ops.zooprocess import zooprocess_features
+from .core import (
     Node,
     Output,
     RawOrVariable,
     ReturnOutputs,
     Stream,
+    _annotate,
     closing_if_closable,
 )
-from maze_image_processing_pipeline_tpu.engine.stream import StreamEstimator
-
-from ..ops.host_props import host_region_props
-from ..ops.zooprocess import zooprocess_features
+from .stream import StreamEstimator
 
 __all__ = [
     "RegionInfo",
     "FindRegions",
     "ExtractROI",
+    "ImageProperties",
     "CalculateZooProcessFeatures",
+    "DrawScalebar",
+    "FilterEval",
 ]
 
 
@@ -319,6 +323,31 @@ class ExtractROI(Node):
 
 
 @ReturnOutputs
+@Output("props")
+class ImageProperties(Node):
+    """Measure a whole boolean mask as one region (host, numpy).
+
+    Parity with ``morphocut.image.ImageProperties`` (``loki/pipeline.py:653``).
+    """
+
+    def __init__(
+        self, mask: RawOrVariable[np.ndarray], image: RawOrVariable[np.ndarray]
+    ) -> None:
+        self.mask = mask
+        self.image = image
+        super().__init__()
+
+    def transform(self, mask, image):
+        mask = np.asarray(mask, bool)
+        props = {k: v[1] for k, v in host_region_props(mask, np.asarray(image)).items()}
+        filled = ndi.binary_fill_holes(mask)
+        return {"__props__": props, "__area_filled__": float(filled.sum())}
+
+    def _input_names(self):
+        return ("mask", "image")
+
+
+@ReturnOutputs
 @Output("meta")
 class CalculateZooProcessFeatures(Node):
     """Merge the ZooProcess feature set into per-object metadata.
@@ -354,3 +383,94 @@ class CalculateZooProcessFeatures(Node):
     def _input_names(self):
         return ("region", "meta")
 
+
+@ReturnOutputs
+@Output("image")
+class DrawScalebar(Node):
+    """Burn a physical scalebar into a vignette's bottom margin.
+
+    Parity with ``morphocut.scalebar.DrawScalebar`` (``loki/pipeline.py:
+    1183-1190``): appends a margin strip with a bar of
+    ``length_in_unit * px_per_unit`` pixels and a label like "1 mm".
+    """
+
+    def __init__(
+        self,
+        image: RawOrVariable[np.ndarray],
+        length_in_unit: float = 1,
+        px_per_unit: float = 100,
+        unit: str = "mm",
+        fg_color: int = 255,
+        bg_color: int = 0,
+    ) -> None:
+        self.image = image
+        self.length_in_unit = length_in_unit
+        self.px_per_unit = px_per_unit
+        self.unit = unit
+        self.fg_color = fg_color
+        self.bg_color = bg_color
+        super().__init__()
+
+    def transform(self, image):
+        import cv2
+
+        image = np.asarray(image)
+        H, W = image.shape[:2]
+        bar_px = max(2, int(round(self.length_in_unit * self.px_per_unit)))
+        margin = 24
+        out_w = max(W, bar_px + 8)
+        strip_shape = (margin, out_w) + image.shape[2:]
+        strip = np.full(strip_shape, self.bg_color, dtype=image.dtype)
+
+        y_bar = 6
+        x0 = 4
+        strip[y_bar : y_bar + 3, x0 : x0 + bar_px] = self.fg_color
+        label = f"{self.length_in_unit:g} {self.unit}"
+        cv2.putText(
+            strip,
+            label,
+            (x0, margin - 4),
+            cv2.FONT_HERSHEY_PLAIN,
+            0.9,
+            int(self.fg_color),
+            1,
+        )
+
+        if out_w > W:
+            pad = [(0, 0), (0, out_w - W)] + [(0, 0)] * (image.ndim - 2)
+            image = np.pad(image, pad, constant_values=self.bg_color)
+        return np.concatenate([image, strip], axis=0)
+
+    def _input_names(self):
+        return ("image",)
+
+
+class FilterEval(Node):
+    """Filter the stream with a compiled Python boolean expression over metadata.
+
+    Parity with the reference's ``FilterEval`` (``loki/pipeline.py:82-108``).
+    """
+
+    def __init__(self, expression: str, data: RawOrVariable[Mapping]) -> None:
+        self._compiled = compile(expression, "<filter_expr>", "eval")
+        self.expression = expression
+        self.data = data
+        super().__init__()
+
+    def transform_stream(self, stream: Stream) -> Stream:
+        est = StreamEstimator()
+        with closing_if_closable(stream):
+            for obj in stream:
+                with est.consume(obj.n_remaining_hint) as incoming:
+                    data = self.prepare_input(obj, "data")
+                    try:
+                        keep = eval(self._compiled, {"__builtins__": {}}, dict(data))
+                    except Exception as exc:
+                        # add_note, not re-construction: many exception
+                        # types cannot be rebuilt from (*args, msg).
+                        _annotate(exc, f" [FilterEval({self.expression!r})]")
+                        raise
+                    if not keep:
+                        continue
+                    obj.n_remaining_hint = incoming.emit()
+                    yield obj

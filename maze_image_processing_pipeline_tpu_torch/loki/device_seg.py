@@ -27,7 +27,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from maze_image_processing_pipeline_tpu.engine.core import (
+from ..engine import DataParallelPipeline, Filter, Stitch, StreamBuffer
+from ..engine.core import (
     Call,
     Node,
     RawOrVariable,
@@ -36,20 +37,20 @@ from maze_image_processing_pipeline_tpu.engine.core import (
     Variable,
     closing_if_closable,
 )
-from maze_image_processing_pipeline_tpu.engine.tiles import _linear_weight, _tile_starts
-
 from ..engine.image import (
     CalculateZooProcessFeatures,
     ExtractROI,
     FindRegions,
     RegionInfo,
 )
+from ..engine.tiles import _linear_weight, _tile_starts
 from ..models.inference import default_device_pre, sigmoid_post
 from ..ops.crops import UNPACK_LUT, extract_region_crops
 from ..ops.fill_holes import region_filled_extra
 from ..ops.label import clear_border, label, remove_small_objects
 from ..ops.morphology import binary_closing, binary_opening
 from ..ops.regionprops_fused import regionprops_fused
+from .meta import format_object_id
 
 __all__ = ["DeviceTiledSegmentation", "build_torch_segmentation"]
 
@@ -64,6 +65,21 @@ DEFAULT_POSTPROCESS = SimpleNamespace(
     clear_border=False,
     max_regions=64,
 )
+
+
+def _resolve_device(device) -> torch.device:
+    """``device`` as a torch device; a CUDA device needs a card.
+
+    Raises rather than carrying on on the CPU: a run on the CPU is asked for
+    by name (``"cpu"``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} was asked for but no CUDA card is available "
+            "(torch.cuda.is_available() is false); pass device='cpu' to run "
+            "on the CPU"
+        )
+    return device
 
 
 def _build_frame_chain(cfg):
@@ -170,7 +186,9 @@ class DeviceTiledSegmentation(Node):
         postprocess_config: frame-chain settings (``opening_radius``,
             ``closing_radius``, ``clear_border``, ``min_area``,
             ``max_regions``, ``merge_segments_distance``).
-        device: the torch device that runs the model and the chain.
+        device: the torch device that runs the model and the chain; the
+            card unless the caller asks for the CPU. Without a card a CUDA
+            device raises: the node never carries on on the CPU.
     """
 
     outputs = ("labels", "props", "n_regions", "regions")
@@ -181,7 +199,7 @@ class DeviceTiledSegmentation(Node):
         model,
         config,
         postprocess_config,
-        device="cpu",
+        device="cuda",
     ) -> None:
         self.image = image
         super().__init__()
@@ -189,7 +207,7 @@ class DeviceTiledSegmentation(Node):
             raise NotImplementedError("merge_segments_distance > 0 is not ported yet")
         if not getattr(config, "device_crops", True):
             raise NotImplementedError("device_crops: false is not ported yet")
-        self._device = torch.device(device)
+        self._device = _resolve_device(device)
         self._module = model.module.to(self._device).eval()
         self._cfg = config
         self._post_cfg = postprocess_config
@@ -501,18 +519,19 @@ def build_torch_segmentation(
     image: Variable,
     meta: Variable,
     process_meta: Dict,
-    device="cpu",
+    device="cuda",
 ):
     """Model segmentation: [stitch →] tile inference → device blend and
     postprocess → region extraction → ROI, metadata and ZooProcess features.
 
     ``config`` carries the ``JaxSegmentationConfig`` fields (read by
-    attribute); returns ``(roi, meta, mask)`` variables.
+    attribute); ``device`` runs the model and the frame chain (the card
+    unless the caller asks for the CPU). Returns ``(roi, meta, mask)``
+    variables.
     """
-    from maze_image_processing_pipeline_tpu.engine import Filter, Stitch, StreamBuffer
-
     from ..models.model_io import load_model
 
+    device = _resolve_device(device)
     if not getattr(config, "device_blend", True):
         raise NotImplementedError("the host-blend path (device_blend: false) is not ported yet")
     if config.full_frame_archive_fn is not None:
@@ -549,8 +568,6 @@ def build_torch_segmentation(
     )
 
     def recalc_metadata(region, m):
-        from maze_image_processing_pipeline_tpu.loki.meta import format_object_id
-
         m = dict(m)
         y0, x0, y1, x1 = region.bbox
         m["object_posx"] = x0
@@ -566,8 +583,6 @@ def build_torch_segmentation(
 
     with contextlib.ExitStack() as region_stack:
         if config.n_threads > 1:
-            from maze_image_processing_pipeline_tpu.engine import DataParallelPipeline
-
             region_stack.enter_context(DataParallelPipeline(executor=config.n_threads))
         roi = ExtractROI(
             image,

@@ -1,9 +1,9 @@
-"""Model checkpoints: the JAX package's directory format, read into PyTorch.
+"""Model checkpoints: the JAX package's directory format, in PyTorch.
 
 A checkpoint is a directory with ``meta.json`` (architecture + metadata)
 and ``params.msgpack`` (the flax parameter tree), as written by
 ``maze_image_processing_pipeline_tpu.models.save_model``. This module reads
-it without flax or the ``msgpack`` package:
+and writes it without flax or the ``msgpack`` package:
 
 * :func:`msgpack_restore` — a small decoder for the msgpack subset flax
   writes (maps, arrays, strings, binaries, numbers, and the ndarray and
@@ -13,6 +13,9 @@ it without flax or the ``msgpack`` package:
   OIHW, ``kernel``/``scale`` → ``weight``). It is the inverse of the JAX
   package's ``import_torch_state_dict``;
 * :func:`load_model` — meta.json + params.msgpack → :class:`LoadedModel`;
+* :func:`msgpack_serialize`, :func:`params_to_jax` and :func:`save_model`
+  — the inverse: a module → a checkpoint directory that the JAX package's
+  ``load_model`` reads (the counterpart of its ``save_model``);
 * :func:`init_unet_params` — seeded random U-Net parameters in the flax
   layout (a stand-in for a trained checkpoint).
 """
@@ -31,14 +34,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from .unet import UNet
+from .unet import _DTYPES, UNet
 
 __all__ = [
     "LoadedModel",
     "build_model",
     "load_model",
     "msgpack_restore",
+    "msgpack_serialize",
     "params_from_jax",
+    "params_to_jax",
+    "save_model",
     "init_unet_params",
 ]
 
@@ -162,6 +168,90 @@ def msgpack_restore(data: bytes):
     return out
 
 
+class _Writer:
+    """msgpack in the encodings ``msgpack.packb(..., use_bin_type=True)``
+    picks: the smallest format for each length and integer."""
+
+    def __init__(self) -> None:
+        self.parts: list = []
+
+    def sized(self, n: int, small: Optional[int], limit: int, codes) -> None:
+        if small is not None and n < limit:
+            self.parts.append(bytes([small | n]))
+            return
+        for code, fmt in codes:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                self.parts.append(bytes([code]) + struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack object too large ({n})")
+
+    def obj(self, x) -> None:  # noqa: C901 - one branch per msgpack type
+        if x is None or isinstance(x, bool):
+            self.parts.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[x])
+        elif isinstance(x, np.ndarray):
+            self.ext(1, _ndarray_bytes(x))
+        elif isinstance(x, np.generic):
+            self.ext(3, _ndarray_bytes(np.asarray(x)))
+        elif isinstance(x, int):
+            if 0 <= x < 0x80 or -32 <= x < 0:
+                self.parts.append(struct.pack(">b" if x < 0 else ">B", x))
+            elif x >= 0:
+                self.sized(x, None, 0, [(0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")])
+            else:
+                for code, fmt, lo in ((0xD0, ">b", -(1 << 7)), (0xD1, ">h", -(1 << 15)), (0xD2, ">i", -(1 << 31)), (0xD3, ">q", -(1 << 63))):
+                    if x >= lo:
+                        self.parts.append(bytes([code]) + struct.pack(fmt, x))
+                        break
+        elif isinstance(x, float):
+            self.parts.append(b"\xcb" + struct.pack(">d", x))
+        elif isinstance(x, str):
+            b = x.encode()
+            self.sized(len(b), 0xA0, 32, [(0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")])
+            self.parts.append(b)
+        elif isinstance(x, (bytes, bytearray)):
+            self.sized(len(x), None, 0, [(0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")])
+            self.parts.append(bytes(x))
+        elif isinstance(x, (list, tuple)):
+            self.sized(len(x), 0x90, 16, [(0xDC, ">H"), (0xDD, ">I")])
+            for v in x:
+                self.obj(v)
+        elif isinstance(x, Mapping):
+            self.sized(len(x), 0x80, 16, [(0xDE, ">H"), (0xDF, ">I")])
+            for k in sorted(x):  # flax flattens the tree first, sorting keys
+                self.obj(k)
+                self.obj(x[k])
+        else:
+            raise TypeError(f"cannot serialize {type(x).__name__} to msgpack")
+
+    def ext(self, code: int, data: bytes) -> None:
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixed:
+            self.parts.append(bytes([fixed[len(data)]]))
+        else:
+            self.sized(len(data), None, 0, [(0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")])
+        self.parts.append(struct.pack(">b", code) + data)
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    """flax's ndarray payload: msgpack of (shape, dtype name, C-order bytes)."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be serialized")
+    if arr.nbytes > 2**30:
+        raise ValueError("arrays above 1 GiB need flax's chunked format, which is not written here")
+    w = _Writer()
+    w.obj((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+    return b"".join(w.parts)
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode a tree of dicts, lists and numpy arrays as
+    ``flax.serialization.msgpack_serialize`` does: dict keys sorted, arrays
+    as msgpack extension 1, numpy scalars as extension 3."""
+    w = _Writer()
+    w.obj(tree)
+    return b"".join(w.parts)
+
+
 # -- parameters -------------------------------------------------------------
 
 
@@ -196,6 +286,32 @@ def params_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
 
     walk(params, ())
     return out
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's state dict → a flax parameter tree (``{"params": ...}``,
+    float32 numpy leaves); the inverse of :func:`params_from_jax`.
+
+    ``weight`` becomes ``kernel`` (4-D conv weights OIHW → HWIO, 2-D dense
+    weights (out, in) → (in, out)) or, 1-D, a norm's ``scale``; every other
+    leaf keeps its name.
+    """
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        *path, name = key.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if name == "weight":
+            if arr.ndim == 4:
+                name, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                name, arr = "kernel", arr.T
+            else:
+                name = "scale"
+        d = tree
+        for p in path:
+            d = d.setdefault(p, {})
+        d[name] = np.ascontiguousarray(arr)
+    return {"params": tree}
 
 
 def init_unet_params(config: Mapping, seed: int = 0) -> Dict:
@@ -265,3 +381,48 @@ def load_model(model_fn: str, dtype: Optional[str] = None) -> LoadedModel:
     meta = dict(meta)
     meta["architecture"] = {"type": arch_type, "config": config}
     return LoadedModel(module.eval(), meta)
+
+
+def _config_value(value):
+    if isinstance(value, torch.dtype):
+        return {v: k for k, v in _DTYPES.items()}[value]
+    if isinstance(value, tuple):
+        return list(value)
+    return value
+
+
+def save_model(
+    model_dir: str,
+    module: nn.Module,
+    *,
+    outputs: Optional[Dict[str, Dict]] = None,
+    extra_meta: Optional[Dict] = None,
+) -> None:
+    """Write ``module`` as a checkpoint directory: ``params.msgpack`` in
+    flax's msgpack format and ``meta.json``.
+
+    The counterpart of the JAX package's ``save_model``: the JAX package's
+    ``load_model`` reads what this writes, and :func:`load_model` reads what
+    either writes. The architecture's config holds the module's
+    ``config_fields`` (the fields the flax module shares with it; the U-Net's
+    ``in_channels`` is not one), else every constructor argument the module
+    keeps as an attribute.
+    """
+    arch_type = {v: k for k, v in _ARCHITECTURES.items()}[type(module)]
+    names = getattr(type(module), "config_fields", None)
+    if names is None:
+        names = [n for n in inspect.signature(type(module)).parameters if hasattr(module, n)]
+    config = {n: _config_value(getattr(module, n)) for n in names}
+    meta = {
+        "format": "maze-ipp-tpu-model",
+        "architecture": {"type": arch_type, "config": config},
+    }
+    if outputs is not None:
+        meta["outputs"] = outputs
+    if extra_meta:
+        meta.update(extra_meta)
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "params.msgpack"), "wb") as f:
+        f.write(msgpack_serialize(params_to_jax(module.state_dict())))
+    with open(os.path.join(model_dir, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)

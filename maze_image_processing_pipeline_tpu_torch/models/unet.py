@@ -70,6 +70,10 @@ class UNet(nn.Module):
         in_channels: input channels (3: gray frames are broadcast to RGB).
     """
 
+    # The meta.json config a checkpoint records; the flax U-Net takes the
+    # same fields (it has no in_channels: it reads them off its input).
+    config_fields = ("out_channels", "base_features", "depth", "dtype", "norm")
+
     def __init__(
         self,
         out_channels: int = 2,

@@ -6,8 +6,8 @@ same results:
 1. **Init** — every foreground pixel takes its linear index + 1 as label.
 2. **Propagate** — sweeps of horizontal pass, vertical pass down, vertical
    pass up, horizontal pass, to a fixpoint capped at ``max_iters`` sweeps.
-   The horizontal pass is :func:`.row_scan.hpass` (a CUDA kernel on the
-   card); the vertical pass walks the rows one at a time.
+   The horizontal pass is :func:`.row_scan.hpass` and the vertical pass
+   :func:`vertical_pass` (CUDA kernels on the card, K1 and K4).
 3. **Compact** — each component's final label is the linear index of its
    raster-first pixel, so the raster rank of the roots (a per-row prefix
    sum, :func:`.row_scan.cumsum_rows`, plus a prefix sum of row totals) gives
@@ -16,22 +16,41 @@ same results:
 
 Region tables (areas, border contact, the id remap) use ``bincount`` and
 ``gather`` over the region axis instead of one-hot compares.
+:func:`remove_small_objects` is one CUDA kernel on the card (K8).
+
+Each kernel's wrapper takes the plain PyTorch version (``*_plain``, in this
+module or :mod:`.row_scan`) for a tensor on the CPU; a CUDA tensor always
+launches the kernel, and the wrapper raises if the kernel does not take it
+or does not launch. ``vertical_pass.launches`` and
+``remove_small_objects.launches`` count the launches.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
-from .row_scan import INF, cumsum_rows, hpass
+from .row_scan import INF, _check_cuda, _raise_on, cumsum_rows, hpass
 
-__all__ = ["label", "remove_small_objects", "clear_border", "region_areas"]
+__all__ = [
+    "label",
+    "vertical_pass",
+    "vertical_pass_plain",
+    "remove_small_objects",
+    "remove_small_objects_plain",
+    "clear_border",
+    "region_areas",
+]
+
+_MAX_W8 = 8192  # widest row the 8-connected kernel takes (8 columns a thread)
 
 
-def _vertical_pass(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, reverse: bool):
-    """Row-sequential min propagation through foreground (with diagonal
-    links for 8-connectivity), top to bottom or bottom to top."""
+def vertical_pass_plain(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, reverse: bool):
+    """Plain version of K4: row-sequential min propagation through
+    foreground (with diagonal links for 8-connectivity), top to bottom or
+    bottom to top."""
     H = lab.shape[-2]
     out = torch.empty_like(lab)
     carry = torch.full_like(lab[..., 0, :], INF)
@@ -48,11 +67,57 @@ def _vertical_pass(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, rever
     return out
 
 
+def vertical_pass(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, reverse: bool) -> torch.Tensor:
+    """CCL vertical pass over (..., H, W) frames (K4).
+
+    Args:
+        lab: int32 labels (..., H, W).
+        fg: bool or uint8 foreground mask of the same shape.
+        connectivity: 2 = 8-connected (diagonal links), 1 = 4-connected.
+        reverse: walk the rows bottom to top.
+
+    Returns:
+        int32 (..., H, W): after each row, the running minimum carried
+        through foreground from the previous row; ``2**30`` on background.
+    """
+    if lab.dtype != torch.int32:
+        raise TypeError(f"vertical_pass: labels must be int32, got {lab.dtype}")
+    if fg.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"vertical_pass: mask must be bool or uint8, got {fg.dtype}")
+    if lab.shape != fg.shape or lab.dim() < 2:
+        raise ValueError(f"vertical_pass: need equal (..., H, W) shapes, got {tuple(lab.shape)} and {tuple(fg.shape)}")
+    if connectivity not in (1, 2):
+        raise ValueError("vertical_pass: connectivity must be 1 or 2")
+    if lab.device.type == "cpu":
+        return vertical_pass_plain(lab, fg, connectivity, reverse)
+    _check_cuda("vertical_pass", lab, fg)
+    H, W = lab.shape[-2:]
+    if connectivity == 2 and W > _MAX_W8:
+        raise ValueError(f"vertical_pass: 8-connected rows wider than {_MAX_W8} are not supported, got {W}")
+    out = torch.empty_like(lab)
+    if out.numel() == 0:
+        return out
+    from .._build import kernels
+
+    with torch.cuda.device(lab.device):
+        stream = torch.cuda.current_stream(lab.device).cuda_stream
+        err = kernels().vertical_pass_launch(
+            lab.data_ptr(), fg.data_ptr(), out.data_ptr(), math.prod(lab.shape[:-2]), H, W,
+            connectivity, int(reverse), stream,
+        )
+    _raise_on("vertical_pass", err)
+    vertical_pass.launches += 1
+    return out
+
+
+vertical_pass.launches = 0
+
+
 def _fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters: int):
     def sweep(lab):
         lab = hpass(lab, fg)
-        lab = _vertical_pass(lab, fg, connectivity, reverse=False)
-        lab = _vertical_pass(lab, fg, connectivity, reverse=True)
+        lab = vertical_pass(lab, fg, connectivity, reverse=False)
+        lab = vertical_pass(lab, fg, connectivity, reverse=True)
         return hpass(lab, fg)
 
     lab = sweep(lab0)
@@ -139,13 +204,62 @@ def _relabel_keep(labels: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     return out.reshape(labels.shape).to(torch.int32)
 
 
-def remove_small_objects(
+def remove_small_objects_plain(
     labels: torch.Tensor, min_area: int, num_segments: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Drop regions below ``min_area`` pixels; re-compact ids."""
+    """Plain version of K8: drop regions below ``min_area`` pixels;
+    re-compact ids."""
     keep = region_areas(labels, num_segments) >= min_area
     keep[..., 0] = False
     return _relabel_keep(labels, keep), keep.sum(-1).to(torch.int32)
+
+
+def remove_small_objects(
+    labels: torch.Tensor, min_area: int, num_segments: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop regions below ``min_area`` pixels and re-compact ids (K8).
+
+    Args:
+        labels: int32 label frames (..., H, W).
+        min_area: smallest area kept; id 0 is never kept.
+        num_segments: R, the id range measured; ids outside [0, R) map to 0.
+
+    Returns:
+        (labels, n): int32 (..., H, W) with kept ids renumbered 1..n in id
+        order, and int32 (...,) the number kept.
+    """
+    if labels.dtype != torch.int32:
+        raise TypeError(f"remove_small_objects: labels must be int32, got {labels.dtype}")
+    if labels.dim() < 2:
+        raise ValueError(f"remove_small_objects: need (..., H, W) labels, got {tuple(labels.shape)}")
+    if num_segments < 1:
+        raise ValueError(f"remove_small_objects: num_segments must be positive, got {num_segments}")
+    if labels.device.type == "cpu":
+        return remove_small_objects_plain(labels, min_area, num_segments)
+    _check_cuda("remove_small_objects", labels)
+    H, W = labels.shape[-2:]
+    batch_shape = labels.shape[:-2]
+    B = math.prod(batch_shape)
+    out = torch.empty_like(labels)
+    areas = torch.zeros((B, num_segments), dtype=torch.int32, device=labels.device)
+    new_ids = torch.empty_like(areas)
+    n = torch.empty((B,), dtype=torch.int32, device=labels.device)
+    if B == 0:
+        return out, n.reshape(batch_shape)
+    from .._build import kernels
+
+    with torch.cuda.device(labels.device):
+        stream = torch.cuda.current_stream(labels.device).cuda_stream
+        err = kernels().remove_small_objects_launch(
+            labels.data_ptr(), out.data_ptr(), areas.data_ptr(), new_ids.data_ptr(), n.data_ptr(),
+            B, H * W, num_segments, int(min_area), stream,
+        )
+    _raise_on("remove_small_objects", err)
+    remove_small_objects.launches += 1
+    return out, n.reshape(batch_shape)
+
+
+remove_small_objects.launches = 0
 
 
 def clear_border(

@@ -6,7 +6,8 @@ scores are ~0 or ~1 and no pixel sits at the 0.5 threshold. The frames keep
 clear of the threshold too (noise below 40, objects from 100 up). Region
 counts, bounding boxes, masks and filled areas must be equal; the float
 statistics agree to rtol 1e-5 (atol 1e-3 for values that cancel to ~0, as
-in ``test_torch_regionprops.py``).
+in ``test_torch_regionprops.py``). Each package's nodes run in that
+package's own engine; the port's run on the CPU, asked for by name.
 """
 
 from types import SimpleNamespace
@@ -18,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from maze_image_processing_pipeline_tpu.engine import Call, Pipeline, Unpack
+from maze_image_processing_pipeline_tpu import engine as j_engine
+from maze_image_processing_pipeline_tpu.engine import image as j_image
 from maze_image_processing_pipeline_tpu.loki import device_seg as jseg
 from maze_image_processing_pipeline_tpu.loki.config_schema import (
     JaxSegmentationConfig,
@@ -27,7 +29,8 @@ from maze_image_processing_pipeline_tpu.loki.config_schema import (
 from maze_image_processing_pipeline_tpu.models import load_model as j_load
 from maze_image_processing_pipeline_tpu.models import model_io as j_model_io
 from maze_image_processing_pipeline_tpu.models import save_model
-from maze_image_processing_pipeline_tpu_torch.engine.image import FindRegions
+from maze_image_processing_pipeline_tpu_torch import engine as t_engine
+from maze_image_processing_pipeline_tpu_torch.engine import image as t_image
 from maze_image_processing_pipeline_tpu_torch.loki import device_seg as tseg
 from maze_image_processing_pipeline_tpu_torch.models import model_io as t_model_io
 
@@ -98,13 +101,15 @@ def _configs(model_dir, **kw):
 
 
 def _run(node, frames, model, cfg, post, **kw):
+    """``node`` over ``frames`` in its own package's engine."""
+    engine, image = (t_engine, t_image) if node is tseg.DeviceTiledSegmentation else (j_engine, j_image)
     out = []
-    with Pipeline() as p:
-        img = Unpack(frames)
+    with engine.Pipeline() as p:
+        img = engine.Unpack(frames)
         labels, props, n, regions = node(img, model, cfg, post, **kw)
-        Call(lambda lab, pr, nn_: out.append(("frame", lab, pr, int(nn_))), labels, props, n)
-        region = FindRegions(labels, img, padding=cfg.padding, props=props, regions=regions)
-        Call(lambda r: out.append(("region", r)), region)
+        engine.Call(lambda lab, pr, nn_: out.append(("frame", lab, pr, int(nn_))), labels, props, n)
+        region = image.FindRegions(labels, img, padding=cfg.padding, props=props, regions=regions)
+        engine.Call(lambda r: out.append(("region", r)), region)
     p.run()
     return out
 
@@ -136,7 +141,7 @@ def test_slice_matches_jax(model_dir):
     cfg, post = _configs(model_dir)
     frames = _frames()
     ref = _run(jseg.DeviceTiledSegmentation, frames, j_load(model_dir, dtype="float32"), cfg, post)
-    ours = _run(tseg.DeviceTiledSegmentation, frames, t_model_io.load_model(model_dir, dtype="float32"), cfg, post)
+    ours = _run(tseg.DeviceTiledSegmentation, frames, t_model_io.load_model(model_dir, dtype="float32"), cfg, post, device="cpu")
     n_regions = [o[3] for o in ours if o[0] == "frame"]
     # max_regions=6 overflows on some frames: the host fallback is covered.
     assert max(n_regions) > post.max_regions - 1 and sum(n_regions) > 10
@@ -171,7 +176,7 @@ def test_mixed_shape_buckets_keep_arrival_order(model_dir):
             img[(yy - 30 - 60 * b) ** 2 + (xx - int(rng.integers(30, W - 30))) ** 2 <= 100] = 200
         frames.append(img)
         counts.append(n)
-    out = _run(tseg.DeviceTiledSegmentation, frames, t_model_io.load_model(model_dir), cfg, post)
+    out = _run(tseg.DeviceTiledSegmentation, frames, t_model_io.load_model(model_dir), cfg, post, device="cpu")
     assert [o[3] for o in out if o[0] == "frame"] == counts
 
 
@@ -181,14 +186,16 @@ def test_unported_options_raise(model_dir):
     merge = SimpleNamespace(**{**POST, "merge_segments_distance": 3, "clear_border": False})
     POST_NS = SimpleNamespace(**{**POST, "merge_segments_distance": 0, "clear_border": False})
     with pytest.raises(NotImplementedError):
-        tseg.DeviceTiledSegmentation(None, model, cfg, merge)
+        tseg.DeviceTiledSegmentation(None, model, cfg, merge, device="cpu")
     with pytest.raises(NotImplementedError):
-        tseg.DeviceTiledSegmentation(None, model, _configs(model_dir, device_crops=False)[0], POST_NS)
+        tseg.DeviceTiledSegmentation(None, model, _configs(model_dir, device_crops=False)[0], POST_NS, device="cpu")
     for bad in (dict(device_blend=False), dict(full_frame_archive_fn="x.zip")):
-        with Pipeline():
+        with t_engine.Pipeline():
             cfg_bad, _ = _configs(model_dir, stitch=False, **bad)
             with pytest.raises(NotImplementedError):
-                tseg.build_torch_segmentation(cfg_bad, "", Unpack([]), Unpack([]), {})
+                tseg.build_torch_segmentation(
+                    cfg_bad, "", t_engine.Unpack([]), t_engine.Unpack([]), {}, device="cpu"
+                )
 
 
 def test_build_torch_segmentation_matches_jax(model_dir):
@@ -211,17 +218,17 @@ def test_build_torch_segmentation_matches_jax(model_dir):
         batch_size=4, padding=5, postprocess=SegmentationPostprocessingConfig(**POST),
     )
 
-    def run(build):
+    def run(engine, build, **kw):
         out = []
-        with Pipeline() as p:
-            img, meta = Unpack(items).unpack(2)
-            roi, meta_out, mask = build(cfg, "", img, meta, {})
-            Call(lambda *a: out.append(a), roi, meta_out, mask)
+        with engine.Pipeline() as p:
+            img, meta = engine.Unpack(items).unpack(2)
+            roi, meta_out, mask = build(cfg, "", img, meta, {}, **kw)
+            engine.Call(lambda *a: out.append(a), roi, meta_out, mask)
         p.run()
         return out
 
-    ref = run(jseg.build_jax_segmentation)
-    ours = run(tseg.build_torch_segmentation)
+    ref = run(j_engine, jseg.build_jax_segmentation)
+    ours = run(t_engine, tseg.build_torch_segmentation, device="cpu")
     assert len(ours) == len(ref) == 9
     for (r_roi, r_meta, r_mask), (o_roi, o_meta, o_mask) in zip(ref, ours):
         np.testing.assert_array_equal(o_roi, r_roi)

@@ -1,19 +1,28 @@
-"""The port runs without the packages that the CUDA machines do not have.
+"""The port stands alone: no JAX, no JAX package, nothing the card lacks.
 
-A subprocess blocks jax, flax, pandas, pydantic, yaml, cv2, PIL, h5py and
-msgpack (``sys.modules[name] = None`` makes any import of them fail), imports
-every module of the port and ``chip_smoke``, and runs one frame group of the
-segmentation slice on the CPU through the same code as ``chip_smoke.py``'s
-end-to-end phase, at a small size.
+* An AST check over every ``.py`` file of the port and ``chip_smoke.py``:
+  no ``import`` or ``from`` of ``maze_image_processing_pipeline_tpu`` or its
+  submodules (the ``_torch`` package is the port itself).
+* A subprocess blocks what the card's machine does not have (``jax``,
+  ``jaxlib``, ``flax``, ``h5py``) and the JAX package itself
+  (``sys.modules[name] = None`` makes any import of them fail), imports
+  every module of the port and ``chip_smoke``, runs one frame group of the
+  segmentation slice on the CPU through the same code as ``chip_smoke.py``'s
+  phase 5, and runs the port's ``loki`` Runner on a tiny LOKI haul built by
+  ``chip_smoke.make_loki_tree``, as its phase 6 does, at a small size.
 """
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_PACKAGE = "maze_image_processing_pipeline_tpu"
+PORT = JAX_PACKAGE + "_torch"
 
-BLOCKED = ["jax", "jaxlib", "flax", "pandas", "pydantic", "yaml", "cv2", "PIL", "h5py", "msgpack"]
+BLOCKED = ["jax", "jaxlib", "flax", "h5py", JAX_PACKAGE]
 
 SCRIPT = r"""
 import sys
@@ -22,7 +31,9 @@ for name in BLOCKED:
     sys.modules[name] = None
 
 import importlib
+import os
 import pkgutil
+import tempfile
 import types
 
 import maze_image_processing_pipeline_tpu_torch as pkg
@@ -30,7 +41,7 @@ import maze_image_processing_pipeline_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert "maze_image_processing_pipeline_tpu_torch.loki.device_seg" in names
+assert "maze_image_processing_pipeline_tpu_torch.loki.pipeline" in names
 
 import numpy as np
 import torch
@@ -49,10 +60,46 @@ seg = types.SimpleNamespace(**{{**vars(cs.SEGMENTATION), "tile_size": 128, "tile
 frames = cs.make_frames(2, 160, 200, 3, seed=1)
 per_frame, objects = cs.run_slice(torch.device("cpu"), frames, LoadedModel(module, {{}}), seg_cfg=seg)
 n = cs.check_objects(frames, per_frame, objects)
+print("frames", len(per_frame), "objects", n)
+
+work = tempfile.mkdtemp()
+data = os.path.join(work, "data")
+cs.make_loki_tree(data, n_frames=2, objects_per_frame=3, frame_shape=(180, 230), seed=2)
+unet = cs.write_unet(os.path.join(work, "unet"), cs.SMALL_UNET, "float32", seed=0, gain=1000.0)
+task = cs.loki_task(data, unet, os.path.join(work, "out"), device="cpu", dtype="float32",
+                    tile_size=128, tile_stride=96, batch_size=4, frame_batch=2)
+cs.run_loki(task)
+rows, members = cs.check_archive(os.path.join(work, "out", "LOKI_PS122-1_7.zip"))
 leaked = [m for m in BLOCKED if sys.modules.get(m) is not None]
 assert not leaked, leaked
-print("frames", len(per_frame), "objects", n)
+print("archive rows", rows)
 """
+
+
+def _port_files():
+    return sorted(Path(REPO, PORT).rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+
+
+def _imports_jax_package(node) -> bool:
+    if isinstance(node, ast.Import):
+        names = [a.name for a in node.names]
+    elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+        names = [node.module]
+    else:
+        return False
+    return any(n == JAX_PACKAGE or n.startswith(JAX_PACKAGE + ".") for n in names)
+
+
+def test_port_source_imports_nothing_of_the_jax_package():
+    files = _port_files()
+    assert len(files) > 30
+    offenders = [
+        f"{path.relative_to(REPO)}:{node.lineno}"
+        for path in files
+        for node in ast.walk(ast.parse(path.read_text(), str(path)))
+        if _imports_jax_package(node)
+    ]
+    assert not offenders, offenders
 
 
 def test_port_runs_without_the_packages_the_card_lacks():
@@ -63,3 +110,4 @@ def test_port_runs_without_the_packages_the_card_lacks():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert "frames 2" in res.stdout
+    assert "archive rows" in res.stdout

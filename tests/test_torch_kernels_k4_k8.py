@@ -1,0 +1,140 @@
+"""K4 (CCL vertical pass) and K8 (small-object removal) of the PyTorch port.
+
+The plain versions (``ops/label.py:vertical_pass_plain`` and
+``remove_small_objects_plain``) are held, bit for bit, against the TPU
+kernels in interpret mode (``attic/pallas_label.py``,
+``attic/pallas_relabel.py``) and against the JAX package's functions, on
+seeded numpy inputs; the results are integers, so equality is exact. The
+wrappers take the plain versions for CPU tensors. The CUDA kernels run only
+on the card (tests marked ``cuda``; ``python3 chip_smoke.py`` covers the
+main path's shapes).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from attic.pallas_label import vertical_pass_pallas
+from attic.pallas_relabel import remove_small_objects_pallas
+from maze_image_processing_pipeline_tpu.ops import label as jl
+from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+
+INF = 2**30
+
+
+def _vp_inputs(shape, density, seed):
+    rng = np.random.default_rng(seed)
+    fg = rng.random(shape) < density
+    lab = np.where(fg, rng.integers(1, 2**30, shape, dtype=np.int32), INF).astype(np.int32)
+    return lab, fg
+
+
+def _labels(shape, R, seed):
+    """Label frames with ids in [0, R + 20): some beyond the table, some
+    negative, background most common, region sizes spread around min_area."""
+    rng = np.random.default_rng(seed)
+    ids = (rng.random(shape) ** 3 * (R + 20)).astype(np.int32)  # high ids rare
+    ids[rng.random(shape) < 0.5] = 0
+    ids[rng.random(shape) < 0.02] = -3
+    return ids
+
+
+# Two frames, H = 21 (not a multiple of the TPU kernel's strip of 8), W = 24.
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+def test_vertical_pass_plain_matches_pallas_and_jax(connectivity, reverse, density):
+    lab, fg = _vp_inputs((2, 21, 24), density, seed=int(10 * density) + 2 * connectivity + reverse)
+    ours = tl.vertical_pass_plain(torch.from_numpy(lab), torch.from_numpy(fg), connectivity, reverse).numpy()
+    kernel = vertical_pass_pallas(
+        jnp.asarray(lab), jnp.asarray(fg), connectivity=connectivity, reverse=reverse, strip=8, interpret=True
+    )
+    np.testing.assert_array_equal(ours, np.asarray(kernel))
+    ref = jl._vertical_pass(jnp.asarray(lab), jnp.asarray(fg), connectivity, reverse, strip=8)
+    np.testing.assert_array_equal(ours, np.asarray(ref))
+    # The wrapper takes the plain version for CPU tensors.
+    wrapped = tl.vertical_pass(torch.from_numpy(lab), torch.from_numpy(fg), connectivity, reverse)
+    np.testing.assert_array_equal(wrapped.numpy(), ours)
+
+
+@pytest.mark.parametrize("min_area", [1, 3, 5])
+def test_remove_small_objects_plain_matches_pallas_and_jax(min_area):
+    R = 32
+    labels = np.abs(_labels((2, 19, 40), R, seed=min_area))
+    out, n = tl.remove_small_objects_plain(torch.from_numpy(labels), min_area, num_segments=R)
+    k_out, k_n = remove_small_objects_pallas(
+        jnp.asarray(labels), min_area, num_segments=R, tile_rows=8, interpret=True
+    )
+    np.testing.assert_array_equal(out.numpy(), np.asarray(k_out))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(k_n))
+    j_out, j_n = jl.remove_small_objects(jnp.asarray(labels), min_area, R)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(j_out))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(j_n))
+    assert (labels >= R).any() and int(n.min()) > 0
+    if min_area > 1:
+        assert int(n.max()) < R - 1  # some regions were dropped
+    w_out, w_n = tl.remove_small_objects(torch.from_numpy(labels), min_area, num_segments=R)
+    assert torch.equal(w_out, out) and torch.equal(w_n, n)
+
+
+def test_remove_small_objects_plain_maps_negative_ids_to_zero_as_jax():
+    R = 16
+    labels = _labels((1, 12, 30), R, seed=9)
+    out, n = tl.remove_small_objects_plain(torch.from_numpy(labels), 2, num_segments=R)
+    j_out, j_n = jl.remove_small_objects(jnp.asarray(labels), 2, R)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(j_out))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(j_n))
+    assert (out.numpy()[labels < 0] == 0).all()
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    lab = torch.zeros(2, 4, 5, dtype=torch.int32)
+    fg = torch.zeros(2, 4, 5, dtype=torch.bool)
+    with pytest.raises(TypeError):
+        tl.vertical_pass(lab.long(), fg, 2, False)
+    with pytest.raises(TypeError):
+        tl.vertical_pass(lab, fg.float(), 2, False)
+    with pytest.raises(ValueError):
+        tl.vertical_pass(lab, fg[:, :3], 2, False)
+    with pytest.raises(ValueError):
+        tl.vertical_pass(lab, fg, 3, False)
+    with pytest.raises(TypeError):
+        tl.remove_small_objects(lab.long(), 3, 8)
+    with pytest.raises(ValueError):
+        tl.remove_small_objects(lab, 3, 0)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1024, 1280), (8, 1024, 1), (8, 1024, 1000), (8, 1, 1280), (3, 5, 37)])
+def test_cuda_vertical_pass_matches_plain(shape):
+    dev = _card()
+    for density in (0.0, 0.05, 0.5, 1.0):
+        lab, fg = _vp_inputs(shape, density, seed=3)
+        lab_d, fg_d = torch.from_numpy(lab).to(dev), torch.from_numpy(fg).to(dev)
+        for connectivity in (1, 2):
+            for reverse in (False, True):
+                n = tl.vertical_pass.launches
+                out = tl.vertical_pass(lab_d, fg_d, connectivity, reverse)
+                assert tl.vertical_pass.launches == n + 1
+                assert torch.equal(out, tl.vertical_pass_plain(lab_d, fg_d, connectivity, reverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1024, 1280), (8, 1024, 1), (8, 1024, 1000), (8, 1, 1280), (3, 5, 37)])
+def test_cuda_remove_small_objects_matches_plain(shape):
+    dev = _card()
+    R = 256
+    labels = torch.from_numpy(_labels(shape, R, seed=4)).to(dev)
+    for min_area in (1, 30, 10**9):
+        n0 = tl.remove_small_objects.launches
+        out, n = tl.remove_small_objects(labels, min_area, R)
+        assert tl.remove_small_objects.launches == n0 + 1
+        ref, n_ref = tl.remove_small_objects_plain(labels, min_area, R)
+        assert torch.equal(out, ref) and torch.equal(n, n_ref)
