@@ -2,25 +2,36 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py            # the whole smoke run
-    python3 chip_smoke.py --stages   # phase 6 only, with a stage breakdown
-                                     # and the device's idle share
+    python3 chip_smoke.py --stages   # phases 6 and 7 only, with stage
+                                     # breakdowns and the device's idle share
 
 Builds the port's CUDA kernels from ``maze_image_processing_pipeline_tpu_torch/
 csrc`` and runs, one line of output per phase:
 
 0. the card: its name and power limit (``nvidia-smi``); no card → exit 1;
 1. the kernel build (one ``nvcc`` per source, all started together), timed;
-2. each kernel against its plain PyTorch version on the card, bit-exact, at
-   the main path's shape (8, 1024, 1280) and at edge shapes, with CUDA-event
+2. each kernel against its plain PyTorch version on the card, with CUDA-event
    times of both beside the kernel's bound:
    K1 ``hpass`` and K2 ``cumsum_rows`` (fg densities 0-1, a serpentine),
    K4 ``vertical_pass`` (the same masks, both connectivities, both
-   directions), K8 ``remove_small_objects`` (R = 256, min_area 30, ids
-   beyond R, all-background and one-region frames);
+   directions; random labels and the raster ids ``label`` seeds), K8
+   ``remove_small_objects`` (R = 256, min_area 30, ids beyond R,
+   all-background and one-region frames), all bit-exact at the loki path's
+   shape (8, 1024, 1280) and at edge shapes, and K1, K2, K4 at the fused
+   measurement's shapes of phase 7 (``PREDICT_LABEL_SHAPES``: chunks of up
+   to 32 canvases of 64-512 × 128-512) on thresholded-blob and noisy masks;
+   K5 ``group_norm`` at the path's shapes (16, 32, 1024, 1024) (loki level
+   0), (64, 32, 256, 256) (semseg level 0) and (256, 32, 128, 128)
+   (classifier stage 1) and at odd shapes ((3, 16, 5, 7), C = 512, H·W not
+   a multiple of 8), NCHW and channels_last, float32 within rtol 1e-5 /
+   atol 1e-5, bfloat16 and float16 within one ulp, with ``F.group_norm``'s
+   time beside it; the layouts the U-Net and the classifier feed their
+   norms are printed;
 3. the frame chain (morphology → CCL → region measurement → filled area) on
    the card against the same chain on the CPU;
-4. the full-width U-Net (out_channels=1, base_features=32, depth=4) in
-   float32 on the card against the CPU;
+4. the full-width U-Net (out_channels=1, base_features=32, depth=4) and
+   ``ConvClassifier(8)`` in float32 on the card (their norms through K5)
+   against the CPU;
 5. the LOKI segmentation slice on the card at the standard haul's size:
    DeviceTiledSegmentation → FindRegions → ExtractROI →
    CalculateZooProcessFeatures over 24 frames of 1024×1280 with 20 objects
@@ -33,12 +44,29 @@ csrc`` and runs, one line of output per phase:
    seeded random weights written by the port's ``save_model``; one warm-up,
    then the timed run. Then a smaller task (2 frames, ``UNet(1, 8, 2)``
    float32, TF32 off) on the card and on the CPU: the two archives must
-   agree.
+   agree;
+7. ``maze-ipp predict`` through the port's Runner on the card, from an
+   EcoTaxa archive of 480 seeded blob crops (40-200 px a side, one in ten
+   260-420 px, so that several tiles blend): the semseg task of
+   ``tools/bench_e2e.py`` (``UNet(2, 32, 4)`` bf16, tiles 256 / stride 192,
+   batch 64, chunk 32, ``fill_holes``, the device blend with fused
+   measurement; no ``save_raw_h5``) and its polytaxo task
+   (``ConvClassifier(8)`` bf16, input 256, batch 256, threshold 0.01), both
+   checkpoints seeded random weights written by the port's ``save_model``
+   (the U-Net's head scaled as ``write_unet(..., gain=1000)``); one warm-up
+   each, then the timed runs, objects/s of each. The fused measurement of
+   two of the warm-up's canvases (the chunk with the most pixels, the one
+   with the most rows) runs again on the card and on the CPU: the results
+   must agree. Then a small task (4 crops,
+   ``UNet(2, 4, 1)`` float32, ``ConvClassifier(4, (4, 8))`` float32, TF32
+   off) on the card and on the CPU: the ``.segmentation.zip`` archives must
+   agree, and so must the ``.polytaxo.zip`` archives.
 
-Every kernel must have launched in phase 5 and in phase 6 (counts set to 0
-just before each run). The last lines are a JSON object of the kernels, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero before the last line.
+Kernel launches are counted per phase (counts set to 0 just before each
+timed run, read just after): every kernel must launch in phases 5 and 6;
+K1, K2, K4 and K5 in phase 7. The last lines are a JSON object of the
+kernels, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``. Any failure raises and exits non-zero before the last line.
 """
 
 from __future__ import annotations
@@ -62,13 +90,18 @@ CSRC = "maze_image_processing_pipeline_tpu_torch/csrc"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
 
 KERNELS = {
-    # name: (source, TPU kernel it replaces, bytes per pixel that the
-    # function must move: each input read once, each output written once)
+    # name: (source, TPU kernel it replaces, bytes per pixel (element) that
+    # the function must move: each input read once, each output written once)
     "hpass": (f"{CSRC}/row_scan.cu", "maze_image_processing_pipeline_tpu/ops/pallas_scan.py:111", 4 + 1 + 4),
     "cumsum_rows": (f"{CSRC}/row_scan.cu", "maze_image_processing_pipeline_tpu/ops/pallas_scan.py:77", 4 + 4),
     "vertical_pass": (f"{CSRC}/vertical_pass.cu", "attic/pallas_label.py:58", 4 + 1 + 4),
     "remove_small_objects": (f"{CSRC}/relabel.cu", "attic/pallas_relabel.py:99", 4 + 4),
+    # bfloat16 activations, as every norm of the path: 2 B read, 2 B written.
+    "group_norm": (f"{CSRC}/group_norm.cu", "attic/pallas_norm.py:95", 2 + 2),
 }
+# The norms' (B, C, H, W) on the path: loki level 0 (16 tiles of 1024²),
+# semseg level 0 (64 tiles of 256²), classifier stage 1 (256 crops of 256²).
+GN_SHAPES = ((16, 32, 1024, 1024), (64, 32, 256, 256), (256, 32, 128, 128))
 
 # Frame-chain and segmentation settings of the end-to-end benchmark's loki
 # stage (tools/bench_e2e.py): postprocess min_area 30, closing radius 2; the
@@ -181,10 +214,35 @@ def max_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+def blob_masks(shape, seed: int) -> np.ndarray:
+    """Thresholded blob canvases as the fused measurement of phase 7 sees
+    them: noise below 0.5, discs (some with holes), specks, ``> 0.5``."""
+    rng = np.random.default_rng(seed)
+    B, H, W = shape
+    canvas = rng.random(shape, dtype=np.float32) * 0.45
+    yy, xx = np.mgrid[:H, :W]
+    for b in range(B):
+        for _ in range(int(rng.integers(1, 6))):
+            cy, cx, r = int(rng.integers(0, H)), int(rng.integers(0, W)), int(rng.integers(3, max(4, H // 4)))
+            d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+            disc = d2 <= r * r
+            if rng.random() < 0.5:
+                disc &= d2 >= (r // 2) ** 2
+            canvas[b][disc] = 0.9
+        canvas[b, rng.integers(0, H, 40), rng.integers(0, W, 40)] = 0.8
+    return canvas > 0.5
+
+
+# Label batches of the fused measurement (phase 7): chunks of up to 32
+# objects on (Hq, Wq) canvases of 64-512 rows and 128-512 columns.
+PREDICT_LABEL_SHAPES = ((32, 256, 256), (8, 512, 512), (29, 64, 128), (3, 384, 512))
+
+
 def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000), (8, 1, 1280))) -> dict:
     """K1, K2, K4 and K8 against their plain versions on the card,
-    bit-exact, at the main path's shape and at edge shapes; CUDA-event
-    times at the main path's shape."""
+    bit-exact, at the main path's shape, at edge shapes and (K1, K2, K4) at
+    the fused measurement's shapes; CUDA-event times at the main path's
+    shape."""
     import torch
 
     from maze_image_processing_pipeline_tpu_torch.ops import label as tl
@@ -194,6 +252,7 @@ def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000
     cases = [(f"{main} fg={p}", main, p) for p in (0.0, 0.05, 0.5, 1.0)]
     cases += [(f"{main} serpentine", main, "serpentine")]
     cases += [(f"{s} fg=0.5", s, 0.5) for s in edges]
+    cases += [(f"{s} {p}", s, p) for s in PREDICT_LABEL_SHAPES for p in ("blobs", 0.3)]
     err = dict.fromkeys(KERNELS, 0)
     out = {}
 
@@ -203,16 +262,25 @@ def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000
             raise AssertionError(f"{name} differs from its plain version at {where} by {e}")
 
     for where, shape, p in cases:
-        fg_np = serpentine(*shape) if p == "serpentine" else rng.random(shape) < p
+        if p == "serpentine":
+            fg_np = serpentine(*shape)
+        elif p == "blobs":
+            fg_np = blob_masks(shape, seed=int(rng.integers(1 << 30)))
+        else:
+            fg_np = rng.random(shape) < p
         fg = torch.from_numpy(fg_np).to(dev)
-        lab = torch.from_numpy(rng.integers(1, 2**30, shape, dtype=np.int32)).to(dev)
         ints = torch.from_numpy(rng.integers(0, 2, shape, dtype=np.int32)).to(dev)
-        record("hpass", max_err(row_scan.hpass(lab, fg), row_scan.hpass_plain(lab, fg)), where)
         record("cumsum_rows", max_err(row_scan.cumsum_rows(ints), row_scan.cumsum_rows_plain(ints)), where)
-        for conn in (1, 2):
-            for rev in (False, True):
-                e = max_err(tl.vertical_pass(lab, fg, conn, rev), tl.vertical_pass_plain(lab, fg, conn, rev))
-                record("vertical_pass", e, f"{where} connectivity={conn} reverse={rev}")
+        # Random labels, and the raster ids on the foreground that `label` seeds.
+        raster = torch.arange(1, math.prod(shape[1:]) + 1, dtype=torch.int32, device=dev).reshape(shape[1:])
+        random_lab = torch.from_numpy(rng.integers(1, 2**30, shape, dtype=np.int32)).to(dev)
+        for lab in (random_lab, torch.where(fg, raster, torch.tensor(2**30, dtype=torch.int32, device=dev))):
+            record("hpass", max_err(row_scan.hpass(lab, fg), row_scan.hpass_plain(lab, fg)), where)
+            for conn in (1, 2):
+                for rev in (False, True):
+                    e = max_err(tl.vertical_pass(lab, fg, conn, rev), tl.vertical_pass_plain(lab, fg, conn, rev))
+                    record("vertical_pass", e, f"{where} connectivity={conn} reverse={rev}")
+        lab = random_lab
         torch.cuda.synchronize()
         if shape == main and p == 0.05:
             px = lab.numel()
@@ -229,7 +297,8 @@ def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000
                                         bound_ms=bound_ms("vertical_pass", px), library_ms=None)
             say(f"  {where}: 8-connected vertical_pass {out['vertical_pass']['ms']:.4f} ms, "
                 f"4-connected {vp4:.4f} ms")
-        say(f"  {where}: hpass, cumsum_rows, vertical_pass (4/8-connected, down/up) bit-exact")
+        say(f"  {where}: hpass, cumsum_rows, vertical_pass (4/8-connected, down/up; random and raster "
+            f"labels) bit-exact, fg {float(fg_np.mean()):.3f}")
 
     R, min_area = 4 * POSTPROCESS.max_regions, POSTPROCESS.min_area
     lab_cases = [(f"{main} rectangles", region_labels(main, R, seed=2)),
@@ -254,6 +323,103 @@ def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000
         say(f"  {name} at {main}: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms"
             + (f", library {m['library_ms']:.4f} ms" if m["library_ms"] is not None else ""))
     return out
+
+
+def half_ulp(v, mantissa_bits: int):
+    """One ulp at |v| of a 16-bit float with ``mantissa_bits`` stored bits
+    (bfloat16 7, float16 10), at least 2**-16: below that the float32
+    statistics' rounding (~1e-6 of the unit scale) is larger than an ulp."""
+    import torch
+
+    e = torch.floor(torch.log2(torch.clamp(v.abs(), min=2.0 ** (mantissa_bits - 16))))
+    return torch.exp2(e - mantissa_bits)
+
+
+def norm_layouts(dev) -> str:
+    """The layouts the U-Net and the classifier feed their norms: one bf16
+    forward of each, with every ``group_norm`` call's input recorded."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models import layers
+    from maze_image_processing_pipeline_tpu_torch.models.classifier import ConvClassifier
+    from maze_image_processing_pipeline_tpu_torch.models.unet import UNet
+
+    seen = []
+    forward = layers.GroupNorm.forward
+
+    def spy(self, x):
+        seen.append("channels_last" if not x.is_contiguous() else "NCHW")
+        return forward(self, x)
+
+    out = []
+    layers.GroupNorm.forward = spy
+    try:
+        for name, model in (("U-Net", UNet(**SEMSEG_UNET)), ("classifier", ConvClassifier(**CLASSIFIER))):
+            seen.clear()
+            with torch.inference_mode():
+                model.to(dev)(torch.rand((2, 256, 256, 3), device=dev))
+            out.append(f"{name} {', '.join(f'{seen.count(k)} {k}' for k in sorted(set(seen)))}")
+    finally:
+        layers.GroupNorm.forward = forward
+    torch.cuda.synchronize()
+    return "; ".join(out)
+
+
+def phase_group_norm(dev) -> dict:
+    """K5 against its plain version on the card at the path's shapes and odd
+    shapes, both layouts, float32, bfloat16 and float16 (a task may ask
+    for any of them); times at the path's shapes in bfloat16."""
+    import torch
+    import torch.nn.functional as F
+
+    from maze_image_processing_pipeline_tpu_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shapes = list(GN_SHAPES) + [(3, 16, 5, 7), (4, 512, 9, 11), (8, 32, 30, 31)]
+    mantissa = {torch.bfloat16: 7, torch.float16: 10}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0, torch.float16: 0.0}
+    times = {}
+    for shape in shapes:
+        C = shape[1]
+        G = min(8, C)
+        w = torch.rand(C, device=dev, generator=gen) + 0.5
+        b = torch.randn(C, device=dev, generator=gen)
+        base = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for layout in ("NCHW", "channels_last"):
+                x = base.to(dtype)
+                if layout == "channels_last":
+                    x = x.contiguous(memory_format=torch.channels_last)
+                y = layers.group_norm(x, w, b, G)
+                ref = layers.group_norm_plain(x, w, b, G)
+                torch.cuda.synchronize()
+                check(y.stride() == x.stride(), f"group_norm changed the layout at {shape} {layout}")
+                err = float((y.float() - ref.float()).abs().max())
+                worst[dtype] = max(worst[dtype], err)
+                if dtype == torch.float32:
+                    ok = torch.allclose(y, ref, rtol=1e-5, atol=1e-5)
+                    detail = f"max abs diff {err:.3g}"
+                else:
+                    ok = bool(((y.float() - ref.float()).abs() <= half_ulp(ref.float(), mantissa[dtype])).all())
+                    detail = f"{int((y != ref).sum())} of {y.numel()} elements differ by one ulp"
+                if not ok:
+                    raise AssertionError(f"group_norm differs from its plain version at {shape} {dtype} {layout}")
+                if shape in GN_SHAPES and dtype == torch.bfloat16:
+                    times[(shape, layout)] = dict(
+                        ms=cuda_ms(lambda: layers.group_norm(x, w, b, G), iters=10),
+                        plain_ms=cuda_ms(lambda: layers.group_norm_plain(x, w, b, G), iters=3),
+                        library_ms=cuda_ms(lambda: F.group_norm(x, G, w.to(dtype), b.to(dtype), eps=1e-6), iters=10),
+                        bound_ms=bound_ms("group_norm", x.numel()),
+                    )
+                    t = times[(shape, layout)]
+                    detail += (f"; {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, F.group_norm "
+                               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+                say(f"  {shape} {str(dtype)[6:]} {layout}: group_norm within tolerance, {detail}")
+                del x, y, ref
+        del base
+    say(f"  group_norm feeds: {norm_layouts(dev)}")
+    main = times[(GN_SHAPES[0], "channels_last")]
+    return {"group_norm": dict(main, max_abs_err=worst[torch.bfloat16], bound_by="bytes")}
 
 
 def phase_frame_chain(dev, B=2, H=1024, W=1280) -> str:
@@ -320,7 +486,22 @@ def phase_unet(dev) -> str:
     # the CPU; 13 conv layers with GroupNorm stay well inside 1e-3 relative.
     if not (math.isfinite(err) and err <= 1e-3 * scale):
         raise AssertionError(f"U-Net logits differ by {err} (scale {scale})")
-    return f"logits (2, 256, 256, 1) max abs diff {err:.3g}, tolerance 1e-3 x {scale:.3g}"
+    msg = f"U-Net logits (2, 256, 256, 1) max abs diff {err:.3g}, tolerance 1e-3 x {scale:.3g}"
+
+    from maze_image_processing_pipeline_tpu_torch.models.classifier import ConvClassifier
+    from maze_image_processing_pipeline_tpu_torch.models.model_io import init_classifier_params
+
+    clf = ConvClassifier(**CLASSIFIER, dtype=torch.float32)
+    clf.load_state_dict(params_from_jax(init_classifier_params(CLASSIFIER, seed=4)))
+    x = torch.from_numpy(np.random.default_rng(6).random((4, 256, 256, 3), dtype=np.float32))
+    with torch.inference_mode():
+        y_cpu = clf.eval()(x)
+        y_gpu = clf.to(dev)(x.to(dev)).cpu()
+    scale = max(1.0, float(y_cpu.abs().max()))
+    err = float((y_gpu - y_cpu).abs().max())
+    if not (math.isfinite(err) and err <= 1e-3 * scale):
+        raise AssertionError(f"classifier logits differ by {err} (scale {scale})")
+    return msg + f"; classifier logits (4, 8) max abs diff {err:.3g}, tolerance 1e-3 x {scale:.3g}"
 
 
 def run_slice(dev, frames: np.ndarray, model, seg_cfg=SEGMENTATION, post_cfg=POSTPROCESS):
@@ -369,28 +550,27 @@ def check_objects(frames: np.ndarray, per_frame, objects) -> int:
     return n_regions
 
 
-def reset_launches() -> None:
+def _counted():
+    """The kernel wrappers, by name: each counts its launches."""
+    from maze_image_processing_pipeline_tpu_torch.models import layers
     from maze_image_processing_pipeline_tpu_torch.ops import label as tl
     from maze_image_processing_pipeline_tpu_torch.ops import row_scan
 
-    for fn in (row_scan.hpass, row_scan.cumsum_rows, tl.vertical_pass, tl.remove_small_objects):
+    return {"hpass": row_scan.hpass, "cumsum_rows": row_scan.cumsum_rows, "vertical_pass": tl.vertical_pass,
+            "remove_small_objects": tl.remove_small_objects, "group_norm": layers.group_norm}
+
+
+def reset_launches() -> None:
+    for fn in _counted().values():
         fn.launches = 0
 
 
-def read_launches(where: str) -> dict:
-    """The launch counts since :func:`reset_launches`; every kernel of the
-    main path must have launched."""
-    from maze_image_processing_pipeline_tpu_torch.ops import label as tl
-    from maze_image_processing_pipeline_tpu_torch.ops import row_scan
-
-    launches = {
-        "hpass": row_scan.hpass.launches,
-        "cumsum_rows": row_scan.cumsum_rows.launches,
-        "vertical_pass": tl.vertical_pass.launches,
-        "remove_small_objects": tl.remove_small_objects.launches,
-    }
-    for name, n in launches.items():
-        if n <= 0:
+def read_launches(where: str, expected=tuple(KERNELS)) -> dict:
+    """The launch counts since :func:`reset_launches`; every kernel the
+    phase's path runs (``expected``) must have launched."""
+    launches = {name: fn.launches for name, fn in _counted().items()}
+    for name in expected:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} did not launch in {where}")
     return launches
 
@@ -476,7 +656,7 @@ def make_loki_tree(root: str, n_frames: int, objects_per_frame: int, frame_shape
     return sample
 
 
-def write_unet(path: str, cfg: dict, dtype: str, seed: int, gain=None) -> str:
+def write_unet(path: str, cfg: dict, dtype: str, seed: int, gain=None, channel_names=("foreground",)) -> str:
     """A ``UNet`` checkpoint of seeded random weights, written by the port's
     ``save_model``. ``gain`` scales the 1×1 head and sets its bias to
     ``-gain / 2``, so that logits lie far from 0 (no score within float noise
@@ -491,8 +671,112 @@ def write_unet(path: str, cfg: dict, dtype: str, seed: int, gain=None) -> str:
         head["bias"][:] = -gain / 2
     module = UNet(**cfg, dtype=dtype)
     module.load_state_dict(params_from_jax(params))
-    save_model(path, module, outputs={"pred": {"channel_names": ["foreground"]}})
+    save_model(path, module, outputs={"pred": {"channel_names": list(channel_names)}})
     return path
+
+
+def write_classifier(path: str, cfg: dict, dtype: str, seed: int) -> str:
+    """A ``ConvClassifier`` checkpoint of seeded random weights, written by
+    the port's ``save_model`` (one output, ``probs``, without channel names,
+    as ``tools/bench_e2e.py`` writes it)."""
+    from maze_image_processing_pipeline_tpu_torch.models.classifier import ConvClassifier
+    from maze_image_processing_pipeline_tpu_torch.models.model_io import (
+        init_classifier_params,
+        params_from_jax,
+        save_model,
+    )
+
+    module = ConvClassifier(**cfg, dtype=dtype)
+    module.load_state_dict(params_from_jax(init_classifier_params(cfg, seed=seed)))
+    save_model(path, module, outputs={"probs": {}})
+    return path
+
+
+# -- phase 7: maze-ipp predict through the port's Runner ---------------------
+
+# The taxonomy of tests/test_predict_pipeline.py and tools/bench_e2e.py.
+TAXONOMY_YAML = """
+Copepoda:
+  _index: 0
+  Calanoida:
+    _index: 1
+  Cyclopoida:
+    _index: 2
+  _tags:
+    oil-sack: 3
+"""
+ECOTAXA_TAXONOMY = {
+    "display_name": ["Copepoda", "Calanoida", "Cyclopoida", "Calanoida with oil", "Copepoda with oil",
+                     "Cyclopoida with oil"],
+    "lineage": ["Copepoda", "Copepoda>Calanoida", "Copepoda>Cyclopoida", "Copepoda>Calanoida>oil-sack",
+                "Copepoda>oil-sack", "Copepoda>Cyclopoida>oil-sack"],
+}
+SEMSEG_UNET = dict(out_channels=2, base_features=32, depth=4)
+CLASSIFIER = dict(n_outputs=8, features=[32, 64, 128, 256])
+SMALL_SEMSEG_UNET = dict(out_channels=2, base_features=4, depth=1)
+SMALL_CLASSIFIER = dict(n_outputs=4, features=[4, 8])
+CHANNELS = ("prosoma", "oilsack")
+
+
+def make_taxonomy_files(root: str) -> tuple:
+    """The polytaxo taxonomy (YAML) and its EcoTaxa translation (CSV)."""
+    import pandas as pd
+
+    os.makedirs(root, exist_ok=True)
+    tax_fn, csv_fn = os.path.join(root, "taxonomy.yaml"), os.path.join(root, "ecotaxa_taxonomy.csv")
+    with open(tax_fn, "w") as f:
+        f.write(TAXONOMY_YAML)
+    pd.DataFrame(ECOTAXA_TAXONOMY).to_csv(csv_fn, index=False)
+    return tax_fn, csv_fn
+
+
+def make_crop_archive(fn: str, sizes, seed: int, with_annotations: bool = False) -> str:
+    """An EcoTaxa archive of blob crops of the given (h, w) sizes, written by
+    the port's ``EcotaxaWriter`` (PNG images, one TSV row each)."""
+    from maze_image_processing_pipeline_tpu_torch.dataio import EcotaxaWriter
+    from maze_image_processing_pipeline_tpu_torch.engine import Call, Pipeline, Unpack
+
+    rng = np.random.default_rng(seed)
+    crops = [draw_blob(rng, (h, w), r=int(max(3, min(h, w) // 4))) for h, w in sizes]
+
+    def meta_for(i):
+        m = {"object_id": f"obj{i:04d}", "object_area": 100.0 + i}
+        if with_annotations:
+            m["object_annotation_category"] = "Copepoda"
+            m["object_annotation_status"] = "validated" if i % 3 == 0 else "predicted"
+        return m
+
+    with Pipeline() as p:
+        i = Unpack(list(range(len(crops))))
+        EcotaxaWriter(fn, [(Call(lambda k: f"obj{k:04d}.png", i), Call(lambda k: crops[k], i))], Call(meta_for, i))
+    p.run()
+    return fn
+
+
+def semseg_task(archive: str, model_fn: str, target_dir: str, tiling=None, segmentation=None, **model) -> dict:
+    """The semseg task of ``tools/bench_e2e.py`` (tiles 256 / stride 192,
+    batch 64, chunk 32, fill_holes, the device blend with fused measurement),
+    without ``save_raw_h5``."""
+    return {
+        "input": {"path": archive},
+        "model": {"model_fn": model_fn, "batch_size": 64,
+                  "tiling": {"size": 256, "stride": 192, "chunk_size": 32, "in_flight": 2, **(tiling or {})},
+                  **model},
+        "segmentation": {"draw": False, "fill_holes": True, **(segmentation or {})},
+        "target_dir": target_dir,
+    }
+
+
+def polytaxo_task(archive: str, model_fn: str, target_dir: str, taxonomy: tuple, polytaxo=None, **model) -> dict:
+    """The polytaxo task of ``tools/bench_e2e.py`` (input 256, batch 256,
+    threshold 0.01, every object written)."""
+    return {
+        "input": {"path": archive},
+        "model": {"model_fn": model_fn, "batch_size": 256, "input_size": 256, **model},
+        "polytaxo": {"poly_taxonomy_fn": taxonomy[0], "ecotaxa_taxonomy_fn": taxonomy[1], "threshold": 0.01,
+                     "skip_unchanged_objects": False, **(polytaxo or {})},
+        "target_dir": target_dir,
+    }
 
 
 def loki_task(data: str, model_fn: str, target_dir: str, **segmentation) -> dict:
@@ -622,20 +906,148 @@ def phase_loki(limit: str, work: str) -> dict:
     return launches
 
 
-def stage_breakdown(dev, limit: str, work: str) -> None:
-    """Phase 6's task once more with a ``torch.cuda.synchronize()`` timer
-    around each stage of the segmentation node, then once under
-    ``torch.profiler`` for the device's busy time."""
+def crop_sizes(n: int, seed: int) -> list:
+    """Seeded crop sizes: 40-200 px a side, one in ten 260-420 px (several
+    256² tiles, blended)."""
+    rng = np.random.default_rng(seed)
+    return [tuple(int(v) for v in rng.integers(260, 421, 2)) if i % 10 == 0 else
+            tuple(int(v) for v in rng.integers(40, 201, 2)) for i in range(n)]
+
+
+def run_predict(task: dict) -> float:
+    """The port's predict Runner on ``task``; returns the wall time in
+    seconds, up to the card's last result."""
     import torch
 
-    from maze_image_processing_pipeline_tpu_torch.loki import device_seg
-    from maze_image_processing_pipeline_tpu_torch.ops import fill_holes, label, regionprops_fused
+    from maze_image_processing_pipeline_tpu_torch.predict.pipeline import Runner
 
-    data = os.path.join(work, "data")
-    make_loki_tree(data, n_frames=24, objects_per_frame=20, frame_shape=(1024, 1280), seed=8)
-    unet = write_unet(os.path.join(work, "unet"), UNET, "bfloat16", seed=6)
-    run_loki(loki_task(data, unet, os.path.join(work, "warm")))
-    plain = run_loki(loki_task(data, unet, os.path.join(work, "plain")))
+    t0 = time.perf_counter()
+    Runner._configure_and_run(task)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def predict_inputs(work: str) -> dict:
+    """Phase 7's archive of 480 crops, the full-width bf16 checkpoints and
+    the taxonomy files."""
+    return {
+        "archive": make_crop_archive(os.path.join(work, "crops", "crops.zip"), crop_sizes(480, seed=12), seed=13),
+        "unet": write_unet(os.path.join(work, "semseg_unet"), SEMSEG_UNET, "bfloat16", seed=0, gain=1000.0,
+                           channel_names=CHANNELS),
+        "clf": write_classifier(os.path.join(work, "clf"), CLASSIFIER, "bfloat16", seed=1),
+        "taxonomy": make_taxonomy_files(os.path.join(work, "tax")),
+    }
+
+
+def check_predict_archive(fn: str, n: int, columns) -> None:
+    """One row per object, finite values in the measured columns."""
+    with zipfile.ZipFile(fn) as z:
+        df = _read_archive_tsv(z)
+    check(len(df) == n and df["object_id"].is_unique, f"{fn}: {len(df)} rows, expected {n}")
+    for col in columns:
+        check(col in df.columns and np.isfinite(df[col].to_numpy(np.float64)).all(), f"{fn}: column {col}")
+
+
+def capture_fused_inputs(run) -> dict:
+    """``run()`` with the fused measurement's inputs recorded: those of the
+    call with the most pixels and of the call with the most rows."""
+    from maze_image_processing_pipeline_tpu_torch.ops import segment_measure
+
+    seen = {}
+    measure = segment_measure.measure_channels_packed
+
+    def spy(canvas, hs, ws, **kw):
+        Bo, Hq, Wq, _ = canvas.shape
+        for key, size in (("most pixels", Bo * Hq * Wq), ("most rows", Hq)):
+            if key not in seen or size > seen[key][0]:
+                seen[key] = (size, canvas.clone(), list(hs), list(ws), kw)
+        return measure(canvas, hs, ws, **kw)
+
+    segment_measure.measure_channels_packed = spy
+    try:
+        run()
+    finally:
+        segment_measure.measure_channels_packed = measure
+    return {k: v[1:] for k, v in seen.items()}
+
+
+def check_fused_measurement(captured: dict, ref_device="cpu") -> str:
+    """The fused measurement of each captured canvas where it lies (the card:
+    K1, K2, K4) against the same on ``ref_device`` (the plain versions):
+    raw area, area, overflow flags and row extremes equal, axis lengths
+    within rtol 1e-5 (float64 moment sums in other orders)."""
+    from maze_image_processing_pipeline_tpu_torch.ops.segment_measure import (
+        measure_channels_packed,
+        unpack_channel_stats,
+    )
+
+    check(captured, "the fused measurement never ran")
+    out = []
+    for key, (canvas, hs, ws, kw) in captured.items():
+        Bo, Hq, Wq, C = canvas.shape
+        got = unpack_channel_stats(measure_channels_packed(canvas, hs, ws, **kw).cpu().numpy(), Bo, Hq, C)
+        ref = unpack_channel_stats(measure_channels_packed(canvas.to(ref_device), hs, ws, **kw).cpu().numpy(),
+                                   Bo, Hq, C)
+        np.testing.assert_array_equal(got[1], ref[1], err_msg=f"row extremes, {key}")
+        for field, name in ((0, "raw_area"), (1, "area"), (3, "overflow")):
+            np.testing.assert_array_equal(got[0][:, field], ref[0][:, field], err_msg=f"{name}, {key}")
+        np.testing.assert_allclose(got[0][:, 2], ref[0][:, 2], rtol=1e-5, err_msg=f"axis_major_length, {key}")
+        out.append(f"{key} ({Bo}, {Hq}, {Wq}, {C}): {int(ref[0][:, 3].sum())} overflowing masks")
+    return "; ".join(out)
+
+
+def phase_predict(limit: str, work: str) -> dict:
+    """``maze-ipp predict`` (semseg, then polytaxo) at the benchmark's task
+    settings on the card, then a small task on the card and on the CPU."""
+    import torch
+
+    inp = predict_inputs(work)
+    semseg = lambda out: semseg_task(inp["archive"], inp["unet"], os.path.join(work, out))  # noqa: E731
+    poly = lambda out: polytaxo_task(inp["archive"], inp["clf"], os.path.join(work, out), inp["taxonomy"])  # noqa: E731
+    # Warm-up (cuDNN algorithm choice, allocator), keeping the fused
+    # measurement's inputs for the card-against-CPU check below.
+    fused_inputs = capture_fused_inputs(lambda: run_predict(semseg("semseg_warm")))
+    run_predict(poly("poly_warm"))
+    reset_launches()
+    wall_s = run_predict(semseg("semseg"))
+    wall_p = run_predict(poly("poly"))
+    launches = read_launches("phase 7", expected=("hpass", "cumsum_rows", "vertical_pass", "group_norm"))
+    measured = [f"object_{c}_{k}" for c in CHANNELS for k in ("raw_area", "area", "axis_major_length", "area_convex")]
+    check_predict_archive(os.path.join(work, "semseg", "crops.segmentation.zip"), 480, measured)
+    check_predict_archive(os.path.join(work, "poly", "crops.polytaxo.zip"), 480, [])
+    say(f"  semseg: 480 objects, wall {wall_s:.3f} s, {480 / wall_s:.3f} objects/s; polytaxo: 480 objects, "
+        f"wall {wall_p:.3f} s, {480 / wall_p:.3f} objects/s; launches {launches} [{limit}]")
+    t0 = time.perf_counter()
+    msg = check_fused_measurement(fused_inputs)
+    say(f"  fused measurement of the full-width run's canvases, card against CPU: equal ({msg}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    archive = make_crop_archive(os.path.join(work, "small", "crops.zip"), [(64, 64), (100, 90), (300, 170), (40, 56)],
+                                seed=14, with_annotations=True)
+    unet = write_unet(os.path.join(work, "unet_small2"), SMALL_SEMSEG_UNET, "float32", seed=0, gain=1000.0,
+                      channel_names=CHANNELS)
+    clf = write_classifier(os.path.join(work, "clf_small"), SMALL_CLASSIFIER, "float32", seed=0)
+    for device in ("cuda", "cpu"):
+        small = dict(device=device, dtype="float32", batch_size=2)
+        run_predict(semseg_task(archive, unet, os.path.join(work, f"p_{device}"), tiling={"size": 64, "stride": 48},
+                                **small))
+        run_predict(polytaxo_task(archive, clf, os.path.join(work, f"p_{device}"), inp["taxonomy"], input_size=64,
+                                  **small))
+    n = [compare_archives(os.path.join(work, "p_cpu", f), os.path.join(work, "p_cuda", f))
+         for f in ("crops.segmentation.zip", "crops.polytaxo.zip")]
+    check(n == [4, 4], f"the small task's archives hold {n} rows, expected 4 each")
+    say("  small task (4 crops, UNet(2, 4, 1) and ConvClassifier(4, (4, 8)) float32, TF32 off): card and CPU "
+        ".segmentation.zip agree, .polytaxo.zip agree")
+    return launches
+
+
+def timed_stages(patches, run):
+    """``run()`` with a ``torch.cuda.synchronize()`` timer around each
+    patched ``(object, attribute, name)``; returns (wall, {name: seconds})."""
+    import torch
 
     totals: dict = {}
 
@@ -650,6 +1062,76 @@ def stage_breakdown(dev, limit: str, work: str) -> None:
                 totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
         return wrapper
 
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    for obj, attr, name in patches:
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    try:
+        wall = run()
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    return wall, totals
+
+
+def idle_share(run, plain: float) -> None:
+    """``run()`` once under ``torch.profiler``: the device's busy time and
+    idle share, and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run()
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    say(f"device busy {busy_us / 1e6:.3f} s in a profiled run of {wall:.3f} s: idle share {1 - busy_us / 1e6 / wall:.3f}; "
+        f"against the unprofiled run's {plain:.3f} s: {1 - busy_us / 1e6 / plain:.3f}")
+    top = sorted(prof.key_averages(), key=lambda e: -getattr(e, "self_device_time_total", 0))[:12]
+    for e in top:
+        say(f"  {e.key[:70]}: {getattr(e, 'self_device_time_total', 0) / 1e3:.1f} ms device, {e.count} calls")
+
+
+def predict_stage_breakdown(limit: str, work: str) -> None:
+    """Phase 7's semseg and polytaxo tasks with a timer around each stage of
+    the inference nodes, then under ``torch.profiler``."""
+    from maze_image_processing_pipeline_tpu_torch.models import inference
+    from maze_image_processing_pipeline_tpu_torch.ops import segment_measure
+
+    inp = predict_inputs(work)
+    tasks = {
+        "semseg": lambda out: semseg_task(inp["archive"], inp["unet"], os.path.join(work, out)),
+        "polytaxo": lambda out: polytaxo_task(inp["archive"], inp["clf"], os.path.join(work, out), inp["taxonomy"]),
+    }
+    dti, ti = inference.DeviceTiledInference.node_class, inference.TorchInference.node_class
+    patches = [
+        (dti, "_forward", "U-Net forward (upload, pre, forward, sigmoid)"),
+        (dti, "_run_bucket", "dispatch of a bucket (tile cut, forward, blend, measurement, cast)"),
+        (segment_measure, "measure_channels_packed", "fused measurement (label K1/K2/K4, moments, extremes)"),
+        (dti, "_unpack_chunk", "fetch + unpack"),
+        (ti, "_dispatch", "classifier dispatch (stack, crop, upload, forward, cast)"),
+        (ti, "_fetch", "classifier fetch"),
+    ]
+    for name, task in tasks.items():
+        run_predict(task(f"{name}_warm"))
+        plain = run_predict(task(f"{name}_plain"))
+        wall, totals = timed_stages(patches, lambda: run_predict(task(f"{name}_timed")))
+        say(f"stage breakdown of phase 7 {name} (one run with a synchronize around each stage; wall {wall:.3f} s, "
+            f"the same run without timers {plain:.3f} s) [{limit}]:")
+        for stage, t in sorted(totals.items(), key=lambda kv: -kv[1]):
+            say(f"  {stage}: {t:.3f} s, {100 * t / wall:.1f} %")
+        idle_share(lambda: run_predict(task(f"{name}_profiled")), plain)
+
+
+def stage_breakdown(dev, limit: str, work: str) -> None:
+    """Phase 6's task once more with a ``torch.cuda.synchronize()`` timer
+    around each stage of the segmentation node, then once under
+    ``torch.profiler`` for the device's busy time; then phase 7's."""
+    from maze_image_processing_pipeline_tpu_torch.loki import device_seg
+    from maze_image_processing_pipeline_tpu_torch.ops import fill_holes
+
+    data = os.path.join(work, "data")
+    make_loki_tree(data, n_frames=24, objects_per_frame=20, frame_shape=(1024, 1280), seed=8)
+    unet = write_unet(os.path.join(work, "unet"), UNET, "bfloat16", seed=6)
+    run_loki(loki_task(data, unet, os.path.join(work, "warm")))
+    plain = run_loki(loki_task(data, unet, os.path.join(work, "plain")))
+
     node = device_seg.DeviceTiledSegmentation.node_class
     patches = [
         (node, "_predict", "tiles + U-Net forward + blend"),
@@ -662,27 +1144,13 @@ def stage_breakdown(dev, limit: str, work: str) -> None:
         (device_seg, "region_filled_extra", "region_filled_extra (all)"),
         (node, "_run_group", "segmentation node, all"),
     ]
-    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
-    for obj, attr, name in patches:
-        setattr(obj, attr, timed(name, getattr(obj, attr)))
-    timed_wall = run_loki(loki_task(data, unet, os.path.join(work, "timed")))
-    for obj, attr, fn in saved:
-        setattr(obj, attr, fn)
+    timed_wall, totals = timed_stages(patches, lambda: run_loki(loki_task(data, unet, os.path.join(work, "timed"))))
     say(f"stage breakdown of phase 6 (one run with a synchronize around each stage; wall {timed_wall:.3f} s, "
         f"the same run without timers {plain:.3f} s) [{limit}]:")
     for name, t in sorted(totals.items(), key=lambda kv: -kv[1]):
         say(f"  {name}: {t:.3f} s, {100 * t / timed_wall:.1f} %")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = run_loki(loki_task(data, unet, os.path.join(work, "profiled")))
-    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-    say(f"device busy {busy_us / 1e6:.3f} s in a profiled run of {wall:.3f} s: idle share {1 - busy_us / 1e6 / wall:.3f}; "
-        f"against the unprofiled run's {plain:.3f} s: {1 - busy_us / 1e6 / plain:.3f}")
-    top = sorted(prof.key_averages(), key=lambda e: -getattr(e, "self_device_time_total", 0))[:12]
-    for e in top:
-        say(f"  {e.key[:70]}: {getattr(e, 'self_device_time_total', 0) / 1e3:.1f} ms device, {e.count} calls")
+    idle_share(lambda: run_loki(loki_task(data, unet, os.path.join(work, "profiled"))), plain)
+    predict_stage_breakdown(limit, work)
 
 
 def main() -> int:
@@ -711,29 +1179,37 @@ def main() -> int:
 
         say("phase 2 kernels against their plain versions:")
         measured = phase_kernels(dev)
+        measured.update(phase_group_norm(dev))
 
         t0 = time.perf_counter()
         msg = phase_frame_chain(dev)
         say(f"phase 3 frame chain card vs CPU: {msg} ({time.perf_counter() - t0:.1f} s)")
 
-        say(f"phase 4 U-Net float32 card vs CPU: {phase_unet(dev)}")
+        say(f"phase 4 U-Net and classifier float32 card vs CPU: {phase_unet(dev)}")
 
         say("phase 5 slice end to end:")
-        phase_slice(dev, limit)
+        launches = {5: phase_slice(dev, limit)}
 
         say("phase 6 maze-ipp loki through the port's Runner:")
         t0 = time.perf_counter()
-        launches = phase_loki(limit, work)
+        launches[6] = phase_loki(limit, work)
         say(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
+
+        say("phase 7 maze-ipp predict through the port's Runner:")
+        t0 = time.perf_counter()
+        launches[7] = phase_predict(limit, work)
+        say(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(not any(m == "jax" or m.startswith(("jax.", "maze_image_processing_pipeline_tpu."))
                   or m == "maze_image_processing_pipeline_tpu" for m in sys.modules),
           "jax or the JAX package was imported")
 
+    # launches: the main paths' runs of this script (phases 5, 6 and 7) in all.
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
-         "launches": launches[k], **measured[k]}
+         "launches": sum(launches[p][k] for p in launches),
+         "launches_by_phase": {str(p): launches[p][k] for p in launches}, **measured[k]}
         for k in KERNELS
     ]
     say(json.dumps({"kernels": kernels}))

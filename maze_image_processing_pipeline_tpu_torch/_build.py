@@ -39,7 +39,7 @@ NVCC_FLAGS = [
     "-fPIC",
 ]
 
-_vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_vp, _ll, _i, _f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 # The C entry points: argument types (every pointer and the stream as
 # c_void_p, or ctypes would cut them to 32 bits); each returns a CUDA error
 # code as int.
@@ -48,6 +48,7 @@ SIGNATURES = {
     "cumsum_rows_launch": [_vp, _vp, _ll, _i, _vp],
     "vertical_pass_launch": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     "remove_small_objects_launch": [_vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _vp],
+    "group_norm_launch": [_vp] * 7 + [_i, _i, _i, _ll, _i, _i, _i, _ll, _i, _f, _vp],
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,9 @@
 """The ``maze-ipp-torch`` command-line interface of the PyTorch port.
 
 Counterpart of ``maze_image_processing_pipeline_tpu/cli.py``: ``loki`` runs
-the LOKI workload from a YAML task file and ``config loki`` prints its
-commented default configuration. ``predict``, ``semseg`` and ``polytaxo``
-are not ported yet (ROADMAP A3) and exit with a message saying so.
+the LOKI workload from a YAML task file, ``predict`` the prediction
+workload (``semseg`` and ``polytaxo`` are its aliases), and ``config
+loki|predict|semseg|polytaxo`` prints the commented default configuration.
 """
 
 from __future__ import annotations
@@ -11,11 +11,6 @@ from __future__ import annotations
 import click
 
 from . import __version__
-
-_NOT_PORTED = (
-    "maze-ipp-torch {name}: the predict workload is not ported to PyTorch yet "
-    "(ROADMAP A3); run it with the JAX package's `maze-ipp {name}`."
-)
 
 
 @click.group()
@@ -33,31 +28,43 @@ def loki(task_fn):
     Runner.run(task_fn)
 
 
-def _not_ported(name: str):
-    @cli.command(name=name)
-    @click.argument("task_fn", type=click.Path(exists=True))
-    def command(task_fn):
-        raise click.ClickException(_NOT_PORTED.format(name=name))
+@cli.command()
+@click.argument("task_fn", type=click.Path(exists=True))
+def predict(task_fn):
+    """Predict images using a model (semseg / polytaxo)."""
+    from .predict.pipeline import Runner
 
-    command.__doc__ = f"Not ported yet (ROADMAP A3): the JAX package's `{name}`."
-    return command
+    Runner.run(task_fn)
 
 
-predict = _not_ported("predict")
-semseg = _not_ported("semseg")
-polytaxo = _not_ported("polytaxo")
+@cli.command()
+@click.argument("task_fn", type=click.Path(exists=True))
+def semseg(task_fn):
+    """Semantic segmentation (alias for `predict` with tiling+segmentation)."""
+    from .predict.pipeline import Runner
+
+    Runner.run(task_fn)
+
+
+@cli.command()
+@click.argument("task_fn", type=click.Path(exists=True))
+def polytaxo(task_fn):
+    """Polyhierarchical classification (alias for `predict` with polytaxo)."""
+    from .predict.pipeline import Runner
+
+    Runner.run(task_fn)
 
 
 @cli.command()
 @click.argument("module")
 def config(module):
-    """Generate default configuration (loki)."""
+    """Generate default configuration (loki | predict)."""
     from .config import generate_yaml_example
 
     if module == "loki":
         from .loki.config_schema import SegmentationPipelineConfig as Schema
     elif module in ("predict", "semseg", "polytaxo"):
-        raise click.ClickException(_NOT_PORTED.format(name=f"config {module}"))
+        from .predict.config_schema import PredictionPipelineConfig as Schema
     else:
         raise ValueError(f"Unknown module: {module}")
 

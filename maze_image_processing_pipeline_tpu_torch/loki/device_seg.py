@@ -45,6 +45,7 @@ from ..engine.image import (
 )
 from ..engine.tiles import _linear_weight, _tile_starts
 from ..models.inference import default_device_pre, sigmoid_post
+from ..models.inference import resolve_device as _resolve_device
 from ..ops.crops import UNPACK_LUT, extract_region_crops
 from ..ops.fill_holes import region_filled_extra
 from ..ops.label import clear_border, label, remove_small_objects
@@ -65,21 +66,6 @@ DEFAULT_POSTPROCESS = SimpleNamespace(
     clear_border=False,
     max_regions=64,
 )
-
-
-def _resolve_device(device) -> torch.device:
-    """``device`` as a torch device; a CUDA device needs a card.
-
-    Raises rather than carrying on on the CPU: a run on the CPU is asked for
-    by name (``"cpu"``)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} was asked for but no CUDA card is available "
-            "(torch.cuda.is_available() is false); pass device='cpu' to run "
-            "on the CPU"
-        )
-    return device
 
 
 def _build_frame_chain(cfg):

@@ -1,1 +1,1 @@
-"""U-Net, GroupNorm and checkpoint reading of the port."""
+"""U-Net, polytaxo classifier, GroupNorm, checkpoints and the inference nodes of the port."""

@@ -16,8 +16,9 @@ and writes it without flax or the ``msgpack`` package:
 * :func:`msgpack_serialize`, :func:`params_to_jax` and :func:`save_model`
   — the inverse: a module → a checkpoint directory that the JAX package's
   ``load_model`` reads (the counterpart of its ``save_model``);
-* :func:`init_unet_params` — seeded random U-Net parameters in the flax
-  layout (a stand-in for a trained checkpoint).
+* :func:`init_unet_params`, :func:`init_classifier_params` — seeded random
+  U-Net and classifier parameters in the flax layout (stand-ins for trained
+  checkpoints).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .classifier import ConvClassifier
 from .unet import _DTYPES, UNet
 
 __all__ = [
@@ -46,9 +48,10 @@ __all__ = [
     "params_to_jax",
     "save_model",
     "init_unet_params",
+    "init_classifier_params",
 ]
 
-_ARCHITECTURES: Dict[str, type] = {"unet": UNet}
+_ARCHITECTURES: Dict[str, type] = {"unet": UNet, "conv_classifier": ConvClassifier}
 
 
 @dataclass
@@ -314,6 +317,15 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     return {"params": tree}
 
 
+def _lecun_conv(rng, k: int, ci: int, co: int) -> Dict:
+    w = rng.standard_normal((k, k, ci, co)) * np.sqrt(1.0 / (k * k * ci))
+    return {"kernel": w.astype(np.float32), "bias": np.zeros(co, np.float32)}
+
+
+def _ones_zeros(f: int) -> Dict:
+    return {"scale": np.ones(f, np.float32), "bias": np.zeros(f, np.float32)}
+
+
 def init_unet_params(config: Mapping, seed: int = 0) -> Dict:
     """Seeded random U-Net parameters in the flax layout and order.
 
@@ -329,19 +341,12 @@ def init_unet_params(config: Mapping, seed: int = 0) -> Dict:
     norm = bool(config.get("norm", True))
     cin = int(config.get("in_channels", 3))
 
-    def conv(k: int, ci: int, co: int):
-        w = rng.standard_normal((k, k, ci, co)) * np.sqrt(1.0 / (k * k * ci))
-        return {"kernel": w.astype(np.float32), "bias": np.zeros(co, np.float32)}
-
     def block(ci: int, f: int):
         d = {}
         for k in range(2):
-            d[f"Conv_{k}"] = conv(3, ci if k == 0 else f, f)
+            d[f"Conv_{k}"] = _lecun_conv(rng, 3, ci if k == 0 else f, f)
             if norm:
-                d[f"GroupNorm_{k}"] = {
-                    "scale": np.ones(f, np.float32),
-                    "bias": np.zeros(f, np.float32),
-                }
+                d[f"GroupNorm_{k}"] = _ones_zeros(f)
         return d
 
     p: Dict[str, Any] = {}
@@ -351,9 +356,33 @@ def init_unet_params(config: Mapping, seed: int = 0) -> Dict:
     p[f"ConvBlock_{depth}"] = block(cin, base * 2**depth)
     for i in reversed(range(depth)):
         f = base * 2**i
-        p[f"Conv_{depth - 1 - i}"] = conv(2, 2 * f, f)
+        p[f"Conv_{depth - 1 - i}"] = _lecun_conv(rng, 2, 2 * f, f)
         p[f"ConvBlock_{2 * depth - i}"] = block(2 * f, f)
-    p[f"Conv_{depth}"] = conv(1, base, out_ch)
+    p[f"Conv_{depth}"] = _lecun_conv(rng, 1, base, out_ch)
+    return {"params": p}
+
+
+def init_classifier_params(config: Mapping, seed: int = 0) -> Dict:
+    """Seeded random ``ConvClassifier`` parameters in the flax layout and
+    order: conv and dense kernels normal with variance 1/fan_in, biases
+    zero, GroupNorm scales one. ``config`` holds the meta.json classifier
+    fields (``n_outputs``, ``features``, ``norm``; ``in_channels`` defaults
+    to 3)."""
+    rng = np.random.default_rng(seed)
+    features = [int(f) for f in config.get("features", (32, 64, 128, 256))]
+    n_out = int(config.get("n_outputs", 32))
+    norm = bool(config.get("norm", True))
+    cin = int(config.get("in_channels", 3))
+    p: Dict[str, Any] = {}
+    for s, f in enumerate(features):
+        for k in (2 * s, 2 * s + 1):
+            p[f"Conv_{k}"] = _lecun_conv(rng, 3, cin, f)
+            if norm:
+                p[f"GroupNorm_{k}"] = _ones_zeros(f)
+            cin = f
+    for k, (fi, fo) in enumerate([(cin, features[-1]), (features[-1], n_out)]):
+        w = rng.standard_normal((fi, fo)) * np.sqrt(1.0 / fi)
+        p[f"Dense_{k}"] = {"kernel": w.astype(np.float32), "bias": np.zeros(fo, np.float32)}
     return {"params": p}
 
 

@@ -30,10 +30,10 @@ def _dtype(dtype) -> torch.dtype:
     return _DTYPES[dtype] if isinstance(dtype, str) else dtype
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, padding) -> torch.Tensor:
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, padding, stride: int = 1) -> torch.Tensor:
     """``conv`` evaluated in ``dtype`` (weights cast, parameters untouched)."""
     x = x.to(dtype)
-    return F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), padding=padding)
+    return F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), stride=stride, padding=padding)
 
 
 class ConvBlock(nn.Module):

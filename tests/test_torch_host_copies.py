@@ -3,8 +3,9 @@
 The port imports nothing of the JAX package, so the host modules it needs
 are its own copies: the engine (``engine/core.py`` ... ``tiles.py``),
 ``dataio/``, ``common.py``, ``config.py``, ``progress.py``,
-``loki/{meta,zoomie}.py``, the image nodes of ``engine/image.py``,
-``ops/host_props.py``, ``ops/zooprocess.py`` and ``rescale_max_intensity``.
+``loki/{meta,zoomie}.py``, ``polytaxo/``, the image nodes of
+``engine/image.py``, ``ops/host_props.py``, ``ops/zooprocess.py``,
+``rescale_max_intensity`` and the host functions of ``predict/pipeline.py``.
 Each copy must hold the original's code (only docstrings and imports
 differ), and the same inputs go through original and copy with identical
 outputs. The last test holds the port's entry points to the card: asked for
@@ -132,6 +133,7 @@ COPIES = [
     "engine/stitch.py", "engine/tiles.py", "common.py", "loki/meta.py", "loki/zoomie.py",
     "dataio/archive.py", "dataio/ecotaxa.py", "dataio/imageio.py", "dataio/loki.py",
     "dataio/telemetry.py", "config.py", "progress.py", "_version.py",
+    "polytaxo/__init__.py", "polytaxo/core.py",
 ]
 
 
@@ -149,6 +151,47 @@ def test_host_module_copy_has_the_original_code(rel):
     copy = REPO / "maze_image_processing_pipeline_tpu_torch" / rel
     assert _code(copy) == _code(original)
     assert f"maze_image_processing_pipeline_tpu/{rel}" in ast.get_docstring(ast.parse(copy.read_text()))
+
+
+# Host functions of predict/pipeline.py that the port's pipeline copies.
+PREDICT_COPIES = ["_convex_area", "measure_segments", "_prepare_translation", "build_polytaxo_pipeline"]
+
+
+def _function(path: Path, name: str) -> str:
+    """The function's code without its docstring."""
+    (fn,) = [n for n in ast.parse(path.read_text()).body if isinstance(n, ast.FunctionDef) and n.name == name]
+    if fn.body and isinstance(fn.body[0], ast.Expr) and isinstance(fn.body[0].value, ast.Constant):
+        fn.body = fn.body[1:]
+    return ast.dump(fn)
+
+
+@pytest.mark.parametrize("name", PREDICT_COPIES)
+def test_predict_host_function_copy_has_the_original_code(name):
+    rel = "predict/pipeline.py"
+    original = REPO / "maze_image_processing_pipeline_tpu" / rel
+    copy = REPO / "maze_image_processing_pipeline_tpu_torch" / rel
+    assert _function(copy, name) == _function(original, name)
+
+
+def test_polytaxo_copy_decodes_like_the_original():
+    import yaml
+
+    from maze_image_processing_pipeline_tpu import polytaxo as j_poly
+    from maze_image_processing_pipeline_tpu_torch import polytaxo as t_poly
+
+    import chip_smoke
+
+    tree = yaml.safe_load(chip_smoke.TAXONOMY_YAML)
+    jt, tt = j_poly.PolyTaxonomy.from_dict(tree), t_poly.PolyTaxonomy.from_dict(tree)
+    assert tt.format_tree() == jt.format_tree()
+    rng = np.random.default_rng(4)
+    for probs in rng.random((20, 4)):
+        for thr in (0.6, 0.9):
+            a = jt.parse_probabilities(probs, thr_pos_abs=thr, thr_neg=1 - thr)
+            b = tt.parse_probabilities(probs, thr_pos_abs=thr, thr_neg=1 - thr)
+            assert str(b) == str(a)
+    for expr in ("Calanoida", "!oil-sack", "Copepoda oil-sack"):
+        assert str(tt.parse_expression(expr)) == str(jt.parse_expression(expr))
 
 
 def _stream_run(engine, items):

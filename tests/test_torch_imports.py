@@ -70,9 +70,23 @@ task = cs.loki_task(data, unet, os.path.join(work, "out"), device="cpu", dtype="
                     tile_size=128, tile_stride=96, batch_size=4, frame_batch=2)
 cs.run_loki(task)
 rows, members = cs.check_archive(os.path.join(work, "out", "LOKI_PS122-1_7.zip"))
+print("archive rows", rows)
+
+from maze_image_processing_pipeline_tpu_torch.predict.pipeline import Runner as PredictRunner
+crops = cs.make_crop_archive(os.path.join(work, "crops", "crops.zip"), [(40, 50), (70, 90)], seed=3)
+unet2 = cs.write_unet(os.path.join(work, "unet2"), cs.SMALL_SEMSEG_UNET, "float32", seed=0, gain=1000.0,
+                      channel_names=cs.CHANNELS)
+clf = cs.write_classifier(os.path.join(work, "clf"), cs.SMALL_CLASSIFIER, "float32", seed=0)
+PredictRunner._configure_and_run(cs.semseg_task(crops, unet2, os.path.join(work, "semseg"), device="cpu",
+                                                dtype="float32", batch_size=2, tiling={{"size": 64, "stride": 48}}))
+PredictRunner._configure_and_run(cs.polytaxo_task(crops, clf, os.path.join(work, "poly"),
+                                                  cs.make_taxonomy_files(os.path.join(work, "tax")),
+                                                  device="cpu", dtype="float32", batch_size=2, input_size=64))
+n = cs.compare_archives(*[os.path.join(work, "semseg", "crops.segmentation.zip")] * 2)
+m = cs.compare_archives(*[os.path.join(work, "poly", "crops.polytaxo.zip")] * 2)
 leaked = [m for m in BLOCKED if sys.modules.get(m) is not None]
 assert not leaked, leaked
-print("archive rows", rows)
+print("predict rows", n, m)
 """
 
 
@@ -111,3 +125,4 @@ def test_port_runs_without_the_packages_the_card_lacks():
     assert res.returncode == 0, res.stdout + res.stderr
     assert "frames 2" in res.stdout
     assert "archive rows" in res.stdout
+    assert "predict rows 2 2" in res.stdout

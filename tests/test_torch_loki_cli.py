@@ -140,8 +140,8 @@ def test_cli_runs_loki_and_prints_the_config(haul, models, tmp_path):
     assert chip_smoke.check_archive(str(tmp_path / "out" / ARCHIVE))[0] >= 5
     res = subprocess.run(cli + ["config", "loki"], env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and "segmentation:" in res.stdout and "pytorch:" in res.stdout
-    res = subprocess.run(cli + ["predict", str(task_fn)], env=env, capture_output=True, text=True, timeout=120)
-    assert res.returncode != 0 and "ROADMAP A3" in res.stderr
+    res = subprocess.run(cli + ["config", "predict"], env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "polytaxo:" in res.stdout and "tiling:" in res.stdout
 
 
 def test_save_model_round_trips_with_jax(tmp_path):
