@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py            # the whole smoke run
-    python3 chip_smoke.py --stages   # phases 6 and 7 only, with stage
+    python3 chip_smoke.py --stages   # phases 6, 7 and 8 only, with stage
                                      # breakdowns and the device's idle share
 
 Builds the port's CUDA kernels from ``maze_image_processing_pipeline_tpu_torch/
@@ -20,6 +20,13 @@ csrc`` and runs, one line of output per phase:
    shape (8, 1024, 1280) and at edge shapes, and K1, K2, K4 at the fused
    measurement's shapes of phase 7 (``PREDICT_LABEL_SHAPES``: chunks of up
    to 32 canvases of 64-512 × 128-512) on thresholded-blob and noisy masks;
+   K3 ``region_histogram`` (bit-exact) and K7 ``regionprops_fused`` (its
+   partials and integer props exact, the perimeter too; the other props
+   within rtol 1e-5 / atol 1e-3, the orientation modulo pi) at (8, 1024,
+   1280) with R = 64 on blob, serpentine and rectangle label frames (ids
+   beyond R), all-background and one-region frames, at (8, 1024, 1),
+   (8, 1, 1280), (3, 1000, 1280) and (2, 37, 1000), and at the threshold
+   path's buckets (256, 64, 128) and (8, 512, 512) with R = 2;
    K5 ``group_norm`` at the path's shapes (16, 32, 1024, 1024) (loki level
    0), (64, 32, 256, 256) (semseg level 0) and (256, 32, 128, 128)
    (classifier stage 1) and at odd shapes ((3, 16, 5, 7), C = 512, H·W not
@@ -27,8 +34,8 @@ csrc`` and runs, one line of output per phase:
    atol 1e-5, bfloat16 and float16 within one ulp, with ``F.group_norm``'s
    time beside it; the layouts the U-Net and the classifier feed their
    norms are printed;
-3. the frame chain (morphology → CCL → region measurement → filled area) on
-   the card against the same chain on the CPU;
+3. the frame chain (morphology → CCL → region measurement (K7, K3) →
+   filled area) on the card against the same chain on the CPU;
 4. the full-width U-Net (out_channels=1, base_features=32, depth=4) and
    ``ConvClassifier(8)`` in float32 on the card (their norms through K5)
    against the CPU;
@@ -44,7 +51,10 @@ csrc`` and runs, one line of output per phase:
    seeded random weights written by the port's ``save_model``; one warm-up,
    then the timed run. Then a smaller task (2 frames, ``UNet(1, 8, 2)``
    float32, TF32 off) on the card and on the CPU: the two archives must
-   agree;
+   agree; and the same small task with ``device_blend: false``,
+   ``merge_segments_distance: 20`` and ``full_frame_archive_fn`` (tiles →
+   ``TorchInference`` → host blend → ``DeviceFramePostprocess`` → merging
+   on the host), card against CPU, the full-frame archive too;
 7. ``maze-ipp predict`` through the port's Runner on the card, from an
    EcoTaxa archive of 480 seeded blob crops (40-200 px a side, one in ten
    260-420 px, so that several tiles blend): the semseg task of
@@ -60,11 +70,19 @@ csrc`` and runs, one line of output per phase:
    must agree. Then a small task (4 crops,
    ``UNet(2, 4, 1)`` float32, ``ConvClassifier(4, (4, 8))`` float32, TF32
    off) on the card and on the CPU: the ``.segmentation.zip`` archives must
-   agree, and so must the ``.polytaxo.zip`` archives.
+   agree, and so must the ``.polytaxo.zip`` archives;
+8. ``maze-ipp loki`` with threshold segmentation (brighter than 50, the
+   measurement's ``device`` at its default: the card) through the port's
+   Runner, from a LOKI tree of 96 frames × 20 vignettes (1920 crops of
+   60×80, every tenth 150-400 px a side); one warm-up, then the timed run,
+   objects/s. The card's archive must equal the ``device: "cpu"`` run's,
+   and every object's features the host path's (``device: false``) within
+   the JAX package's tolerance of that comparison.
 
 Kernel launches are counted per phase (counts set to 0 just before each
 timed run, read just after): every kernel must launch in phases 5 and 6;
-K1, K2, K4 and K5 in phase 7. The last lines are a JSON object of the
+K1, K2, K4 and K5 in phase 7, and not K3 or K7; K1, K2, K4, K3 and K7 in
+phase 8. The last lines are a JSON object of the
 kernels, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before the last line.
 """
@@ -98,7 +116,13 @@ KERNELS = {
     "remove_small_objects": (f"{CSRC}/relabel.cu", "attic/pallas_relabel.py:99", 4 + 4),
     # bfloat16 activations, as every norm of the path: 2 B read, 2 B written.
     "group_norm": (f"{CSRC}/group_norm.cu", "attic/pallas_norm.py:95", 2 + 2),
+    # Labels and intensity read (5 B/px) plus outputs per region, not per
+    # pixel: their bounds are reckoned in phase_region_kernels.
+    "region_histogram": (f"{CSRC}/region_histogram.cu", "attic/pallas_hist.py:94", None),
+    "regionprops_fused": (f"{CSRC}/region_props.cu", "attic/pallas_props.py:167", None),
 }
+# The kernels of the frame chain's region measurement (K3, K7).
+REGION_KERNELS = ("region_histogram", "regionprops_fused")
 # The norms' (B, C, H, W) on the path: loki level 0 (16 tiles of 1024²),
 # semseg level 0 (64 tiles of 256²), classifier stage 1 (256 crops of 256²).
 GN_SHAPES = ((16, 32, 1024, 1024), (64, 32, 256, 256), (256, 32, 128, 128))
@@ -144,11 +168,16 @@ def gpu_name_and_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def bytes_ms(nbytes: int) -> float:
+    """``nbytes`` over the card's memory rate, in ms."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def bound_ms(name: str, pixels: int) -> float:
     """The least time the card could take for the kernel's work on
     ``pixels`` pixels: its bytes over the memory rate (every kernel here does
     a few integer operations per pixel, far below the card's integer rate)."""
-    return KERNELS[name][2] * pixels / HBM_BYTES_PER_S * 1e3
+    return bytes_ms(KERNELS[name][2] * pixels)
 
 
 def make_frames(n: int, H: int, W: int, objects: int, seed: int) -> np.ndarray:
@@ -322,6 +351,163 @@ def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000
         m.update(max_abs_err=err[name], bound_by="bytes")
         say(f"  {name} at {main}: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms"
             + (f", library {m['library_ms']:.4f} ms" if m["library_ms"] is not None else ""))
+    return out
+
+
+def plain_partials(lab, img, R: int) -> tuple:
+    """K7's partials by PyTorch scatters (the kernel's oracle for them):
+    Σ I, Σ I·y, Σ I·x per region, per-(row, region) count, x-sum, x-min (W
+    if absent), x-max (-1 if absent), per-(column, region) count."""
+    import torch
+
+    B, H, W = lab.shape
+    seg = torch.where((lab >= 0) & (lab < R), lab, R).long()
+    yy = torch.arange(H, device=lab.device)[:, None].expand(B, H, W)
+    xx = torch.arange(W, device=lab.device)[None, :].expand(B, H, W).contiguous()
+    iv = img.long()
+    sums = torch.zeros(B, R + 1, 3, dtype=torch.int64, device=lab.device)
+    for k, v in enumerate((iv, iv * yy, iv * xx)):
+        sums[..., k].scatter_add_(1, seg.reshape(B, -1), v.reshape(B, -1))
+    ones = torch.ones_like(seg)
+    rowcnt = torch.zeros(B, H, R + 1, dtype=torch.int64, device=lab.device).scatter_add_(2, seg, ones)
+    rowsumx = torch.zeros_like(rowcnt).scatter_add_(2, seg, xx)
+    rowminx = torch.full_like(rowcnt, W).scatter_reduce(2, seg, xx, reduce="amin")
+    rowmaxx = torch.full_like(rowcnt, -1).scatter_reduce(2, seg, xx, reduce="amax")
+    colcnt = torch.zeros(B, W, R + 1, dtype=torch.int64, device=lab.device)
+    colcnt.scatter_add_(2, seg.transpose(1, 2).contiguous(), ones.transpose(1, 2))
+    return (sums[:, :R],) + tuple(t[..., :R].int() for t in (rowcnt, rowsumx, rowminx, rowmaxx, colcnt))
+
+
+# K7's props that are integers (or exact float64 sums of float32 terms, the
+# perimeter) and must be equal; the rest must agree within rtol 1e-5 / atol
+# 1e-3 (mu11 is centred per row on the kernel route, per pixel on the plain
+# one), the orientation modulo pi.
+K7_EXACT = ("area", "min_row", "max_row", "min_col", "max_col", "histogram", "intensity_sum",
+            "intensity_min", "intensity_max", "perimeter")
+
+
+def threshold_buckets() -> list:
+    """Crops as the threshold path's buckets hold them: (N, H, W) uint8 with
+    a bright blob (a ring in every other crop) on dark noise, zero padded."""
+    rng = np.random.default_rng(21)
+    out = []
+    for N, Hb, Wb in ((256, 64, 128), (8, 512, 512)):
+        imgs = np.zeros((N, Hb, Wb), np.uint8)
+        for i in range(N):
+            h, w = int(rng.integers(Hb // 2, Hb + 1)), int(rng.integers(Wb // 2, Wb + 1))
+            yy, xx = np.mgrid[:h, :w]
+            d2 = (yy - h / 2) ** 2 + (xx - w / 2) ** 2
+            r = min(h, w) / 3
+            crop = (rng.random((h, w)) * 40).astype(np.uint8)
+            crop[(d2 <= r * r) & ((i % 2 == 0) | (d2 >= r * r / 4))] = rng.integers(120, 250)
+            imgs[i, :h, :w] = crop
+        out.append(imgs)
+    return out
+
+
+def compare_props(kp: dict, pp: dict, where: str) -> float:
+    """K7's props (``kp``) against the plain version's (``pp``): the same
+    keys, ``K7_EXACT`` equal, the orientation modulo pi and the rest within
+    rtol 1e-5 / atol 1e-3. Returns the largest absolute difference of the
+    rest."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(set(kp) == set(pp), f"K7 keys differ at {where}: {set(kp) ^ set(pp)}")
+    worst = 0.0
+    for k in pp:
+        a, b = kp[k].cpu().numpy(), pp[k].cpu().numpy()
+        if k in K7_EXACT:
+            np.testing.assert_array_equal(a, b, err_msg=f"{k} at {where}")
+        elif k == "orientation":
+            d = np.abs(a - b) % np.pi
+            check(np.minimum(d, np.pi - d).max() <= 1e-3 + 1e-5 * np.abs(b).max(), f"orientation at {where}")
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-3, err_msg=f"{k} at {where}")
+            worst = max(worst, float(np.abs(a - b).max()))
+    return worst
+
+
+def phase_region_kernels(dev, main=(8, 1024, 1280)) -> dict:
+    """K3 (region_histogram) and K7 (regionprops_fused) against their plain
+    versions on the card: the loki frame chain's shape with R = 64 (blob,
+    serpentine and rectangle label frames with ids beyond R,
+    all-background, one region), edge shapes, a height that is not a
+    multiple of the kernel's strip, and the threshold path's buckets with
+    R = 2. K3 bit-exact; K7's partials and integer props exact, the rest
+    within tolerance. Times at the main shape on the blob frames."""
+    import scipy.ndimage as ndi
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops import region_histogram as rh
+    from maze_image_processing_pipeline_tpu_torch.ops import regionprops_fused as rf
+
+    rng = np.random.default_rng(5)
+    R = POSTPROCESS.max_regions
+    frames = make_frames(main[0], main[1], main[2], 20, seed=15)
+    blobs = np.stack([ndi.label(f > 60, np.ones((3, 3)))[0] for f in frames]).astype(np.int32)
+    snake = serpentine(*main).astype(np.int32)
+    cases = [(f"{main} blobs", blobs, frames, R),
+             (f"{main} serpentine", snake, frames, R),
+             (f"{main} rectangles", region_labels(main, R, seed=16), frames, R),
+             (f"{main} background", np.zeros(main, np.int32), frames, R),
+             (f"{main} one region", np.ones(main, np.int32), frames, R)]
+    for shape in ((8, 1024, 1), (8, 1, 1280), (3, 1000, 1280), (2, 37, 1000)):
+        cases.append((f"{shape} rectangles", region_labels(shape, R, seed=17),
+                      rng.integers(0, 256, shape, dtype=np.uint8), R))
+    for imgs in threshold_buckets():
+        cases.append((f"{imgs.shape} threshold crops", (imgs > 50).astype(np.int32), imgs, 2))
+
+    worst = {"region_histogram": 0, "regionprops_fused": 0.0}
+    out = {}
+    for where, lab_np, img_np, r in cases:
+        lab, img = torch.from_numpy(lab_np).to(dev), torch.from_numpy(np.ascontiguousarray(img_np)).to(dev)
+        hist = rh.region_histogram(lab, img, r)
+        e = max_err(hist, rh.region_histogram_plain(lab, img, r))
+        check(e == 0, f"region_histogram differs from its plain version at {where} by {e}")
+        got = rf.region_props_partials(lab, img, r)
+        ref = plain_partials(lab, img, r)
+        check(torch.equal(got[0][..., 2:], ref[0]), f"K7 intensity sums differ at {where}")
+        for name, a, b in zip(("rowcnt", "rowsumx", "rowminx", "rowmaxx", "colcnt"), got[1:], ref[1:]):
+            check(torch.equal(a, b), f"K7 {name} differs at {where}")
+        kp = rf.regionprops_fused(lab, img, num_segments=r)
+        pp = rf.regionprops_fused_plain(lab, img, num_segments=r)
+        worst["regionprops_fused"] = max(worst["regionprops_fused"], compare_props(kp, pp, where))
+        if where == f"{(2, 37, 1000)} rectangles":
+            # The wrapper's options that no path of the port uses yet.
+            for kw in (dict(intensity=None), dict(compute_histogram=False), dict(n_feret_angles=0)):
+                args = {"intensity": img, "num_segments": r, **kw}
+                compare_props(rf.regionprops_fused(lab, **args), rf.regionprops_fused_plain(lab, **args), f"{where} {kw}")
+            say(f"  {where}: regionprops_fused without intensity, without histogram, without feret within tolerance")
+        say(f"  {where}, R={r}: region_histogram bit-exact; regionprops_fused partials and integer props exact, "
+            f"float props within tolerance; regions present per frame up to {int((kp['area'] > 0).sum(-1).max())}")
+        if where == f"{main} blobs":
+            px = lab.numel()
+            # K7's outputs: (B, R, 5) int64 sums, 4 (B, H, R) and a (B, W, R) int32 partials.
+            k7_out = main[0] * R * 5 * 8 + 4 * main[0] * main[1] * R * 4 + main[0] * main[2] * R * 4
+            hist_out = main[0] * R * 256 * 4
+            out["region_histogram"] = dict(
+                ms=cuda_ms(lambda: rh.region_histogram(lab, img, R)),
+                plain_ms=cuda_ms(lambda: rh.region_histogram_plain(lab, img, R)),
+                bound_ms=bytes_ms(5 * px + hist_out),
+                # The library call is torch.bincount of the joint index built in
+                # the timed region: the plain version itself.
+                library_ms=cuda_ms(lambda: rh.region_histogram_plain(lab, img, R)),
+            )
+            out["regionprops_fused"] = dict(
+                ms=cuda_ms(lambda: rf.region_props_partials(lab, img, R)),
+                wrapper_ms=cuda_ms(lambda: rf.regionprops_fused(lab, img, num_segments=R)),
+                plain_ms=cuda_ms(lambda: rf.regionprops_fused_plain(lab, img, num_segments=R), iters=3),
+                bound_ms=bytes_ms(5 * px + k7_out),
+                wrapper_bound_ms=bytes_ms(5 * px + k7_out + hist_out),
+                library_ms=None,
+            )
+        del lab, img, hist, got, ref, kp, pp
+    for name, m in out.items():
+        m.update(max_abs_err=worst[name], bound_by="bytes")
+        extra = f", whole regionprops_fused call {m['wrapper_ms']:.4f} ms" if "wrapper_ms" in m else ""
+        say(f"  {name} at {main}, R={R}: {m['ms']:.4f} ms{extra}, plain {m['plain_ms']:.4f} ms, "
+            f"bound {m['bound_ms']:.4f} ms" + (f", library {m['library_ms']:.4f} ms" if m["library_ms"] else ""))
     return out
 
 
@@ -554,10 +740,13 @@ def _counted():
     """The kernel wrappers, by name: each counts its launches."""
     from maze_image_processing_pipeline_tpu_torch.models import layers
     from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+    from maze_image_processing_pipeline_tpu_torch.ops import region_histogram as rh
+    from maze_image_processing_pipeline_tpu_torch.ops import regionprops_fused as rf
     from maze_image_processing_pipeline_tpu_torch.ops import row_scan
 
     return {"hpass": row_scan.hpass, "cumsum_rows": row_scan.cumsum_rows, "vertical_pass": tl.vertical_pass,
-            "remove_small_objects": tl.remove_small_objects, "group_norm": layers.group_norm}
+            "remove_small_objects": tl.remove_small_objects, "group_norm": layers.group_norm,
+            "region_histogram": rh.region_histogram, "regionprops_fused": rf.regionprops_fused}
 
 
 def reset_launches() -> None:
@@ -565,13 +754,17 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def read_launches(where: str, expected=tuple(KERNELS)) -> dict:
+def read_launches(where: str, expected=tuple(KERNELS), absent=()) -> dict:
     """The launch counts since :func:`reset_launches`; every kernel the
-    phase's path runs (``expected``) must have launched."""
+    phase's path runs (``expected``) must have launched, and the kernels of
+    other paths (``absent``) must not have."""
     launches = {name: fn.launches for name, fn in _counted().items()}
     for name in expected:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} did not launch in {where}")
+    for name in absent:
+        if launches[name] != 0:
+            raise AssertionError(f"kernel {name} launched {launches[name]} times in {where}")
     return launches
 
 
@@ -617,10 +810,12 @@ def draw_blob(rng, shape=(60, 80), r=12, intensity=180) -> np.ndarray:
     return img
 
 
-def make_loki_tree(root: str, n_frames: int, objects_per_frame: int, frame_shape, seed: int = 0) -> str:
+def make_loki_tree(root: str, n_frames: int, objects_per_frame: int, frame_shape, seed: int = 0,
+                   big_every: int = 0) -> str:
     """A LOKI sample tree as the camera writes it: ``Log/LOKI_*.log``,
     ``meta.yaml``, ``Telemetrie/*.tmd`` and ``Pictures/<hour>/<object id>.png``
-    (60×80 vignettes at random positions of ``frame_shape`` frames), in the
+    (60×80 vignettes at random positions of ``frame_shape`` frames; with
+    ``big_every``, every ``big_every``-th vignette 150-400 px a side), in the
     layout of ``tests/fixtures.py:make_loki_sample``, encoded by the port's
     ``encode_image``. Returns the sample root."""
     from maze_image_processing_pipeline_tpu_torch.dataio.imageio import encode_image
@@ -644,10 +839,12 @@ def make_loki_tree(root: str, n_frames: int, objects_per_frame: int, frame_shape
     pic_dir = os.path.join(sample, "Pictures", f"{date} 12")
     os.makedirs(pic_dir, exist_ok=True)
     H, W = frame_shape
-    ch, cw = 60, 80
     for t in times:
         for oi in range(objects_per_frame):
-            r = 8 + int(rng.integers(0, 6))
+            ch, cw = 60, 80
+            if big_every and oi % big_every == 0:
+                ch, cw = (int(v) for v in rng.integers(150, 401, 2))
+            r = 8 + int(rng.integers(0, 6)) if ch == 60 else int(min(ch, cw) // 4)
             posx = int(rng.integers(0, max(1, W - cw - 10)))
             posy = int(rng.integers(0, max(1, H - ch - 10)))
             oid = OBJECT_ID_FMT.format(date=date, time=t, ms=333, seq=oi, posx=posx, posy=posy)
@@ -779,6 +976,9 @@ def polytaxo_task(archive: str, model_fn: str, target_dir: str, taxonomy: tuple,
     }
 
 
+LOKI_POSTPROCESS = {"min_area": 30, "closing_radius": 2}
+
+
 def loki_task(data: str, model_fn: str, target_dir: str, **segmentation) -> dict:
     """The loki task of ``tools/bench_e2e.py`` (the standard haul's), with
     the masks stored beside the images."""
@@ -788,7 +988,7 @@ def loki_task(data: str, model_fn: str, target_dir: str, **segmentation) -> dict
         "frame_batch": 8,
         "tile_size": 1024,
         "tile_stride": 896,
-        "postprocess": {"min_area": 30, "closing_radius": 2},
+        "postprocess": LOKI_POSTPROCESS,
     }
     seg.update(segmentation)
     return {
@@ -830,12 +1030,15 @@ def check_archive(fn: str) -> tuple:
 RUN_COLUMNS = ("process_pipeline", "process_datetime", "process_id")
 
 
-def compare_archives(ref_fn: str, fn: str, skip_columns=RUN_COLUMNS) -> int:
+def compare_archives(ref_fn: str, fn: str, skip_columns=RUN_COLUMNS, one_level=()) -> int:
     """Two EcoTaxa archives hold the same members in the same order, the same
     TSV columns and rows; integer and text columns are equal, float columns
     within rtol 1e-5 / atol 1e-3 (float64-summed moments, as the frame chain
-    is held card against CPU); decoded images and masks are equal. Returns
-    the number of rows."""
+    is held card against CPU); decoded images and masks are equal, except
+    that members whose names start with a prefix in ``one_level`` may differ
+    by one grey level (the full-frame archive's score images: probabilities
+    ×255, truncated, from two float32 forwards). Returns the number of
+    rows."""
     from maze_image_processing_pipeline_tpu_torch.dataio.imageio import decode_image
 
     with zipfile.ZipFile(ref_fn) as za, zipfile.ZipFile(fn) as zb:
@@ -856,8 +1059,13 @@ def compare_archives(ref_fn: str, fn: str, skip_columns=RUN_COLUMNS) -> int:
             else:
                 check(list(map(str, x)) == list(map(str, y)), f"column {col} differs")
         for n in za.namelist():
-            if n != "ecotaxa_export.tsv":
-                np.testing.assert_array_equal(decode_image(zb.read(n)), decode_image(za.read(n)), err_msg=n)
+            if n == "ecotaxa_export.tsv":
+                continue
+            x, y = decode_image(za.read(n)).astype(np.int16), decode_image(zb.read(n)).astype(np.int16)
+            if n.startswith(tuple(one_level)):
+                check(x.shape == y.shape and np.abs(x - y).max() <= 1, f"{n} differs by more than one level")
+            else:
+                np.testing.assert_array_equal(y, x, err_msg=n)
     return len(a)
 
 
@@ -903,6 +1111,81 @@ def phase_loki(limit: str, work: str) -> dict:
     n = compare_archives(os.path.join(work, "cpu", archive), os.path.join(work, "cuda", archive))
     check(n > 0, "the small task's archive holds no object")
     say(f"  small task (2 frames, UNet(1, 8, 2) float32, TF32 off): card and CPU archives agree, {n} objects")
+    # The label-frame paths: host blend (TorchInference, DeviceFramePostprocess),
+    # segment merging and the full-frame debug archive.
+    frames = "full_frames.zip"
+    for device in ("cuda", "cpu"):
+        run_loki(loki_task(small, unet_s, os.path.join(work, f"hb_{device}"), dtype="float32", batch_size=4,
+                           frame_batch=2, device=device, device_blend=False, full_frame_archive_fn=frames,
+                           postprocess={**LOKI_POSTPROCESS, "merge_segments_distance": 20}))
+    n = compare_archives(os.path.join(work, "hb_cpu", archive), os.path.join(work, "hb_cuda", archive))
+    m = compare_archives(os.path.join(work, "hb_cpu", frames), os.path.join(work, "hb_cuda", frames),
+                         one_level=("score/",))
+    check(n > 0 and m == 2, f"the host-blend task's archives hold {n} objects and {m} frames")
+    say(f"  small task with device_blend: false, merge_segments_distance: 20 and full_frame_archive_fn: card and "
+        f"CPU archives agree ({n} objects), full-frame archives agree ({m} frames; score images within one level)")
+    return launches
+
+
+def threshold_task(data: str, target_dir: str, **threshold) -> dict:
+    """A loki task with threshold segmentation (brighter than 50), the
+    measurement's ``device`` at its default unless given."""
+    return {
+        "input": {"path": data},
+        "segmentation": {"threshold": {"threshold_brighter": 50, **threshold}},
+        "postprocess": {},
+        "output": {"target_dir": target_dir, "store_mask": True},
+    }
+
+
+def compare_features(ref_fn: str, fn: str, rtol=2e-3, atol=2e-2) -> int:
+    """The same objects in the same order, and every numeric ``object_``
+    feature within rtol / atol of the reference's, the angle modulo 180
+    degrees: the tolerance of the JAX package's device-against-host check of
+    the threshold measurement (``tests/test_threshold_device.py``). Returns
+    the number of objects."""
+    with zipfile.ZipFile(ref_fn) as za, zipfile.ZipFile(fn) as zb:
+        a, b = _read_archive_tsv(za), _read_archive_tsv(zb)
+    check(list(a["object_id"]) == list(b["object_id"]), "objects differ")
+    for col in a.columns:
+        if not col.startswith("object_") or a[col].dtype.kind not in "fi" or b[col].dtype.kind not in "fi":
+            continue
+        x, y = a[col].to_numpy(np.float64), b[col].to_numpy(np.float64)
+        if col == "object_angle":
+            d = np.abs(x - y) % 180.0
+            check(np.minimum(d, 180.0 - d).max() <= atol + rtol * 180.0, f"{col} differs")
+        else:
+            np.testing.assert_allclose(y, x, rtol=rtol, atol=atol, err_msg=col)
+    return len(a)
+
+
+def phase_threshold(limit: str, work: str) -> dict:
+    """``maze-ipp loki`` with threshold segmentation through the port's
+    Runner at a haul's size: 96 frames × 20 vignettes (60×80 blobs, every
+    tenth 150-400 px a side), the measurement on the card (``device`` at its
+    default). The card's archive must equal the ``device: "cpu"`` run's, and
+    every object's features the host path's (``device: false``) within the
+    JAX package's tolerance."""
+    data = os.path.join(work, "thr_data")
+    make_loki_tree(data, n_frames=96, objects_per_frame=20, frame_shape=(1024, 1280), seed=10, big_every=10)
+    archive = "LOKI_PS122-1_7.zip"
+    run_loki(threshold_task(data, os.path.join(work, "thr_warm")))
+    reset_launches()
+    wall = run_loki(threshold_task(data, os.path.join(work, "thr_card")))
+    launches = read_launches("phase 8", expected=("hpass", "cumsum_rows", "vertical_pass") + REGION_KERNELS)
+    card = os.path.join(work, "thr_card", archive)
+    rows, members = check_archive(card)
+    check(rows == 1920, f"the threshold archive holds {rows} objects, expected 1920")
+    say(f"  1920 crops: {rows} objects ({members} images and masks), wall {wall:.3f} s, {rows / wall:.3f} objects/s, "
+        f"launches {launches} [{limit}]")
+    host_wall = run_loki(threshold_task(data, os.path.join(work, "thr_host"), device=False))
+    m = compare_features(os.path.join(work, "thr_host", archive), card)
+    say(f"  every object's features within rtol 2e-3 / atol 2e-2 of the host path's ({m} objects); the host path "
+        f"(device: false) took {host_wall:.3f} s, {m / host_wall:.3f} objects/s")
+    t0 = time.perf_counter()
+    run_loki(threshold_task(data, os.path.join(work, "thr_cpu"), device="cpu"))
+    n = compare_archives(os.path.join(work, "thr_cpu", archive), card)
+    say(f"  card and device: cpu archives agree ({n} objects) ({time.perf_counter() - t0:.1f} s)")
     return launches
 
 
@@ -1012,7 +1295,8 @@ def phase_predict(limit: str, work: str) -> dict:
     reset_launches()
     wall_s = run_predict(semseg("semseg"))
     wall_p = run_predict(poly("poly"))
-    launches = read_launches("phase 7", expected=("hpass", "cumsum_rows", "vertical_pass", "group_norm"))
+    launches = read_launches("phase 7", expected=("hpass", "cumsum_rows", "vertical_pass", "group_norm"),
+                             absent=REGION_KERNELS)
     measured = [f"object_{c}_{k}" for c in CHANNELS for k in ("raw_area", "area", "axis_major_length", "area_convex")]
     check_predict_archive(os.path.join(work, "semseg", "crops.segmentation.zip"), 480, measured)
     check_predict_archive(os.path.join(work, "poly", "crops.polytaxo.zip"), 480, [])
@@ -1122,7 +1406,8 @@ def predict_stage_breakdown(limit: str, work: str) -> None:
 def stage_breakdown(dev, limit: str, work: str) -> None:
     """Phase 6's task once more with a ``torch.cuda.synchronize()`` timer
     around each stage of the segmentation node, then once under
-    ``torch.profiler`` for the device's busy time; then phase 7's."""
+    ``torch.profiler`` for the device's busy time; then phase 7's and
+    phase 8's."""
     from maze_image_processing_pipeline_tpu_torch.loki import device_seg
     from maze_image_processing_pipeline_tpu_torch.ops import fill_holes
 
@@ -1140,7 +1425,7 @@ def stage_breakdown(dev, limit: str, work: str) -> None:
         (fill_holes, "label", "label of the background in region_filled_extra (K1, K2, K4)"),
         (device_seg, "binary_closing", "closing"),
         (device_seg, "remove_small_objects", "remove_small_objects (K8)"),
-        (device_seg, "regionprops_fused", "regionprops_fused"),
+        (device_seg, "regionprops_fused", "regionprops_fused (K7, K3, the props from their partials)"),
         (device_seg, "region_filled_extra", "region_filled_extra (all)"),
         (node, "_run_group", "segmentation node, all"),
     ]
@@ -1151,6 +1436,33 @@ def stage_breakdown(dev, limit: str, work: str) -> None:
         say(f"  {name}: {t:.3f} s, {100 * t / timed_wall:.1f} %")
     idle_share(lambda: run_loki(loki_task(data, unet, os.path.join(work, "profiled"))), plain)
     predict_stage_breakdown(limit, work)
+    threshold_stage_breakdown(limit, work)
+
+
+def threshold_stage_breakdown(limit: str, work: str) -> None:
+    """Phase 8's threshold task with a timer around the device measurement
+    of each bucket and around the host fallback, then under
+    ``torch.profiler``."""
+    from maze_image_processing_pipeline_tpu_torch.engine import image
+    from maze_image_processing_pipeline_tpu_torch.ops import threshold_props
+
+    data = os.path.join(work, "thr_data")
+    make_loki_tree(data, n_frames=96, objects_per_frame=20, frame_shape=(1024, 1280), seed=10, big_every=10)
+    run_loki(threshold_task(data, os.path.join(work, "thr_warm")))
+    plain = run_loki(threshold_task(data, os.path.join(work, "thr_plain")))
+    node = image.BatchedImageProperties.node_class
+    patches = [
+        (node, "_measure", "device measurement of a bucket (upload, K7/K3, label, filled area, fetch)"),
+        (threshold_props, "regionprops_fused", "regionprops_fused (K7, K3, the props from their partials)"),
+        (threshold_props, "label", "label of the background (K1, K2, K4)"),
+        (node, "_host", "host fallback"),
+    ]
+    wall, totals = timed_stages(patches, lambda: run_loki(threshold_task(data, os.path.join(work, "thr_timed"))))
+    say(f"stage breakdown of phase 8 (one run with a synchronize around each stage; wall {wall:.3f} s, "
+        f"the same run without timers {plain:.3f} s) [{limit}]:")
+    for stage, t in sorted(totals.items(), key=lambda kv: -kv[1]):
+        say(f"  {stage}: {t:.3f} s, {100 * t / wall:.1f} %")
+    idle_share(lambda: run_loki(threshold_task(data, os.path.join(work, "thr_profiled"))), plain)
 
 
 def main() -> int:
@@ -1179,6 +1491,7 @@ def main() -> int:
 
         say("phase 2 kernels against their plain versions:")
         measured = phase_kernels(dev)
+        measured.update(phase_region_kernels(dev))
         measured.update(phase_group_norm(dev))
 
         t0 = time.perf_counter()
@@ -1199,13 +1512,18 @@ def main() -> int:
         t0 = time.perf_counter()
         launches[7] = phase_predict(limit, work)
         say(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+
+        say("phase 8 maze-ipp loki with threshold segmentation through the port's Runner:")
+        t0 = time.perf_counter()
+        launches[8] = phase_threshold(limit, work)
+        say(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(not any(m == "jax" or m.startswith(("jax.", "maze_image_processing_pipeline_tpu."))
                   or m == "maze_image_processing_pipeline_tpu" for m in sys.modules),
           "jax or the JAX package was imported")
 
-    # launches: the main paths' runs of this script (phases 5, 6 and 7) in all.
+    # launches: the main paths' runs of this script (phases 5 to 8) in all.
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
          "launches": sum(launches[p][k] for p in launches),

@@ -49,6 +49,8 @@ SIGNATURES = {
     "vertical_pass_launch": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     "remove_small_objects_launch": [_vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _vp],
     "group_norm_launch": [_vp] * 7 + [_i, _i, _i, _ll, _i, _i, _i, _ll, _i, _f, _vp],
+    "region_histogram_launch": [_vp, _vp, _vp, _i, _ll, _i, _vp],
+    "region_props_launch": [_vp] * 8 + [_i, _i, _i, _i, _vp],
 }
 
 _lock = threading.Lock()

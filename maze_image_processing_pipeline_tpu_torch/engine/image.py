@@ -5,14 +5,16 @@ Host (numpy) code, the same as ``RegionInfo``, ``FindRegions``,
 ``ExtractROI``, ``ImageProperties``, ``CalculateZooProcessFeatures``,
 ``DrawScalebar`` and ``FilterEval`` in
 ``maze_image_processing_pipeline_tpu/engine/image.py``, with only the
-imports changed. ``BatchedImageProperties`` (the threshold path's device
-measurement) is not ported yet. Keep the two in step
-(``tests/test_torch_host_copies.py`` holds them equal).
+imports changed. Keep the two in step (``tests/test_torch_host_copies.py``
+holds them equal). ``BatchedImageProperties``, the threshold path's device
+measurement, is the port's own: its device route is PyTorch
+(:mod:`..ops.threshold_props`); its chunking, buckets, host fallback and
+order are the original's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import scipy.ndimage as ndi
@@ -35,6 +37,7 @@ __all__ = [
     "FindRegions",
     "ExtractROI",
     "ImageProperties",
+    "BatchedImageProperties",
     "CalculateZooProcessFeatures",
     "DrawScalebar",
     "FilterEval",
@@ -345,6 +348,127 @@ class ImageProperties(Node):
 
     def _input_names(self):
         return ("mask", "image")
+
+
+@ReturnOutputs
+@Output("props")
+class BatchedImageProperties(Node):
+    """Device-batched :class:`ImageProperties` for threshold crops.
+
+    Counterpart of ``BatchedImageProperties`` in
+    ``maze_image_processing_pipeline_tpu/engine/image.py``: up to
+    ``chunk_size`` consecutive stream objects are collected, their crops
+    grouped into the same power-of-two padded shape and count buckets (the
+    results do not depend on the padding, and equal buckets give equal
+    overflow decisions), each bucket measured in one device call of
+    :func:`..ops.threshold_props.threshold_measure` (one-region props and
+    the exact filled area) with one device→host copy, and the chunk is
+    re-emitted in arrival order, so that stateful downstream stages (dedup,
+    writers) stay safe.
+
+    Crops the device route does not take (not 2-D, not uint8, a negative
+    threshold, or ``n_bg_segments`` or more background components) are
+    measured on the host, as :class:`ImageProperties` does; the output has
+    the same structure either way.
+
+    ``device`` is the torch device of the measurement: the card unless the
+    caller asks for the CPU; without a card a CUDA device raises.
+    """
+
+    def __init__(
+        self,
+        image: RawOrVariable[np.ndarray],
+        threshold: float,
+        chunk_size: int = 256,
+        n_bg_segments: int = 64,
+        device="cuda",
+    ) -> None:
+        from ..models.inference import resolve_device
+
+        self.image = image
+        self.threshold = threshold
+        self.chunk_size = chunk_size
+        self.n_bg_segments = n_bg_segments
+        super().__init__()
+        self._device = resolve_device(device)
+
+    def transform_stream(self, stream: Stream) -> Stream:
+        with closing_if_closable(stream):
+            pending = []
+            for obj in stream:
+                pending.append(obj)
+                if len(pending) >= self.chunk_size:
+                    yield from self._flush(pending)
+                    pending = []
+            if pending:
+                yield from self._flush(pending)
+
+    def _host(self, img: np.ndarray) -> Dict[str, Any]:
+        mask = np.asarray(img) > self.threshold
+        props = {k: v[1] for k, v in host_region_props(mask, np.asarray(img)).items()}
+        filled = ndi.binary_fill_holes(mask)
+        return {"__props__": props, "__area_filled__": float(filled.sum())}
+
+    def _measure(self, batch: np.ndarray):
+        """One bucket on the device → (props, filled, n_bg) as numpy, in one
+        device→host copy."""
+        import torch
+
+        from ..ops.threshold_props import threshold_measure
+
+        with torch.inference_mode():
+            props, filled, n_bg = threshold_measure(
+                torch.from_numpy(batch).to(self._device), float(self.threshold), n_bg_segments=self.n_bg_segments
+            )
+            keys = sorted(k for k in props if k != "histogram")
+            flat = torch.cat(
+                [torch.stack([props[k] for k in keys]).reshape(-1), props["histogram"].reshape(-1),
+                 filled, n_bg.to(torch.float32)]
+            ).cpu().numpy()
+        N = len(batch)
+        out = {k: flat[i * N : (i + 1) * N] for i, k in enumerate(keys)}
+        o = len(keys) * N
+        out["histogram"] = flat[o : o + N * 256].reshape(N, 256)
+        o += N * 256
+        return out, flat[o : o + N], flat[o + N :].astype(np.int32)
+
+    def _flush(self, objs):
+        imgs = [np.asarray(self.prepare_input(obj, "image")) for obj in objs]
+        results: list = [None] * len(objs)
+
+        buckets: Dict[tuple, list] = {}
+        device_ok = self.threshold >= 0
+        for i, im in enumerate(imgs):
+            if not (device_ok and im.ndim == 2 and im.dtype == np.uint8):
+                results[i] = self._host(im)
+                continue
+            hb = max(8, 1 << int(im.shape[0] - 1).bit_length())
+            wb = max(128, 1 << int(im.shape[1] - 1).bit_length())
+            buckets.setdefault((hb, wb), []).append(i)
+
+        for (hb, wb), idxs in buckets.items():
+            nb = max(8, 1 << int(len(idxs) - 1).bit_length())
+            batch = np.zeros((nb, hb, wb), np.uint8)
+            for j, i in enumerate(idxs):
+                h, w = imgs[i].shape
+                batch[j, :h, :w] = imgs[i]
+            props, filled, n_bg = self._measure(batch)
+            for j, i in enumerate(idxs):
+                if int(n_bg[j]) >= self.n_bg_segments:
+                    results[i] = self._host(imgs[i])
+                    continue
+                results[i] = {
+                    "__props__": {k: v[j] for k, v in props.items()},
+                    "__area_filled__": float(filled[j]),
+                }
+
+        out_var = self.output_vars[0]
+        for obj, res in zip(objs, results):
+            obj[out_var] = res
+            yield obj
+
+    def _input_names(self):
+        return ("image",)
 
 
 @ReturnOutputs

@@ -6,6 +6,8 @@ that the JAX package's task files run unchanged, with these differences:
 * model segmentation is ``pytorch:``; ``jax:`` is accepted as its alias;
 * ``device`` defaults to ``"cuda"``, accepts ``"cpu"``, and reads ``"tpu"``
   (and ``"gpu"``) as the accelerator, i.e. the CUDA card;
+* the threshold path's ``device`` also accepts ``"cuda"`` and ``"cpu"``;
+  true and ``"auto"`` mean the card (there is no dispatch probe);
 * ``postprocess.pallas_kernels`` is accepted and ignored (the port's
   kernels always run on the card);
 * ``parallel`` accepts only ``false`` (multi-GPU execution: ROADMAP A6).
@@ -60,13 +62,13 @@ class ThresholdSegmentationConfig(DefaultModel):
     threshold_brighter: float = Field(
         ..., description="Extract objects brighter than this threshold."
     )
-    device: bool | Literal["auto"] = Field(
+    device: bool | Literal["auto", "cuda", "cpu"] = Field(
         "auto",
         description=(
-            "Measure crops batched on the accelerator (fused single-region "
-            "props + exact filled area); false = per-crop host path. "
-            "'auto' probes the dispatch round-trip once: accelerator when "
-            "it is locally attached, host path through remote tunnels."
+            "Measure crops batched on the card (fused single-region props + "
+            "exact filled area): true, 'auto' and 'cuda' mean the card and "
+            "raise without one; 'cpu' runs the same batches on the CPU; "
+            "false = per-crop host path."
         ),
     )
     device_chunk_size: int = Field(

@@ -6,14 +6,21 @@ Counterpart of ``maze_image_processing_pipeline_tpu/loki/device_seg.py``:
   upload, cut tiles on the device, U-Net forward with sigmoid, linear-ramp
   blend back into frames, the frame chain (:func:`_build_frame_chain`),
   per-region crop masks cut on the device; the host assembles
-  :class:`..engine.image.RegionInfo` objects;
+  :class:`..engine.image.RegionInfo` objects. With ``device_crops: false``
+  or segment merging (``merge_segments_distance > 0``) the label frames
+  come to the host instead (label-frame mode): merging runs there
+  (:func:`..ops.merge_labels.merge_labels`) and ``FindRegions`` cuts the
+  crops;
+* :class:`DeviceFramePostprocess` — the frame chain on one host-blended
+  frame at a time (the host-blend path);
 * :func:`build_torch_segmentation` — the stage builder: [stitch →]
-  segmentation → region fan-out → ROI crops → metadata → ZooProcess features.
+  segmentation (device blend, or tiles → :class:`..models.inference.
+  TorchInference` → host blend → :class:`DeviceFramePostprocess`, which the
+  full-frame debug archive needs) → region fan-out → ROI crops → metadata →
+  ZooProcess features.
 
-Not ported yet: the sparse crop upload (``_build_compose``), segment merging
-(``merge_segments_distance > 0``), label frames on the host
-(``device_crops: false``), the host-blend path and the full-frame debug
-archive; the last four raise ``NotImplementedError``.
+Not ported: the sparse crop upload (``_build_compose``, ROADMAP A2) and the
+round-robin over several cards (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -21,13 +28,15 @@ from __future__ import annotations
 import collections
 import contextlib
 import logging
+import os
 from types import SimpleNamespace
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from ..engine import DataParallelPipeline, Filter, Stitch, StreamBuffer
+from ..dataio import EcotaxaWriter
+from ..engine import DataParallelPipeline, Filter, Stitch, StreamBuffer, TiledPipeline
 from ..engine.core import (
     Call,
     Node,
@@ -44,16 +53,17 @@ from ..engine.image import (
     RegionInfo,
 )
 from ..engine.tiles import _linear_weight, _tile_starts
-from ..models.inference import default_device_pre, sigmoid_post
+from ..models.inference import TorchInference, default_device_pre, sigmoid_post
 from ..models.inference import resolve_device as _resolve_device
 from ..ops.crops import UNPACK_LUT, extract_region_crops
 from ..ops.fill_holes import region_filled_extra
 from ..ops.label import clear_border, label, remove_small_objects
+from ..ops.merge_labels import merge_labels
 from ..ops.morphology import binary_closing, binary_opening
 from ..ops.regionprops_fused import regionprops_fused
 from .meta import format_object_id
 
-__all__ = ["DeviceTiledSegmentation", "build_torch_segmentation"]
+__all__ = ["DeviceTiledSegmentation", "DeviceFramePostprocess", "build_torch_segmentation"]
 
 logger = logging.getLogger(__name__)
 
@@ -68,16 +78,18 @@ DEFAULT_POSTPROCESS = SimpleNamespace(
 )
 
 
-def _build_frame_chain(cfg):
+def _build_frame_chain(cfg, compute_filled: bool = True):
     """The frame postprocess: mask → morphology → CCL → [clear_border] →
-    [remove_small] → fused region measurement → filled area.
+    [remove_small] → fused region measurement (K7, K3) → [filled area].
 
     Returns ``(chain, pack_keys)``. ``chain(pred, image)`` takes (B, H, W)
     float32 predictions and uint8 frames on one device and returns
     ``(labels, flat)``: the int32 label frames, and ONE flat float32 buffer
     of the counts, the packed (K, B, R) statistics and the (B, R, 256)
     histograms, so the host needs one copy. ``pack_keys`` (sorted prop keys,
-    histogram excluded) is filled at the first call.
+    histogram excluded) is filled at the first call. ``compute_filled``
+    adds ``area_filled`` and ``area_filled_ambiguous`` (the JAX package
+    leaves them out when segments are merged).
     """
     pack_keys: list = []
     R = cfg.max_regions
@@ -94,9 +106,10 @@ def _build_frame_chain(cfg):
         if cfg.min_area > 0:
             labels, n = remove_small_objects(labels, cfg.min_area, num_segments=4 * R)
         props = regionprops_fused(labels, image, num_segments=R, compute_histogram=True)
-        extra, ambiguous = region_filled_extra(labels, num_segments=R, bg_segments=4 * R)
-        props["area_filled"] = props["area"] + extra
-        props["area_filled_ambiguous"] = ambiguous.to(torch.float32)
+        if compute_filled:
+            extra, ambiguous = region_filled_extra(labels, num_segments=R, bg_segments=4 * R)
+            props["area_filled"] = props["area"] + extra
+            props["area_filled_ambiguous"] = ambiguous.to(torch.float32)
         keys = sorted(k for k in props if k != "histogram")
         if not pack_keys:
             pack_keys.extend(keys)
@@ -128,16 +141,24 @@ def _unpack_stats_batch(flat, B, pack_keys):
     return out
 
 
-def _warn_overflow(n: int, max_regions: int) -> None:
-    if n >= max_regions:
+def _finalize_frame(labels, n, props, post_cfg, device):
+    """The host epilogue of a frame: overflow warning, then, with
+    ``merge_segments_distance > 0``, bridge-merging of the label frame
+    (distance fields on ``device``); merged props are stale, so they are
+    dropped and ``FindRegions`` measures each crop on the host."""
+    if n >= post_cfg.max_regions:
         # Not a data loss: the excess is measured on the host.
         logger.warning(
             "Frame has %d regions, exceeding max_regions=%d; the excess "
             "is measured on the host (slow path) — raise max_regions if "
             "this happens often.",
             n,
-            max_regions,
+            post_cfg.max_regions,
         )
+    if post_cfg.merge_segments_distance > 0:
+        labels = merge_labels(labels, max_distance=post_cfg.merge_segments_distance, device=device)
+        props = None
+    return labels, props, n
 
 
 class _Holder:
@@ -167,8 +188,8 @@ class DeviceTiledSegmentation(Node):
         config: segmentation settings read by attribute (``tile_size``,
             ``tile_stride``, ``batch_size``, ``frame_batch``,
             ``skip_empty_tiles``, ``padding``, ``min_intensity``; optional
-            ``device_crops``, which must not be false), e.g. the JAX
-            package's ``JaxSegmentationConfig``.
+            ``device_crops``), e.g. the JAX package's
+            ``JaxSegmentationConfig``.
         postprocess_config: frame-chain settings (``opening_radius``,
             ``closing_radius``, ``clear_border``, ``min_area``,
             ``max_regions``, ``merge_segments_distance``).
@@ -189,17 +210,17 @@ class DeviceTiledSegmentation(Node):
     ) -> None:
         self.image = image
         super().__init__()
-        if postprocess_config.merge_segments_distance > 0:
-            raise NotImplementedError("merge_segments_distance > 0 is not ported yet")
-        if not getattr(config, "device_crops", True):
-            raise NotImplementedError("device_crops: false is not ported yet")
         self._device = _resolve_device(device)
         self._module = model.module.to(self._device).eval()
         self._cfg = config
         self._post_cfg = postprocess_config
         self._skip_empty = bool(getattr(config, "skip_empty_tiles", True))
         self._frame_batch = max(1, getattr(config, "frame_batch", 4))
-        self._chain, self._pack_keys = _build_frame_chain(postprocess_config)
+        # Device crops need the labels as the chain left them; merging
+        # changes them on the host, so it takes the label-frame mode.
+        merging = postprocess_config.merge_segments_distance > 0
+        self._crops_mode = bool(getattr(config, "device_crops", True)) and not merging
+        self._chain, self._pack_keys = _build_frame_chain(postprocess_config, compute_filled=not merging)
         ts = config.tile_size
         self._weight = torch.from_numpy(_linear_weight(ts, ts)).to(self._device)
 
@@ -228,8 +249,11 @@ class DeviceTiledSegmentation(Node):
         return torch.where((rows < hs_t) & (cols < ws_t), pred, 0.0)
 
     def _run_group(self, imgs: np.ndarray, hs, ws, dims):
-        """Segment one (B, Hb, Wb) frame group → per frame
-        ``(None, props, n_regions, regions)`` (labels stay on the device)."""
+        """Segment one (B, Hb, Wb) frame group → per frame ``(labels, props,
+        n_regions, regions)``: in crops mode the labels stay on the device
+        (None) and ``regions`` holds the frame's RegionInfo objects; in
+        label-frame mode ``labels`` is the frame's (H, W) int32 label image
+        on the host and ``regions`` is None."""
         ts, stride = self._cfg.tile_size, self._cfg.tile_stride
         B, Hb, Wb = imgs.shape
         offsets = [(y, x) for y in _tile_starts(Hb, ts, stride) for x in _tile_starts(Wb, ts, stride)]
@@ -244,12 +268,19 @@ class DeviceTiledSegmentation(Node):
             pred = self._predict(frames, jobs, hs, ws)
             labels, flat = self._chain(pred, frames)
             stats = _unpack_stats_batch(flat.cpu().numpy(), B, self._pack_keys)
-            regions = self._crops(labels, frames, imgs, stats, dims)
+            if self._crops_mode:
+                regions = self._crops(labels, frames, imgs, stats, dims)
+            else:
+                labels_host = labels.cpu().numpy()
         results = []
-        for b in range(len(dims)):
+        for b, (H, W) in enumerate(dims):
             n, props = stats[b]
-            _warn_overflow(n, self._post_cfg.max_regions)
-            results.append((None, props, n, regions[b]))
+            if self._crops_mode:
+                _, props, n = _finalize_frame(None, n, props, self._post_cfg, self._device)
+                results.append((None, props, n, regions[b]))
+            else:
+                lab, props, n = _finalize_frame(labels_host[b, :H, :W], n, props, self._post_cfg, self._device)
+                results.append((lab, props, n, None))
         return results
 
     # -- crops -------------------------------------------------------------
@@ -499,6 +530,79 @@ class DeviceTiledSegmentation(Node):
         return ("image",)
 
 
+@ReturnOutputs
+class DeviceFramePostprocess(Node):
+    """The frame chain on host-blended frames, one frame a call.
+
+    Counterpart of ``DeviceFramePostprocess`` in the JAX package's
+    ``loki/device_seg.py``: binarize → opening → closing → label(8) →
+    [clear_border] → [remove_small] → fused region measurement, on each
+    frame zero-padded to a multiple of ``bucket``; two frames are dispatched
+    before the oldest is fetched (labels and one stats buffer), as in the
+    JAX package on one device.
+
+    Args:
+        pred: (H, W) or (H, W, 1) foreground probability frame variable.
+        image: (H, W) uint8 intensity frame variable.
+        config: frame-chain settings (``SegmentationPostprocessingConfig``).
+        bucket: pad both extents to a multiple of this.
+        device: the torch device of the chain; the card unless the caller
+            asks for the CPU.
+    """
+
+    outputs = ("labels", "props", "n_regions")
+    _IN_FLIGHT = 2
+
+    def __init__(
+        self,
+        pred: RawOrVariable[np.ndarray],
+        image: RawOrVariable[np.ndarray],
+        config,
+        bucket: int = 256,
+        device="cuda",
+    ) -> None:
+        self.pred = pred
+        self.image = image
+        self.config = config
+        self.bucket = bucket
+        super().__init__()
+        self._device = _resolve_device(device)
+        self._chain, self._pack_keys = _build_frame_chain(
+            config, compute_filled=config.merge_segments_distance == 0
+        )
+
+    def _padded(self, x: np.ndarray) -> torch.Tensor:
+        H, W = x.shape[:2]
+        out = np.zeros((1, -(-H // self.bucket) * self.bucket, -(-W // self.bucket) * self.bucket), x.dtype)
+        out[0, :H, :W] = x
+        return torch.from_numpy(out).to(self._device)
+
+    def transform_stream(self, stream: Stream) -> Stream:
+        pending: "collections.deque" = collections.deque()
+
+        def emit(entry):
+            obj, (labels, flat), (H, W) = entry
+            labels = labels.cpu().numpy()[0, :H, :W]
+            ((n, props),) = _unpack_stats_batch(flat.cpu().numpy(), 1, self._pack_keys)
+            labels, props, n = _finalize_frame(labels, n, props, self.config, self._device)
+            self.prepare_output(obj, labels, props, n)
+            return obj
+
+        with closing_if_closable(stream):
+            for obj in stream:
+                pred = np.asarray(self.prepare_input(obj, "pred"))
+                image = np.asarray(self.prepare_input(obj, "image"))
+                if pred.ndim == 3:
+                    pred = pred[..., 0]
+                with torch.inference_mode():
+                    out = self._chain(self._padded(pred), self._padded(image))
+                pending.append((obj, out, pred.shape))
+                while len(pending) > self._IN_FLIGHT:
+                    yield emit(pending.popleft())
+            while pending:
+                yield emit(pending.popleft())
+
+
 def build_torch_segmentation(
     config,
     target_dir: str,
@@ -518,10 +622,6 @@ def build_torch_segmentation(
     from ..models.model_io import load_model
 
     device = _resolve_device(device)
-    if not getattr(config, "device_blend", True):
-        raise NotImplementedError("the host-blend path (device_blend: false) is not ported yet")
-    if config.full_frame_archive_fn is not None:
-        raise NotImplementedError("full_frame_archive_fn is not ported yet")
 
     if config.stitch:
         StreamBuffer(16)
@@ -541,9 +641,35 @@ def build_torch_segmentation(
     model = load_model(config.model_fn, dtype=config.dtype)
     postprocess_config = config.postprocess or DEFAULT_POSTPROCESS
 
-    labels, props, n_regions, regions = DeviceTiledSegmentation(
-        image, model, config, postprocess_config, device=device
-    )
+    regions = None
+    if getattr(config, "device_blend", True) and config.full_frame_archive_fn is None:
+        labels, props, n_regions, regions = DeviceTiledSegmentation(
+            image, model, config, postprocess_config, device=device
+        )
+    else:
+        # Host blend: the debug archive needs the blended prediction on the
+        # host.
+        with TiledPipeline(
+            (config.tile_size, config.tile_size),
+            image,
+            tile_stride=(config.tile_stride, config.tile_stride),
+            blend_strategy="linear",
+        ):
+            # Skip empty tiles (no pixels above zero).
+            Filter(Call(lambda img: bool((np.asarray(img) > 0).any()), image))
+            foreground_pred = TorchInference(
+                model, image, batch_size=config.batch_size or 8, transfer_dtype=np.float16, device=device
+            )
+            # Single foreground channel: channel 0 of the sigmoid output.
+            foreground_pred = Call(lambda p: np.asarray(p)[..., 0].astype(np.float32), foreground_pred)
+
+        labels, props, n_regions = DeviceFramePostprocess(
+            foreground_pred, image, postprocess_config, device=device
+        )
+        if config.full_frame_archive_fn is not None:
+            _build_full_frame_debug_output(config, target_dir, image, foreground_pred, labels, meta)
+            StreamBuffer(2)
+
     region = FindRegions(
         labels,
         image,
@@ -583,3 +709,37 @@ def build_torch_segmentation(
         mask = Call(lambda r: r.image, region)
 
     return roi, meta, mask
+
+
+def _build_full_frame_debug_output(config, target_dir, image, foreground_pred, labels, meta):
+    """Debug archive with input / label-overlay / score images per frame
+    (the JAX package's ``_build_full_frame_debug_output``)."""
+
+    def label_overlay(lab, img):
+        import cv2
+
+        lab = np.asarray(lab)
+        img = np.asarray(img)
+        # Shape guard, parity with the reference's assert_compatible_shape.
+        if lab.shape[:2] != img.shape[:2]:
+            raise ValueError(f"labels {lab.shape} and image {img.shape} are incompatible")
+        norm = (lab * 37 % 255).astype(np.uint8)
+        color = cv2.applyColorMap(norm, cv2.COLORMAP_JET)
+        color[lab == 0] = 0
+        base = np.stack([img] * 3, axis=-1) if img.ndim == 2 else img
+        out = (0.5 * base + 0.5 * color).astype(np.uint8)
+        out[lab == 0] = base[lab == 0]
+        return out
+
+    segment_image = Call(label_overlay, labels, image)
+    score_image = Call(lambda p: np.clip(np.asarray(p) * 255, 0, 255).astype(np.uint8), foreground_pred)
+    archive_fn = Call(lambda m: os.path.join(target_dir, config.full_frame_archive_fn.format_map(m)), meta)
+    frame_id = Call(lambda m: m["object_frame_id"], meta)
+    EcotaxaWriter(
+        archive_fn,
+        [
+            ("img/" + frame_id + ".png", image),
+            ("overlay/" + frame_id + ".png", segment_image),
+            ("score/" + frame_id + ".png", score_image),
+        ],
+    )

@@ -4,12 +4,13 @@ Counterpart of ``maze_image_processing_pipeline_tpu/loki/pipeline.py``,
 with the same stages and the same archive: sample discovery → metadata and
 telemetry → [stitch →] U-Net segmentation on the card
 (:func:`.device_seg.build_torch_segmentation`: tile inference, blend, the
-frame chain with its CUDA kernels, device crops) → duplicate detection →
+frame chain with its CUDA kernels, device crops) or threshold segmentation
+of the crops (measured in batches on the card,
+:class:`..engine.image.BatchedImageProperties`) → duplicate detection →
 rescale / scalebar / annotation merge → EcoTaxa archive. Per-object host
 work stays behind stream buffers so it overlaps with the card.
 
-Not ported yet: the threshold path's device measurement (``device: true``
-or ``auto``; ROADMAP A4) and multi-GPU execution (ROADMAP A6).
+Not ported yet: multi-GPU execution (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from ..engine import (
     Variable,
 )
 from ..engine.image import (
+    BatchedImageProperties,
     CalculateZooProcessFeatures,
     DrawScalebar,
     FilterEval,
@@ -308,21 +310,24 @@ def build_threshold_segmentation(config: ThresholdSegmentationConfig, image, met
     """Brightness-threshold segmentation of individual crops.
 
     Reference parity: ``loki/pipeline.py:648-656`` (mask → any() filter →
-    ImageProperties → ZooProcess). Only the per-crop host path
-    (``device: false``) is ported; the device measurement raises.
+    ImageProperties → ZooProcess). ``device`` true, ``"auto"`` or
+    ``"cuda"`` measures the crops in batches on the card
+    (:class:`BatchedImageProperties`; without a card it raises), ``"cpu"``
+    the same batches on the CPU, false the reference's per-crop host path.
     """
-    if config.device is not False:
-        raise NotImplementedError(
-            "threshold segmentation with device: true or auto (the batched "
-            "device measurement) is not ported yet (ROADMAP A4); set "
-            "segmentation.threshold.device: false for the host path"
-        )
     mask = Call(
         lambda img: np.asarray(img) > config.threshold_brighter,
         image,
     )
-    Filter(Call(lambda m: bool(m.any()), mask))
-    props = ImageProperties(mask, image)
+    if config.device is not False:
+        device = "cpu" if config.device == "cpu" else "cuda"
+        props = BatchedImageProperties(
+            image, config.threshold_brighter, chunk_size=config.device_chunk_size, device=device
+        )
+        Filter(Call(lambda p: p["__props__"]["area"] > 0, props))
+    else:
+        Filter(Call(lambda m: bool(m.any()), mask))
+        props = ImageProperties(mask, image)
     meta = CalculateZooProcessFeatures(props, meta, prefix="object_")
     return image, meta, mask
 

@@ -10,8 +10,6 @@ in ``test_torch_regionprops.py``). Each package's nodes run in that
 package's own engine; the port's run on the CPU, asked for by name.
 """
 
-from types import SimpleNamespace
-
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -180,26 +178,8 @@ def test_mixed_shape_buckets_keep_arrival_order(model_dir):
     assert [o[3] for o in out if o[0] == "frame"] == counts
 
 
-def test_unported_options_raise(model_dir):
-    cfg, _ = _configs(model_dir)
-    model = t_model_io.load_model(model_dir)
-    merge = SimpleNamespace(**{**POST, "merge_segments_distance": 3, "clear_border": False})
-    POST_NS = SimpleNamespace(**{**POST, "merge_segments_distance": 0, "clear_border": False})
-    with pytest.raises(NotImplementedError):
-        tseg.DeviceTiledSegmentation(None, model, cfg, merge, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tseg.DeviceTiledSegmentation(None, model, _configs(model_dir, device_crops=False)[0], POST_NS, device="cpu")
-    for bad in (dict(device_blend=False), dict(full_frame_archive_fn="x.zip")):
-        with t_engine.Pipeline():
-            cfg_bad, _ = _configs(model_dir, stitch=False, **bad)
-            with pytest.raises(NotImplementedError):
-                tseg.build_torch_segmentation(
-                    cfg_bad, "", t_engine.Unpack([]), t_engine.Unpack([]), {}, device="cpu"
-                )
-
-
-def test_build_torch_segmentation_matches_jax(model_dir):
-    """The stage builder with stitching, against build_jax_segmentation."""
+def _stitched_items():
+    """Three frames of three 60×80 vignettes each, pasted 90 px apart."""
     rng = np.random.default_rng(9)
     items = []
     for f in range(3):
@@ -213,23 +193,21 @@ def test_build_torch_segmentation_matches_jax(model_dir):
                 "object_milliseconds": f,
             }
             items.append((crop, meta))
-    cfg = JaxSegmentationConfig(
-        model_fn=model_dir, dtype="float32", tile_size=128, tile_stride=96, frame_batch=2,
-        batch_size=4, padding=5, postprocess=SegmentationPostprocessingConfig(**POST),
-    )
+    return items
 
-    def run(engine, build, **kw):
-        out = []
-        with engine.Pipeline() as p:
-            img, meta = engine.Unpack(items).unpack(2)
-            roi, meta_out, mask = build(cfg, "", img, meta, {}, **kw)
-            engine.Call(lambda *a: out.append(a), roi, meta_out, mask)
-        p.run()
-        return out
 
-    ref = run(j_engine, jseg.build_jax_segmentation)
-    ours = run(t_engine, tseg.build_torch_segmentation, device="cpu")
-    assert len(ours) == len(ref) == 9
+def _run_stage(engine, build, items, cfg, target_dir, **kw):
+    out = []
+    with engine.Pipeline() as p:
+        img, meta = engine.Unpack(items).unpack(2)
+        roi, meta_out, mask = build(cfg, target_dir, img, meta, {}, **kw)
+        engine.Call(lambda *a: out.append(a), roi, meta_out, mask)
+    p.run()
+    return out
+
+
+def _compare_objects(ref, ours):
+    assert len(ours) == len(ref)
     for (r_roi, r_meta, r_mask), (o_roi, o_meta, o_mask) in zip(ref, ours):
         np.testing.assert_array_equal(o_roi, r_roi)
         np.testing.assert_array_equal(o_mask, r_mask)
@@ -239,3 +217,48 @@ def test_build_torch_segmentation_matches_jax(model_dir):
                 np.testing.assert_allclose(o_meta[k], v, rtol=1e-5, atol=1e-3, err_msg=k)
             else:
                 assert o_meta[k] == v, k
+
+
+def test_build_torch_segmentation_matches_jax(model_dir):
+    """The segmentation stage with stitching, against build_jax_segmentation."""
+    cfg = JaxSegmentationConfig(
+        model_fn=model_dir, dtype="float32", tile_size=128, tile_stride=96, frame_batch=2,
+        batch_size=4, padding=5, postprocess=SegmentationPostprocessingConfig(**POST),
+    )
+    items = _stitched_items()
+    ref = _run_stage(j_engine, jseg.build_jax_segmentation, items, cfg, "")
+    ours = _run_stage(t_engine, tseg.build_torch_segmentation, items, cfg, "", device="cpu")
+    assert len(ref) == 9
+    _compare_objects(ref, ours)
+
+
+# The options that take the label frames to the host: segment merging (the
+# vignettes' blobs lie 64 px apart, so 70 merges each frame's three), device
+# crops off, the host blend, and the full-frame debug archive (host blend
+# too). Each against build_jax_segmentation.
+OPTIONS = {
+    "merge": (dict(), dict(merge_segments_distance=70)),
+    "device_crops_false": (dict(device_crops=False), dict()),
+    "device_blend_false": (dict(device_blend=False), dict()),
+    "full_frame_archive": (dict(full_frame_archive_fn="frames_{object_date}.zip"), dict(merge_segments_distance=20)),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_label_frame_options_match_jax(model_dir, tmp_path, option):
+    seg_kw, post_kw = OPTIONS[option]
+    cfg = JaxSegmentationConfig(
+        model_fn=model_dir, dtype="float32", tile_size=128, tile_stride=96, frame_batch=2,
+        batch_size=4, padding=5, postprocess=SegmentationPostprocessingConfig(**{**POST, **post_kw}), **seg_kw,
+    )
+    items = _stitched_items()
+    ref = _run_stage(j_engine, jseg.build_jax_segmentation, items, cfg, str(tmp_path / "jax"))
+    ours = _run_stage(t_engine, tseg.build_torch_segmentation, items, cfg, str(tmp_path / "torch"), device="cpu")
+    assert len(ref) == (3 if option == "merge" else 9)
+    _compare_objects(ref, ours)
+    if option == "full_frame_archive":
+        import chip_smoke
+
+        fn = "frames_20200101.zip"  # a row and three images (input, overlay, score) per frame
+        ref_fn, our_fn = str(tmp_path / "jax" / fn), str(tmp_path / "torch" / fn)
+        assert chip_smoke.compare_archives(ref_fn, our_fn, one_level=("score/",)) == 3

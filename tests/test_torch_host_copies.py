@@ -5,11 +5,12 @@ are its own copies: the engine (``engine/core.py`` ... ``tiles.py``),
 ``dataio/``, ``common.py``, ``config.py``, ``progress.py``,
 ``loki/{meta,zoomie}.py``, ``polytaxo/``, the image nodes of
 ``engine/image.py``, ``ops/host_props.py``, ``ops/zooprocess.py``,
-``rescale_max_intensity`` and the host functions of ``predict/pipeline.py``.
-Each copy must hold the original's code (only docstrings and imports
-differ), and the same inputs go through original and copy with identical
-outputs. The last test holds the port's entry points to the card: asked for
-no device, they raise without one.
+``rescale_max_intensity``, the host functions of ``predict/pipeline.py``,
+and the host code of ``BatchedImageProperties`` (chunking, host fallback)
+and of the full-frame debug archive. Each copy must hold the original's
+code (only docstrings and imports differ), and the same inputs go through
+original and copy with identical outputs. The last test holds the port's
+entry points to the card: asked for no device, they raise without one.
 """
 
 import ast
@@ -39,6 +40,7 @@ from maze_image_processing_pipeline_tpu_torch.loki import meta as t_meta
 from maze_image_processing_pipeline_tpu_torch.loki import pipeline as t_pipeline
 from maze_image_processing_pipeline_tpu_torch.loki import zoomie as t_zoomie
 from maze_image_processing_pipeline_tpu_torch.ops import host_props as t_host_props
+from maze_image_processing_pipeline_tpu_torch.ops import merge_labels as t_merge
 from maze_image_processing_pipeline_tpu_torch.ops import zooprocess as t_zoo
 from maze_image_processing_pipeline_tpu_torch.ops.image import rescale_max_intensity as t_rescale
 
@@ -157,12 +159,17 @@ def test_host_module_copy_has_the_original_code(rel):
 PREDICT_COPIES = ["_convex_area", "measure_segments", "_prepare_translation", "build_polytaxo_pipeline"]
 
 
-def _function(path: Path, name: str) -> str:
-    """The function's code without its docstring."""
-    (fn,) = [n for n in ast.parse(path.read_text()).body if isinstance(n, ast.FunctionDef) and n.name == name]
+def _function_of(body, name: str) -> str:
+    """The code of the function ``name`` of ``body`` without its docstring."""
+    (fn,) = [n for n in body if isinstance(n, ast.FunctionDef) and n.name == name]
     if fn.body and isinstance(fn.body[0], ast.Expr) and isinstance(fn.body[0].value, ast.Constant):
         fn.body = fn.body[1:]
     return ast.dump(fn)
+
+
+def _function(path: Path, name: str) -> str:
+    """The module-level function's code without its docstring."""
+    return _function_of(ast.parse(path.read_text()).body, name)
 
 
 @pytest.mark.parametrize("name", PREDICT_COPIES)
@@ -171,6 +178,32 @@ def test_predict_host_function_copy_has_the_original_code(name):
     original = REPO / "maze_image_processing_pipeline_tpu" / rel
     copy = REPO / "maze_image_processing_pipeline_tpu_torch" / rel
     assert _function(copy, name) == _function(original, name)
+
+
+def _method(path: Path, cls: str, name: str) -> str:
+    """The method's code without its docstring."""
+    (c,) = [n for n in ast.parse(path.read_text()).body if isinstance(n, ast.ClassDef) and n.name == cls]
+    return _function_of(c.body, name)
+
+
+# Host code of the threshold path and of the label-frame paths that the port
+# copies: (module, class or None, function).
+HOST_CODE_COPIES = [
+    ("engine/image.py", "BatchedImageProperties", "transform_stream"),
+    ("engine/image.py", "BatchedImageProperties", "_host"),
+    ("engine/image.py", "BatchedImageProperties", "_input_names"),
+    ("loki/device_seg.py", None, "_build_full_frame_debug_output"),
+]
+
+
+@pytest.mark.parametrize("rel,cls,name", HOST_CODE_COPIES)
+def test_threshold_and_label_frame_host_code_copies(rel, cls, name):
+    original = REPO / "maze_image_processing_pipeline_tpu" / rel
+    copy = REPO / "maze_image_processing_pipeline_tpu_torch" / rel
+    if cls is None:
+        assert _function(copy, name) == _function(original, name)
+    else:
+        assert _method(copy, cls, name) == _method(original, cls, name)
 
 
 def test_polytaxo_copy_decodes_like_the_original():
@@ -310,3 +343,11 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     }
     with pytest.raises(RuntimeError, match="no CUDA card"):
         t_pipeline.Runner._configure_and_run(task)
+    # The threshold measurement, the host-blend frame chain and segment
+    # merging.
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        t_image.BatchedImageProperties(None, 50)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        t_seg.DeviceFramePostprocess(None, None, t_seg.DEFAULT_POSTPROCESS)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        t_merge.merge_labels(np.zeros((4, 4), np.int32))

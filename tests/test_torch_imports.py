@@ -8,8 +8,11 @@
   (``sys.modules[name] = None`` makes any import of them fail), imports
   every module of the port and ``chip_smoke``, runs one frame group of the
   segmentation slice on the CPU through the same code as ``chip_smoke.py``'s
-  phase 5, and runs the port's ``loki`` Runner on a tiny LOKI haul built by
-  ``chip_smoke.make_loki_tree``, as its phase 6 does, at a small size.
+  phase 5, runs the port's ``loki`` Runner on a tiny LOKI haul built by
+  ``chip_smoke.make_loki_tree``, as its phases 6 and 8 do (U-Net, the
+  host-blend task with merging and the full-frame archive, threshold
+  segmentation), and its ``predict`` Runner as phase 7 does, at a small
+  size.
 """
 
 import ast
@@ -72,6 +75,16 @@ cs.run_loki(task)
 rows, members = cs.check_archive(os.path.join(work, "out", "LOKI_PS122-1_7.zip"))
 print("archive rows", rows)
 
+cs.run_loki(cs.threshold_task(data, os.path.join(work, "thr"), device="cpu"))
+rows, members = cs.check_archive(os.path.join(work, "thr", "LOKI_PS122-1_7.zip"))
+print("threshold rows", rows)
+task = cs.loki_task(data, unet, os.path.join(work, "hb"), device="cpu", dtype="float32", tile_size=128,
+                    tile_stride=96, batch_size=4, frame_batch=2, device_blend=False,
+                    full_frame_archive_fn="frames.zip",
+                    postprocess={{**cs.LOKI_POSTPROCESS, "merge_segments_distance": 20}})
+cs.run_loki(task)
+print("full frames", cs.compare_archives(*[os.path.join(work, "hb", "frames.zip")] * 2))
+
 from maze_image_processing_pipeline_tpu_torch.predict.pipeline import Runner as PredictRunner
 crops = cs.make_crop_archive(os.path.join(work, "crops", "crops.zip"), [(40, 50), (70, 90)], seed=3)
 unet2 = cs.write_unet(os.path.join(work, "unet2"), cs.SMALL_SEMSEG_UNET, "float32", seed=0, gain=1000.0,
@@ -125,4 +138,6 @@ def test_port_runs_without_the_packages_the_card_lacks():
     assert res.returncode == 0, res.stdout + res.stderr
     assert "frames 2" in res.stdout
     assert "archive rows" in res.stdout
+    assert "threshold rows 6" in res.stdout
+    assert "full frames 2" in res.stdout
     assert "predict rows 2 2" in res.stdout

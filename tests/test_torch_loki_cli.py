@@ -127,6 +127,27 @@ def test_loki_archive_matches_jax(haul, models, model):
     assert chip_smoke.check_archive(str(our_dir / ARCHIVE)) == (rows, 2 * rows)
 
 
+def test_loki_host_blend_merge_full_frame_matches_jax(haul, models):
+    """The host blend (tiles → inference → blend on the host →
+    DeviceFramePostprocess), segment merging and the full-frame debug
+    archive in one task: both archives equal the JAX Runner's, the debug
+    archive's score images (probabilities ×255, truncated) within one grey
+    level."""
+    tasks = {}
+    for name in ("jax_host_blend", "torch_host_blend"):
+        task = _task(haul / "data", models["unet"], haul / name)
+        seg = task["segmentation"]["jax"]
+        seg.update(device_blend=False, full_frame_archive_fn="full_frames.zip")
+        seg["postprocess"]["merge_segments_distance"] = 20
+        tasks[name] = task
+    JaxRunner._configure_and_run(tasks["jax_host_blend"])
+    TorchRunner._configure_and_run(tasks["torch_host_blend"])
+    ref, ours = haul / "jax_host_blend", haul / "torch_host_blend"
+    assert chip_smoke.compare_archives(str(ref / ARCHIVE), str(ours / ARCHIVE)) >= 4
+    frames = chip_smoke.compare_archives(str(ref / "full_frames.zip"), str(ours / "full_frames.zip"), one_level=("score/",))
+    assert frames == 3
+
+
 def test_cli_runs_loki_and_prints_the_config(haul, models, tmp_path):
     import yaml
 
