@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py            # the whole smoke run
-    python3 chip_smoke.py --stages   # phases 6, 7 and 8 only, with stage
-                                     # breakdowns and the device's idle share
+    python3 chip_smoke.py --stages   # phases 6, 7, 8 and 9's train step only,
+                                     # with stage breakdowns and the device's
+                                     # idle share
 
 Builds the port's CUDA kernels from ``maze_image_processing_pipeline_tpu_torch/
 csrc`` and runs, one line of output per phase:
@@ -33,7 +34,12 @@ csrc`` and runs, one line of output per phase:
    a multiple of 8), NCHW and channels_last, float32 within rtol 1e-5 /
    atol 1e-5, bfloat16 and float16 within one ulp, with ``F.group_norm``'s
    time beside it; the layouts the U-Net and the classifier feed their
-   norms are printed;
+   norms are printed; K6 ``group_norm_bwd`` at the train step's shapes
+   (8, 32, 512, 512) … (8, 512, 32, 32) and at odd shapes, NCHW and
+   channels_last, float32, bfloat16 and float16: dx within rtol 1e-4 plus
+   1e-5 of its largest magnitude (float32) or one ulp, dweight and dbias
+   within the float32 tolerance, the same bits twice; with the plain
+   version's and ``native_group_norm_backward``'s times beside it;
 3. the frame chain (morphology → CCL → region measurement (K7, K3) →
    filled area) on the card against the same chain on the CPU;
 4. the full-width U-Net (out_channels=1, base_features=32, depth=4) and
@@ -77,12 +83,23 @@ csrc`` and runs, one line of output per phase:
    60×80, every tenth 150-400 px a side); one warm-up, then the timed run,
    objects/s. The card's archive must equal the ``device: "cpu"`` run's,
    and every object's features the host path's (``device: false``) within
-   the JAX package's tolerance of that comparison.
+   the JAX package's tolerance of that comparison;
+9. training through the port's ``models.train`` / ``train_loop`` on the
+   card: the full-width step of ``bench.py``'s ``bench_unet_train_tpu``
+   (``UNet(2, 32, 4)`` bf16, batch 8 of 512², ``bce_dice_loss``, AdamW
+   1e-3; three warm-up steps, then ten timed, tiles/s; the loss finite and
+   falling; 18 K5 and 18 K6 launches a step); ``ConvClassifier(8)`` bf16,
+   batch 64 of 256², ``bce_loss``, three steps; ``UNet(1, 8, 2)``
+   float32's first-step loss and gradients card against CPU (TF32 off);
+   a ``UNet(1, 32, 4)`` bf16 distilled by ``fit`` for 200 steps of
+   ``tools/bench_e2e.py``'s batches, saved by ``save_model``, then phase
+   6's task on it: at least 432 of the 480 planted objects.
 
 Kernel launches are counted per phase (counts set to 0 just before each
-timed run, read just after): every kernel must launch in phases 5 and 6;
-K1, K2, K4 and K5 in phase 7, and not K3 or K7; K1, K2, K4, K3 and K7 in
-phase 8. The last lines are a JSON object of the
+timed run, read just after): every kernel but K6 must launch in phases 5
+and 6; K1, K2, K4 and K5 in phase 7, and not K3 or K7; K1, K2, K4, K3 and
+K7 in phase 8; K5 and K6, and no other, in phase 9. K6 launches in no
+phase but 9. The last lines are a JSON object of the
 kernels, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before the last line.
 """
@@ -116,6 +133,8 @@ KERNELS = {
     "remove_small_objects": (f"{CSRC}/relabel.cu", "attic/pallas_relabel.py:99", 4 + 4),
     # bfloat16 activations, as every norm of the path: 2 B read, 2 B written.
     "group_norm": (f"{CSRC}/group_norm.cu", "attic/pallas_norm.py:95", 2 + 2),
+    # bfloat16 x and cotangent read, dx written (plus (C,) outputs per call).
+    "group_norm_bwd": (f"{CSRC}/group_norm.cu", "attic/pallas_norm.py:256", 2 + 2 + 2),
     # Labels and intensity read (5 B/px) plus outputs per region, not per
     # pixel: their bounds are reckoned in phase_region_kernels.
     "region_histogram": (f"{CSRC}/region_histogram.cu", "attic/pallas_hist.py:94", None),
@@ -123,9 +142,15 @@ KERNELS = {
 }
 # The kernels of the frame chain's region measurement (K3, K7).
 REGION_KERNELS = ("region_histogram", "regionprops_fused")
+# The kernels inference may launch (all but the GroupNorm backward, K6).
+INFERENCE_KERNELS = tuple(k for k in KERNELS if k != "group_norm_bwd")
 # The norms' (B, C, H, W) on the path: loki level 0 (16 tiles of 1024²),
 # semseg level 0 (64 tiles of 256²), classifier stage 1 (256 crops of 256²).
 GN_SHAPES = ((16, 32, 1024, 1024), (64, 32, 256, 256), (256, 32, 128, 128))
+# The norms' (B, C, H, W) in the full-width train step (UNet(2, 32, 4), batch
+# 8 of 512²): 4 norms at each of the first four, 2 at the last.
+GN_TRAIN_SHAPES = ((8, 32, 512, 512), (8, 64, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64), (8, 512, 32, 32))
+GN_TRAIN_NORMS = (4, 4, 4, 4, 2)
 
 # Frame-chain and segmentation settings of the end-to-end benchmark's loki
 # stage (tools/bench_e2e.py): postprocess min_area 30, closing radius 2; the
@@ -552,16 +577,19 @@ def norm_layouts(dev) -> str:
 
 
 def phase_group_norm(dev) -> dict:
-    """K5 against its plain version on the card at the path's shapes and odd
-    shapes, both layouts, float32, bfloat16 and float16 (a task may ask
-    for any of them); times at the path's shapes in bfloat16."""
+    """K5 against its plain version on the card at the inference path's and
+    the train step's shapes and odd shapes, both layouts, float32, bfloat16
+    and float16 (a task may ask for any of them): y within 1e-5 (float32)
+    or one 16-bit ulp, and the mean and rstd it saves for the backward (K6)
+    within rtol 1e-5 / atol 1e-5 of ``group_stats_plain``'s. Times at the
+    inference path's shapes in bfloat16."""
     import torch
     import torch.nn.functional as F
 
     from maze_image_processing_pipeline_tpu_torch.models import layers
 
     gen = torch.Generator(device=dev).manual_seed(11)
-    shapes = list(GN_SHAPES) + [(3, 16, 5, 7), (4, 512, 9, 11), (8, 32, 30, 31)]
+    shapes = list(GN_SHAPES) + list(GN_TRAIN_SHAPES) + [(3, 16, 5, 7), (4, 512, 9, 11), (8, 32, 30, 31)]
     mantissa = {torch.bfloat16: 7, torch.float16: 10}
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0, torch.float16: 0.0}
     times = {}
@@ -576,10 +604,14 @@ def phase_group_norm(dev) -> dict:
                 x = base.to(dtype)
                 if layout == "channels_last":
                     x = x.contiguous(memory_format=torch.channels_last)
-                y = layers.group_norm(x, w, b, G)
+                y, stats = layers._group_norm_forward(x, w, b, G, 1e-6)
                 ref = layers.group_norm_plain(x, w, b, G)
+                ref_stats = layers.group_stats_plain(x, G)
                 torch.cuda.synchronize()
                 check(y.stride() == x.stride(), f"group_norm changed the layout at {shape} {layout}")
+                check(torch.allclose(stats, ref_stats, rtol=1e-5, atol=1e-5),
+                      f"group_norm's saved statistics differ from the plain ones at {shape} {dtype} {layout} by "
+                      f"{float((stats - ref_stats).abs().max()):.3g}")
                 err = float((y.float() - ref.float()).abs().max())
                 worst[dtype] = max(worst[dtype], err)
                 if dtype == torch.float32:
@@ -600,12 +632,116 @@ def phase_group_norm(dev) -> dict:
                     t = times[(shape, layout)]
                     detail += (f"; {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, F.group_norm "
                                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
-                say(f"  {shape} {str(dtype)[6:]} {layout}: group_norm within tolerance, {detail}")
-                del x, y, ref
+                say(f"  {shape} {str(dtype)[6:]} {layout}: group_norm and its statistics within tolerance, {detail}")
+                del x, y, ref, stats, ref_stats
         del base
     say(f"  group_norm feeds: {norm_layouts(dev)}")
     main = times[(GN_SHAPES[0], "channels_last")]
     return {"group_norm": dict(main, max_abs_err=worst[torch.bfloat16], bound_by="bytes")}
+
+
+def within_f32(got, ref) -> bool:
+    """float32 tolerance of K6 against its plain version: rtol 1e-4 plus
+    1e-5 of the reference's largest magnitude (sums in other orders)."""
+    got, ref = got.float(), ref.float()
+    return bool(((got - ref).abs() <= 1e-4 * ref.abs() + 1e-5 * ref.abs().max()).all())
+
+
+def phase_group_norm_bwd(dev) -> dict:
+    """K6 against its plain version on the card at the train step's shapes
+    and odd shapes, both layouts, float32, bfloat16 and float16: dx within
+    the float32 tolerance (``within_f32``) or one 16-bit ulp, dweight and
+    dbias within the float32 tolerance, and the same bits on a repeated
+    call; the same tolerances through autograd (``group_norm(...)
+    .backward(ct)``: K5's saved statistics into K6) against the plain
+    version on the plain statistics. Times in bfloat16 at the train step's
+    shapes, beside the plain
+    version's and ``torch.ops.aten.native_group_norm_backward``'s (which
+    needs NCHW-contiguous tensors on the card: for channels_last its timed
+    call includes the copies)."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    shapes = list(GN_TRAIN_SHAPES) + [(3, 16, 5, 7), (4, 512, 9, 11), (8, 32, 30, 31), (2, 24, 7, 5)]
+    mantissa = {torch.bfloat16: 7, torch.float16: 10}
+    worst = 0.0
+    times = {}
+    for shape in shapes:
+        C = shape[1]
+        G = min(8, C)
+        B, HW = shape[0], math.prod(shape[2:])
+        w = torch.rand(C, device=dev, generator=gen) + 0.5
+        bias = torch.randn(C, device=dev, generator=gen)
+        base_x = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
+        base_ct = torch.randn(shape, device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for layout in ("NCHW", "channels_last"):
+                fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+                x = base_x.to(dtype).contiguous(memory_format=fmt)
+                ct = base_ct.to(dtype).contiguous(memory_format=fmt)
+                stats = layers.group_stats_plain(x, G)
+                got = layers.group_norm_bwd(x, ct, w, stats, G)
+                again = layers.group_norm_bwd(x, ct, w, stats, G)
+                ref = layers.group_norm_bwd_plain(x, ct, w, stats, G)
+                # The chain the train step runs: K5's saved statistics into K6.
+                xg, wg, bg = x.detach().requires_grad_(), w.clone().requires_grad_(), bias.clone().requires_grad_()
+                layers.group_norm(xg, wg, bg, G).backward(ct)
+                auto = (xg.grad, wg.grad, bg.grad)
+                torch.cuda.synchronize()
+                where = f"{shape} {str(dtype)[6:]} {layout}"
+                check(got[0].stride() == x.stride() and auto[0].stride() == x.stride(),
+                      f"group_norm_bwd changed the layout at {where}")
+                check(all(torch.equal(a, b) for a, b in zip(got, again)), f"group_norm_bwd not deterministic at {where}")
+                details = []
+                for how, grads in (("on the plain statistics", got), ("through autograd", auto)):
+                    err = float((grads[0].float() - ref[0].float()).abs().max())
+                    if dtype == torch.float32:
+                        ok = within_f32(grads[0], ref[0])
+                        details.append(f"dx {how} max abs diff {err:.3g}")
+                    else:
+                        ok = bool(((grads[0].float() - ref[0].float()).abs()
+                                   <= half_ulp(ref[0].float(), mantissa[dtype])).all())
+                        details.append(f"dx {how}: {int((grads[0] != ref[0]).sum())} of {x.numel()} elements "
+                                       "differ by one ulp")
+                        if dtype == torch.bfloat16:
+                            worst = max(worst, err)
+                    if not (ok and within_f32(grads[1], ref[1]) and within_f32(grads[2], ref[2])):
+                        raise AssertionError(f"group_norm_bwd {how} differs from its plain version at {where}: "
+                                             f"{details[-1]}")
+                detail = "; ".join(details)
+                if shape in GN_TRAIN_SHAPES and dtype == torch.bfloat16:
+                    # The card's native GroupNorm takes statistics and weight
+                    # in the activations' dtype (as F.group_norm in phase 2).
+                    mean, rstd, w_lib = stats[0].view(B, G).to(dtype), stats[1].view(B, G).to(dtype), w.to(dtype)
+
+                    def library():
+                        return torch.ops.aten.native_group_norm_backward(
+                            ct.contiguous(), x.contiguous(), mean, rstd, w_lib, B, C, HW, G, [True, True, True])
+
+                    lib = library()
+                    lib_err = float((lib[0].float() - ref[0].float()).abs().max())
+                    times[(shape, layout)] = dict(
+                        ms=cuda_ms(lambda: layers.group_norm_bwd(x, ct, w, stats, G), iters=10),
+                        plain_ms=cuda_ms(lambda: layers.group_norm_bwd_plain(x, ct, w, stats, G), iters=3),
+                        library_ms=cuda_ms(library, iters=10),
+                        bound_ms=bound_ms("group_norm_bwd", x.numel()),
+                    )
+                    t = times[(shape, layout)]
+                    detail += (f"; {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, native_group_norm_backward "
+                               f"{t['library_ms']:.4f} ms (its dx within {lib_err:.3g} of the plain version's), "
+                               f"bound {t['bound_ms']:.4f} ms")
+                    del lib
+                say(f"  {where}: group_norm_bwd within tolerance, the same bits twice, {detail}")
+                del x, ct, got, again, ref, xg, auto
+        del base_x, base_ct
+    for layout in ("NCHW", "channels_last"):
+        step = sum(k * times[(s, layout)]["ms"] for s, k in zip(GN_TRAIN_SHAPES, GN_TRAIN_NORMS))
+        bound = sum(k * times[(s, layout)]["bound_ms"] for s, k in zip(GN_TRAIN_SHAPES, GN_TRAIN_NORMS))
+        say(f"  group_norm_bwd over the train step's 18 norms, all {layout}: {step:.4f} ms, bound {bound:.4f} ms")
+    main = times[(GN_TRAIN_SHAPES[0], "channels_last")]
+    return {"group_norm_bwd": dict(main, max_abs_err=worst, bound_by="bytes")}
 
 
 def phase_frame_chain(dev, B=2, H=1024, W=1280) -> str:
@@ -746,7 +882,8 @@ def _counted():
 
     return {"hpass": row_scan.hpass, "cumsum_rows": row_scan.cumsum_rows, "vertical_pass": tl.vertical_pass,
             "remove_small_objects": tl.remove_small_objects, "group_norm": layers.group_norm,
-            "region_histogram": rh.region_histogram, "regionprops_fused": rf.regionprops_fused}
+            "group_norm_bwd": layers.group_norm_bwd, "region_histogram": rh.region_histogram,
+            "regionprops_fused": rf.regionprops_fused}
 
 
 def reset_launches() -> None:
@@ -754,7 +891,7 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def read_launches(where: str, expected=tuple(KERNELS), absent=()) -> dict:
+def read_launches(where: str, expected=INFERENCE_KERNELS, absent=("group_norm_bwd",)) -> dict:
     """The launch counts since :func:`reset_launches`; every kernel the
     phase's path runs (``expected``) must have launched, and the kernels of
     other paths (``absent``) must not have."""
@@ -1296,7 +1433,7 @@ def phase_predict(limit: str, work: str) -> dict:
     wall_s = run_predict(semseg("semseg"))
     wall_p = run_predict(poly("poly"))
     launches = read_launches("phase 7", expected=("hpass", "cumsum_rows", "vertical_pass", "group_norm"),
-                             absent=REGION_KERNELS)
+                             absent=REGION_KERNELS + ("group_norm_bwd",))
     measured = [f"object_{c}_{k}" for c in CHANNELS for k in ("raw_area", "area", "axis_major_length", "area_convex")]
     check_predict_archive(os.path.join(work, "semseg", "crops.segmentation.zip"), 480, measured)
     check_predict_archive(os.path.join(work, "poly", "crops.polytaxo.zip"), 480, [])
@@ -1328,6 +1465,191 @@ def phase_predict(limit: str, work: str) -> dict:
     return launches
 
 
+# -- phase 9: training on the card --------------------------------------------
+
+TRAIN_UNET = dict(out_channels=2, base_features=32, depth=4)
+TRAIN_BATCH = (8, 512, 512, 3)
+LOKI_UNET = dict(out_channels=1, base_features=32, depth=4)
+
+
+def distill_batches(n_out: int, size: int = 128, batch: int = 8, seed: int = 0):
+    """``tools/bench_e2e.py``'s distillation batches (``ensure_models``):
+    noise up to 90 with four bright discs an image, targets the threshold at
+    100 (two channels: 100 and 180), images scaled to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    while True:
+        x = (rng.random((batch, size, size, 3)) * 90).astype(np.float32)
+        for i in range(batch):
+            for _ in range(4):
+                cy, cx = rng.integers(10, size - 10, 2)
+                r = rng.integers(4, 14)
+                x[i][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = rng.integers(120, 250)
+        if n_out == 1:
+            y = (x[..., :1] > 100).astype(np.float32)
+        else:
+            y = np.stack([(x[..., 0] > 100), (x[..., 0] > 180)], axis=-1).astype(np.float32)
+        yield x / 255.0, y
+
+
+def full_width_step(dev):
+    """The full-width train step: ``UNet(2, 32, 4)`` bf16, AdamW 1e-3,
+    ``bce_dice_loss``, one fixed batch of 8 tiles of 512² (distillation
+    blobs) on the card. Returns (step, state, images, targets)."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models import train as tt
+    from maze_image_processing_pipeline_tpu_torch.models.unet import UNet
+
+    module = UNet(**TRAIN_UNET, dtype="bfloat16")
+    state, opt = tt.create_train_state(module, TRAIN_BATCH, device=dev)
+    x, y = next(distill_batches(2, size=TRAIN_BATCH[1], batch=TRAIN_BATCH[0], seed=20))
+    return tt.make_train_step(module, opt), state, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def train_grads_card_vs_cpu(dev) -> str:
+    """First-step loss and gradients of ``UNet(1, 8, 2)`` float32 (TF32 off)
+    on the card and on the CPU: the loss within rtol 1e-5, every gradient
+    within 1e-3 of its tensor's norm plus 1e-5 of the whole gradient's norm.
+    On this batch float32 rounding of the forward alone (GroupNorm
+    statistics in float64 instead) moves the CPU's gradients by up to
+    2.8e-4 of their norm; the conv biases that feed a GroupNorm have an
+    analytically zero gradient, float noise on both sides."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models import train as tt
+    from maze_image_processing_pipeline_tpu_torch.models.unet import UNet
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = next(distill_batches(1, size=128, batch=4, seed=21))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        module = UNet(**SMALL_UNET, dtype="float32")
+        state, opt = tt.create_train_state(module, x.shape, device=d, seed=3)
+        state, m = tt.make_train_step(module, opt)(state, x, y)
+        out[d.type] = (float(m["loss"]), {k: p.grad.cpu().double() for k, p in module.named_parameters()})
+    (loss_g, grads_g), (loss_c, grads_c) = out[dev.type], out["cpu"]
+    check(math.isfinite(loss_g) and abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), f"losses {loss_g} vs {loss_c}")
+    total = math.sqrt(sum(float((g ** 2).sum()) for g in grads_c.values()))
+    worst = 0.0
+    for k, g in grads_c.items():
+        err = float((grads_g[k] - g).abs().max())
+        check(err <= 1e-3 * float(g.norm()) + 1e-5 * total, f"gradient of {k} differs by {err} (norm {float(g.norm())})")
+        worst = max(worst, err / max(float(g.norm()), 1e-30) if float(g.norm()) > 1e-5 * total else 0.0)
+    return (f"UNet(1, 8, 2) float32, TF32 off: first-step loss {loss_g:.7f} vs {loss_c:.7f}, {len(grads_c)} gradients "
+            f"within tolerance (largest difference over its tensor's norm {worst:.3g})")
+
+
+def phase_train(dev, limit: str, work: str) -> dict:
+    """Training through the port's ``models.train`` and ``train_loop`` on the
+    card: the full-width U-Net step (tiles/s, a falling loss, 18 K5 and 18
+    K6 launches a step), the polytaxo classifier's step, the first step card
+    against CPU, and a loki U-Net distilled on the card that must find at
+    least 432 of phase 6's 480 planted objects."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models import train as tt
+    from maze_image_processing_pipeline_tpu_torch.models.classifier import ConvClassifier
+    from maze_image_processing_pipeline_tpu_torch.models.model_io import save_model
+    from maze_image_processing_pipeline_tpu_torch.models.train_loop import fit
+    from maze_image_processing_pipeline_tpu_torch.models.unet import UNet
+
+    step, state, x, y = full_width_step(dev)
+    losses = [float(step(state, x, y)[1]["loss"]) for _ in range(3)]  # warm-up: cuDNN choice, allocator
+    n_steps = 10
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    timed = [step(state, x, y)[1]["loss"] for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("phase 9 (U-Net step)", expected=("group_norm", "group_norm_bwd"),
+                             absent=tuple(k for k in KERNELS if not k.startswith("group_norm")))
+    check(launches["group_norm"] == 18 * n_steps and launches["group_norm_bwd"] == 18 * n_steps,
+          f"K5 / K6 launched {launches['group_norm']} / {launches['group_norm_bwd']} times in {n_steps} steps")
+    losses += [float(v) for v in timed]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], f"losses {losses}")
+    say(f"  UNet(2, 32, 4) bf16, batch {TRAIN_BATCH[0]} of {TRAIN_BATCH[1]}², AdamW 1e-3: {n_steps} steps in "
+        f"{wall:.3f} s, {1e3 * wall / n_steps:.2f} ms a step, {TRAIN_BATCH[0] * n_steps / wall:.3f} tiles/s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches a step K5 {launches['group_norm'] // n_steps}, K6 "
+        f"{launches['group_norm_bwd'] // n_steps} [{limit}]")
+    del step, state, x, y
+
+    clf = ConvClassifier(**CLASSIFIER, dtype="bfloat16")
+    cstate, copt = tt.create_train_state(clf, (64, 256, 256, 3), device=dev, seed=1)
+    cstep = tt.make_train_step(clf, copt, loss_fn=tt.bce_loss)
+    rng = np.random.default_rng(22)
+    cx = torch.from_numpy(rng.random((64, 256, 256, 3), dtype=np.float32)).to(dev)
+    cy = torch.from_numpy((rng.random((64, CLASSIFIER["n_outputs"])) > 0.5).astype(np.float32)).to(dev)
+    reset_launches()
+    closses = [float(cstep(cstate, cx, cy)[1]["loss"]) for _ in range(3)]
+    c_launches = read_launches("phase 9 (classifier step)", expected=("group_norm", "group_norm_bwd"),
+                               absent=tuple(k for k in KERNELS if not k.startswith("group_norm")))
+    check(c_launches["group_norm"] == 24 and c_launches["group_norm_bwd"] == 24, f"classifier launches {c_launches}")
+    check(all(math.isfinite(v) for v in closses), f"classifier losses {closses}")
+    say(f"  ConvClassifier(8) bf16, batch 64 of 256², bce_loss: 3 steps, losses {[round(v, 4) for v in closses]}, "
+        f"launches K5 {c_launches['group_norm']}, K6 {c_launches['group_norm_bwd']}")
+    del clf, cstate, copt, cx, cy
+    for k, v in c_launches.items():
+        launches[k] += v
+
+    say(f"  card against CPU: {train_grads_card_vs_cpu(dev)}")
+
+    # A loki U-Net distilled on the card, then phase 6's task on it.
+    t0 = time.perf_counter()
+    module = UNet(**LOKI_UNET, dtype="bfloat16")
+    fit(module, distill_batches(1), 200, input_shape=(8, 128, 128, 3), log_interval=1e9, device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    unet = os.path.join(work, "distilled_unet")
+    save_model(unet, module, outputs={"pred": {"channel_names": ["foreground"]}})
+    data = os.path.join(work, "data")
+    if not os.path.isdir(data):
+        make_loki_tree(data, n_frames=24, objects_per_frame=20, frame_shape=(1024, 1280), seed=8)
+    wall = run_loki(loki_task(data, unet, os.path.join(work, "distilled")))
+    rows, _ = check_archive(os.path.join(work, "distilled", "LOKI_PS122-1_7.zip"))
+    check(rows >= 432, f"the distilled U-Net found {rows} of the 480 planted objects (at least 432 needed)")
+    say(f"  UNet(1, 32, 4) bf16 distilled for 200 steps of (8, 128, 128, 3) in {t_fit:.1f} s; phase 6's task on it: "
+        f"{rows} of 480 objects, wall {wall:.3f} s (first run, not warmed up)")
+    return launches
+
+
+def train_stage_breakdown(dev, limit: str) -> None:
+    """The full-width train step with a ``torch.cuda.synchronize()`` timer
+    around its forward, loss, backward and optimizer step, then five steps
+    under ``torch.profiler``: the device's idle share and the GroupNorm
+    kernels' (K5, K6) share of the device time."""
+    import torch
+
+    step, state, x, y = full_width_step(dev)
+    n = 5
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            step(state, x, y)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    run()  # warm-up: cuDNN choice, allocator
+    plain = run()
+    patches = [(state.module, "forward", "forward"), (torch.Tensor, "backward", "backward"),
+               (state.optimizer, "step", "AdamW step")]
+    wall, totals = timed_stages(patches, run)
+    say(f"stage breakdown of the phase 9 train step ({n} steps with a synchronize around each stage; "
+        f"{1e3 * wall / n:.2f} ms a step, {1e3 * plain / n:.2f} ms without timers) [{limit}]:")
+    for stage, t in sorted(totals.items(), key=lambda kv: -kv[1]):
+        say(f"  {stage}: {1e3 * t / n:.2f} ms a step, {100 * t / wall:.1f} %")
+    busy, events = idle_share(run, plain, steps=n)
+    kernel = {name: sum(e.self_device_time_total for e in events if any(s in e.key for s in keys)) / 1e6
+              for name, keys in (("K5", ("gn_stats_kernel", "gn_apply_kernel")),
+                                 ("K6", ("gn_bwd_reduce_kernel", "gn_bwd_apply_kernel")))}
+    say(f"  K5 {1e3 * kernel['K5'] / n:.3f} ms a step ({100 * kernel['K5'] / busy:.1f} % of the device time), "
+        f"K6 {1e3 * kernel['K6'] / n:.3f} ms a step ({100 * kernel['K6'] / busy:.1f} %)")
+
+
 def timed_stages(patches, run):
     """``run()`` with a ``torch.cuda.synchronize()`` timer around each
     patched ``(object, attribute, name)``; returns (wall, {name: seconds})."""
@@ -1357,19 +1679,34 @@ def timed_stages(patches, run):
     return wall, totals
 
 
-def idle_share(run, plain: float) -> None:
+def device_events(prof) -> list:
+    """The profile's device activities (kernels, copies, memsets), by name:
+    the CPU-side operators that launched them carry the same device time
+    again, and a range annotated on the device (``Optimizer.step#AdamW.step``)
+    spans kernels already counted, so only the activities are summed."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                  key=lambda e: -e.self_device_time_total)
+
+
+def idle_share(run, plain: float, steps: int = 1) -> tuple:
     """``run()`` once under ``torch.profiler``: the device's busy time and
-    idle share, and the kernels that take the most device time."""
+    idle share, and the kernels that take the most device time (per step
+    when ``run()`` takes ``steps`` train steps). Returns (busy seconds, the
+    device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = run()
-    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-    say(f"device busy {busy_us / 1e6:.3f} s in a profiled run of {wall:.3f} s: idle share {1 - busy_us / 1e6 / wall:.3f}; "
-        f"against the unprofiled run's {plain:.3f} s: {1 - busy_us / 1e6 / plain:.3f}")
-    top = sorted(prof.key_averages(), key=lambda e: -getattr(e, "self_device_time_total", 0))[:12]
-    for e in top:
-        say(f"  {e.key[:70]}: {getattr(e, 'self_device_time_total', 0) / 1e3:.1f} ms device, {e.count} calls")
+    events = device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    say(f"device busy {busy:.3f} s in a profiled run of {wall:.3f} s: idle share {1 - busy / wall:.3f}; "
+        f"against the unprofiled run's {plain:.3f} s: {1 - busy / plain:.3f}")
+    per = " a step" if steps > 1 else ""
+    for e in events[:12]:
+        say(f"  {e.key[:70]}: {e.self_device_time_total / 1e3 / steps:.3f} ms device{per}, {e.count // steps} calls{per}")
+    return busy, events
 
 
 def predict_stage_breakdown(limit: str, work: str) -> None:
@@ -1406,8 +1743,8 @@ def predict_stage_breakdown(limit: str, work: str) -> None:
 def stage_breakdown(dev, limit: str, work: str) -> None:
     """Phase 6's task once more with a ``torch.cuda.synchronize()`` timer
     around each stage of the segmentation node, then once under
-    ``torch.profiler`` for the device's busy time; then phase 7's and
-    phase 8's."""
+    ``torch.profiler`` for the device's busy time; then phase 7's, phase
+    8's and phase 9's train step."""
     from maze_image_processing_pipeline_tpu_torch.loki import device_seg
     from maze_image_processing_pipeline_tpu_torch.ops import fill_holes
 
@@ -1437,6 +1774,7 @@ def stage_breakdown(dev, limit: str, work: str) -> None:
     idle_share(lambda: run_loki(loki_task(data, unet, os.path.join(work, "profiled"))), plain)
     predict_stage_breakdown(limit, work)
     threshold_stage_breakdown(limit, work)
+    train_stage_breakdown(dev, limit)
 
 
 def threshold_stage_breakdown(limit: str, work: str) -> None:
@@ -1493,6 +1831,7 @@ def main() -> int:
         measured = phase_kernels(dev)
         measured.update(phase_region_kernels(dev))
         measured.update(phase_group_norm(dev))
+        measured.update(phase_group_norm_bwd(dev))
 
         t0 = time.perf_counter()
         msg = phase_frame_chain(dev)
@@ -1517,13 +1856,18 @@ def main() -> int:
         t0 = time.perf_counter()
         launches[8] = phase_threshold(limit, work)
         say(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+
+        say("phase 9 training on the card:")
+        t0 = time.perf_counter()
+        launches[9] = phase_train(dev, limit, work)
+        say(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(not any(m == "jax" or m.startswith(("jax.", "maze_image_processing_pipeline_tpu."))
                   or m == "maze_image_processing_pipeline_tpu" for m in sys.modules),
           "jax or the JAX package was imported")
 
-    # launches: the main paths' runs of this script (phases 5 to 8) in all.
+    # launches: the main paths' runs of this script (phases 5 to 9) in all.
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
          "launches": sum(launches[p][k] for p in launches),

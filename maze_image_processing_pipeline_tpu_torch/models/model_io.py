@@ -17,8 +17,11 @@ and writes it without flax or the ``msgpack`` package:
   — the inverse: a module → a checkpoint directory that the JAX package's
   ``load_model`` reads (the counterpart of its ``save_model``);
 * :func:`init_unet_params`, :func:`init_classifier_params` — seeded random
-  U-Net and classifier parameters in the flax layout (stand-ins for trained
-  checkpoints).
+  U-Net and classifier parameters in the flax layout (the train state's
+  initial parameters, and stand-ins for trained checkpoints);
+* :func:`adam_state_from_optax` — optax's Adam moments → the state of the
+  port's ``torch.optim.AdamW``, so that a JAX train state continues in the
+  port (``models/train.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ __all__ = [
     "msgpack_serialize",
     "params_from_jax",
     "params_to_jax",
+    "adam_state_from_optax",
     "save_model",
     "init_unet_params",
     "init_classifier_params",
@@ -275,7 +279,7 @@ def params_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
             if isinstance(v, Mapping):
                 walk(v, path + (k,))
                 continue
-            arr = np.asarray(v, dtype=np.float32)
+            arr = np.array(v, dtype=np.float32)  # a copy: JAX arrays give read-only views
             name = k
             if k == "kernel":
                 name = "weight"
@@ -315,6 +319,46 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             d = d.setdefault(p, {})
         d[name] = np.ascontiguousarray(arr)
     return {"params": tree}
+
+
+def _adam_moments(opt_state):
+    """The first node of an optax state tree with ``count``, ``mu`` and
+    ``nu`` (``ScaleByAdamState``), searched through tuples and lists."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for child in opt_state:
+            found = _adam_moments(child)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state, module: nn.Module) -> Dict[int, Dict[str, torch.Tensor]]:
+    """optax's ``adamw`` / ``adam`` state → the ``"state"`` entry of
+    ``torch.optim.AdamW.state_dict()`` for ``module.parameters()``.
+
+    ``ScaleByAdamState``'s ``count``, ``mu`` and ``nu`` (flax parameter
+    trees, numpy or JAX leaves) become each parameter's ``step``,
+    ``exp_avg`` and ``exp_avg_sq``, laid out as :func:`params_from_jax` lays
+    out the parameters. Load it with::
+
+        sd = optimizer.state_dict()
+        sd["state"] = adam_state_from_optax(opt_state, module)
+        optimizer.load_state_dict(sd)
+    """
+    adam = _adam_moments(opt_state)
+    if adam is None:
+        raise ValueError("adam_state_from_optax: no ScaleByAdamState (count, mu, nu) in the optax state")
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    names = [name for name, _ in module.named_parameters()]
+    if set(mu) != set(names) or set(nu) != set(names):
+        raise ValueError(f"adam_state_from_optax: moments for {sorted(set(mu) ^ set(names))} do not match the module")
+    step = float(np.asarray(adam.count))
+    return {
+        i: {"step": torch.tensor(step), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+        for i, name in enumerate(names)
+    }
 
 
 def _lecun_conv(rng, k: int, ci: int, co: int) -> Dict:

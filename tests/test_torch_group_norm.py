@@ -9,7 +9,9 @@ Tolerances: float32 within rtol 1e-5 / atol 1e-5 (sums in other orders);
 bfloat16 within one bf16 ulp of the reference's magnitude (both round a
 float32 result once). On the CPU the launch counter does not move. The
 kernel itself runs on the card (``cuda``-marked tests, which add float16
-within one float16 ulp; ``chip_smoke.py`` phase 2).
+within one float16 ulp and hold the mean and rstd K5 saves for the backward
+against ``group_stats_plain`` within rtol 1e-5 / atol 1e-5; ``chip_smoke.py``
+phase 2).
 """
 
 import jax.numpy as jnp
@@ -110,8 +112,13 @@ def _card():
     return torch.device("cuda")
 
 
+# The train step's channel widths (64, 128, 256: 8, 16, 32 channels a group)
+# at small spatial sizes.
+TRAIN_WIDTHS = [((2, 64, 16, 16), 8), ((2, 128, 8, 8), 8), ((2, 256, 8, 8), 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,G", CASES + [((4, 512, 9, 11), 8), ((8, 32, 64, 64), 8)])
+@pytest.mark.parametrize("shape,G", CASES + TRAIN_WIDTHS + [((4, 512, 9, 11), 8), ((8, 32, 64, 64), 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("channels_last", [False, True])
 def test_cuda_group_norm_matches_plain(shape, G, dtype, channels_last):
@@ -124,6 +131,9 @@ def test_cuda_group_norm_matches_plain(shape, G, dtype, channels_last):
     n = layers.group_norm.launches
     y = layers.group_norm(xd, wd, bd, G)
     assert layers.group_norm.launches == n + 1 and y.stride() == xd.stride()
+    # The mean and rstd K5 saves for the backward (K6).
+    _, stats = layers._group_norm_forward(xd, wd, bd, G, 1e-6)
+    torch.testing.assert_close(stats, layers.group_stats_plain(xd, G), rtol=1e-5, atol=1e-5)
     ref = layers.group_norm_plain(xd, wd, bd, G).float().cpu().numpy()
     got = y.float().cpu().numpy()
     if dtype == torch.float32:

@@ -4,15 +4,17 @@
   no ``import`` or ``from`` of ``maze_image_processing_pipeline_tpu`` or its
   submodules (the ``_torch`` package is the port itself).
 * A subprocess blocks what the card's machine does not have (``jax``,
-  ``jaxlib``, ``flax``, ``h5py``) and the JAX package itself
+  ``jaxlib``, ``flax``, ``optax``, ``orbax``, ``h5py``) and the JAX package itself
   (``sys.modules[name] = None`` makes any import of them fail), imports
   every module of the port and ``chip_smoke``, runs one frame group of the
   segmentation slice on the CPU through the same code as ``chip_smoke.py``'s
   phase 5, runs the port's ``loki`` Runner on a tiny LOKI haul built by
   ``chip_smoke.make_loki_tree``, as its phases 6 and 8 do (U-Net, the
   host-blend task with merging and the full-frame archive, threshold
-  segmentation), and its ``predict`` Runner as phase 7 does, at a small
-  size.
+  segmentation), its ``predict`` Runner as phase 7 does, and ``fit`` with
+  checkpoints on ``chip_smoke.distill_batches`` as phase 9 does, at a small
+  size. ``optax`` and ``orbax`` are blocked too: the port's training carries
+  JAX states and checkpoints without them.
 """
 
 import ast
@@ -25,7 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PACKAGE = "maze_image_processing_pipeline_tpu"
 PORT = JAX_PACKAGE + "_torch"
 
-BLOCKED = ["jax", "jaxlib", "flax", "h5py", JAX_PACKAGE]
+BLOCKED = ["jax", "jaxlib", "flax", "optax", "orbax", "h5py", JAX_PACKAGE]
 
 SCRIPT = r"""
 import sys
@@ -97,9 +99,17 @@ PredictRunner._configure_and_run(cs.polytaxo_task(crops, clf, os.path.join(work,
                                                   device="cpu", dtype="float32", batch_size=2, input_size=64))
 n = cs.compare_archives(*[os.path.join(work, "semseg", "crops.segmentation.zip")] * 2)
 m = cs.compare_archives(*[os.path.join(work, "poly", "crops.polytaxo.zip")] * 2)
+print("predict rows", n, m)
+
+from maze_image_processing_pipeline_tpu_torch.models import fit, save_model
+module = UNet(out_channels=1, base_features=4, depth=1, dtype="float32")
+batches = ((x[:, :32, :32], y[:, :32, :32]) for x, y in cs.distill_batches(1, size=32, batch=2))
+state = fit(module, batches, 2, input_shape=(2, 32, 32, 3), checkpoint_dir=os.path.join(work, "ckpt"),
+            checkpoint_every=1, log_interval=1e9, device="cpu")
+save_model(os.path.join(work, "trained"), module, outputs={{"pred": {{"channel_names": ["foreground"]}}}})
 leaked = [m for m in BLOCKED if sys.modules.get(m) is not None]
 assert not leaked, leaked
-print("predict rows", n, m)
+print("trained steps", state.step)
 """
 
 
@@ -141,3 +151,4 @@ def test_port_runs_without_the_packages_the_card_lacks():
     assert "threshold rows 6" in res.stdout
     assert "full frames 2" in res.stdout
     assert "predict rows 2 2" in res.stdout
+    assert "trained steps 2" in res.stdout
