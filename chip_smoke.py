@@ -40,6 +40,10 @@ csrc`` and runs, one line of output per phase:
    1e-5 of its largest magnitude (float32) or one ulp, dweight and dbias
    within the float32 tolerance, the same bits twice; with the plain
    version's and ``native_group_norm_backward``'s times beside it;
+   K9 ``anchor`` bit-exact at (8, 1024, 1024) and (8, 2048, 2560) bool,
+   (8, 1023, 1277) and (1, 1, 1), contiguous, transposed and sliced views,
+   bool, uint8, int32 and float32, with ``Tensor.clone()``'s and the
+   transposed view's ``.contiguous()`` times beside it;
 3. the frame chain (morphology → CCL → region measurement (K7, K3) →
    filled area) on the card against the same chain on the CPU;
 4. the full-width U-Net (out_channels=1, base_features=32, depth=4) and
@@ -76,7 +80,11 @@ csrc`` and runs, one line of output per phase:
    must agree. Then a small task (4 crops,
    ``UNet(2, 4, 1)`` float32, ``ConvClassifier(4, (4, 8))`` float32, TF32
    off) on the card and on the CPU: the ``.segmentation.zip`` archives must
-   agree, and so must the ``.polytaxo.zip`` archives;
+   agree, and so must the ``.polytaxo.zip`` archives; then the semseg task
+   with ``save_raw_h5: true`` at the three ``raw_h5_dtype`` rungs: each
+   archive equal to the run without ``.h5``, the file's HDF5 signature, the
+   same bytes from a second write of the captured prediction stream, the
+   ``.h5`` export's seconds;
 8. ``maze-ipp loki`` with threshold segmentation (brighter than 50, the
    measurement's ``device`` at its default: the card) through the port's
    Runner, from a LOKI tree of 96 frames × 20 vignettes (1920 crops of
@@ -93,13 +101,24 @@ csrc`` and runs, one line of output per phase:
    float32's first-step loss and gradients card against CPU (TF32 off);
    a ``UNet(1, 32, 4)`` bf16 distilled by ``fit`` for 200 steps of
    ``tools/bench_e2e.py``'s batches, saved by ``save_model``, then phase
-   6's task on it: at least 432 of the 480 planted objects.
+   6's task on it: at least 432 of the 480 planted objects; the
+   full-width step after ``save_checkpoint`` / ``restore_checkpoint``
+   (AdamW's step counters on the CPU), fresh and resumed steps in turns,
+   the resumed no slower beyond the fresh blocks' spread;
+10. the port's frame-chain perf lab (``tools/perf_lab.py`` of the port)
+    at (8, 1024, 1024), every experiment timed; ``chain`` and
+    ``chain_anchor`` the same labels and props, ``chain_plain`` (on the
+    CPU) within tolerance;
+11. the port's haul driver (``tools/bench_e2e.py`` of the port),
+    ``--haul standard --repeat 1`` with phase 9's distilled loki U-Net:
+    its JSON line, at least 432 of the 480 planted objects found.
 
 Kernel launches are counted per phase (counts set to 0 just before each
-timed run, read just after): every kernel but K6 must launch in phases 5
-and 6; K1, K2, K4 and K5 in phase 7, and not K3 or K7; K1, K2, K4, K3 and
-K7 in phase 8; K5 and K6, and no other, in phase 9. K6 launches in no
-phase but 9. The last lines are a JSON object of the
+timed run, read just after): every kernel but K6 and K9 must launch in
+phases 5 and 6; K1, K2, K4 and K5 in phase 7, and not K3 or K7; K1, K2, K4,
+K3 and K7 in phase 8; K5 and K6, and no other, in phase 9; K1, K2, K4, K8,
+K3, K7 and K9, and not K5 or K6, in phase 10; all but K9 in phase 11. K9
+launches in no phase but 10. The last lines are a JSON object of the
 kernels, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before the last line.
 """
@@ -120,6 +139,16 @@ from types import SimpleNamespace
 
 import numpy as np
 
+from maze_image_processing_pipeline_tpu_torch.tools.synth import (  # noqa: F401 (the tests use them from here)
+    TAXONOMY_YAML,
+    distill_batches,
+    make_crop_archive,
+    make_loki_tree,
+    make_taxonomy_files,
+    write_classifier,
+    write_unet,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = "maze_image_processing_pipeline_tpu_torch/csrc"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
@@ -139,11 +168,17 @@ KERNELS = {
     # pixel: their bounds are reckoned in phase_region_kernels.
     "region_histogram": (f"{CSRC}/region_histogram.cu", "attic/pallas_hist.py:94", None),
     "regionprops_fused": (f"{CSRC}/region_props.cu", "attic/pallas_props.py:167", None),
+    # The perf lab's layout anchor: the mask read once and written once
+    # (1 + 1 B per bool element).
+    "anchor": (f"{CSRC}/anchor.cu", "tools/perf_lab.py:94", 1 + 1),
 }
 # The kernels of the frame chain's region measurement (K3, K7).
 REGION_KERNELS = ("region_histogram", "regionprops_fused")
-# The kernels inference may launch (all but the GroupNorm backward, K6).
-INFERENCE_KERNELS = tuple(k for k in KERNELS if k != "group_norm_bwd")
+# The kernels inference may launch (all but the GroupNorm backward, K6, and
+# the perf lab's anchor, K9).
+INFERENCE_KERNELS = tuple(k for k in KERNELS if k not in ("group_norm_bwd", "anchor"))
+# The kernels of the perf lab's experiments (phase 10).
+LAB_KERNELS = ("hpass", "cumsum_rows", "vertical_pass", "remove_small_objects") + REGION_KERNELS + ("anchor",)
 # The norms' (B, C, H, W) on the path: loki level 0 (16 tiles of 1024²),
 # semseg level 0 (64 tiles of 256²), classifier stage 1 (256 crops of 256²).
 GN_SHAPES = ((16, 32, 1024, 1024), (64, 32, 256, 256), (256, 32, 128, 128))
@@ -256,6 +291,26 @@ def cuda_ms(fn, iters: int = 20) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` in ms with the stream's queue kept full:
+    the card sleeps (``torch.cuda._sleep``, about 25 ms) while the host
+    enqueues the events and the ``iters`` calls, so the calls run back to
+    back and the host's time per call (Python, ctypes) drops out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -744,6 +799,64 @@ def phase_group_norm_bwd(dev) -> dict:
     return {"group_norm_bwd": dict(main, max_abs_err=worst, bound_by="bytes")}
 
 
+ANCHOR_SHAPES = ((8, 1024, 1024), (8, 2048, 2560), (8, 1023, 1277), (1, 1, 1))
+
+
+def phase_anchor(dev) -> dict:
+    """K9 against its plain version on the card, bit-exact: bool masks at
+    the perf lab's shapes ((8, 1024, 1024) and the dense haul's (8, 2048,
+    2560)), a tail that is not a multiple of 16 B, (1, 1, 1), a transposed
+    and a sliced view, and uint8, int32 and float32. CUDA-event times at
+    (8, 1024, 1024) bool beside ``Tensor.clone()`` (the library call: a
+    contiguous copy of a contiguous tensor) and ``.contiguous()`` of the
+    transposed view, and both with the queue kept full (``queued_ms``: the
+    device's time without the host's per-call time); the bound is
+    2 · bytes / 3.35 TB/s."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops.anchor import anchor, anchor_plain
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = 0
+    for shape in ANCHOR_SHAPES:
+        for dtype in (torch.bool, torch.uint8, torch.int32, torch.float32):
+            if dtype != torch.bool and shape == ANCHOR_SHAPES[1]:
+                continue
+            base = (torch.rand(shape, device=dev, generator=gen) * 200).to(dtype)
+            views = {"contiguous": base, "transposed": base.transpose(1, 2), "sliced": base[:, ::2, 1:]}
+            for how, view in views.items():
+                if view.numel() == 0:
+                    continue
+                out = anchor(view)
+                torch.cuda.synchronize()
+                check(out.is_contiguous() and out.shape == view.shape and out.dtype == dtype,
+                      f"anchor's output at {shape} {dtype} {how} is not a contiguous copy")
+                check(torch.equal(out, anchor_plain(view)), f"anchor differs from its plain version at {shape} "
+                                                             f"{dtype} {how}")
+                cases += 1
+            del base, views
+    say(f"  anchor bit-exact in {cases} cases: {', '.join(map(str, ANCHOR_SHAPES))}; bool, uint8, int32, float32; "
+        "contiguous, transposed and sliced views")
+    out = {}
+    for shape in ANCHOR_SHAPES[:2]:
+        mask = torch.rand(shape, device=dev, generator=gen) < 0.3
+        tview = mask.transpose(1, 2)
+        t = dict(ms=cuda_ms(lambda: anchor(mask)), plain_ms=cuda_ms(lambda: anchor_plain(mask)),
+                 library_ms=cuda_ms(lambda: mask.clone()), bound_ms=bound_ms("anchor", mask.numel()),
+                 queued_ms=queued_ms(lambda: anchor(mask)), library_queued_ms=queued_ms(lambda: mask.clone()))
+        t_view = cuda_ms(lambda: anchor(tview))
+        t_cont = cuda_ms(lambda: tview.contiguous())
+        say(f"  anchor at {shape} bool: {t['ms']:.4f} ms, plain (contiguous().clone()) {t['plain_ms']:.4f} ms, "
+            f"Tensor.clone() {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (2 x {mask.numel() / 1e6:.1f} MB"
+            f"{', below a launch latency' if t['bound_ms'] < 0.01 else ''}); with the queue full (device time "
+            f"back to back): anchor {t['queued_ms']:.4f} ms, Tensor.clone() {t['library_queued_ms']:.4f} ms; "
+            f"transposed view: anchor {t_view:.4f} ms, .contiguous() {t_cont:.4f} ms")
+        if shape == ANCHOR_SHAPES[0]:
+            out["anchor"] = dict(t, max_abs_err=0, bound_by="bytes")
+        del mask, tview
+    return out
+
+
 def phase_frame_chain(dev, B=2, H=1024, W=1280) -> str:
     """The frame chain on the card (kernels) against the CPU (plain)."""
     import torch
@@ -879,11 +992,12 @@ def _counted():
     from maze_image_processing_pipeline_tpu_torch.ops import region_histogram as rh
     from maze_image_processing_pipeline_tpu_torch.ops import regionprops_fused as rf
     from maze_image_processing_pipeline_tpu_torch.ops import row_scan
+    from maze_image_processing_pipeline_tpu_torch.ops.anchor import anchor
 
     return {"hpass": row_scan.hpass, "cumsum_rows": row_scan.cumsum_rows, "vertical_pass": tl.vertical_pass,
             "remove_small_objects": tl.remove_small_objects, "group_norm": layers.group_norm,
             "group_norm_bwd": layers.group_norm_bwd, "region_histogram": rh.region_histogram,
-            "regionprops_fused": rf.regionprops_fused}
+            "regionprops_fused": rf.regionprops_fused, "anchor": anchor}
 
 
 def reset_launches() -> None:
@@ -891,7 +1005,7 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def read_launches(where: str, expected=INFERENCE_KERNELS, absent=("group_norm_bwd",)) -> dict:
+def read_launches(where: str, expected=INFERENCE_KERNELS, absent=("group_norm_bwd", "anchor")) -> dict:
     """The launch counts since :func:`reset_launches`; every kernel the
     phase's path runs (``expected``) must have launched, and the kernels of
     other paths (``absent``) must not have."""
@@ -935,156 +1049,13 @@ def phase_slice(dev, limit: str) -> dict:
 
 # -- phase 6: maze-ipp loki through the port's Runner ------------------------
 
-OBJECT_ID_FMT = "{date} {time}  {ms:03d}  {seq:06d} {posx:04d} {posy:04d}"
-
-
-def draw_blob(rng, shape=(60, 80), r=12, intensity=180) -> np.ndarray:
-    """A bright elliptical blob on dark noise: a fake plankton vignette."""
-    img = (rng.random(shape) * 20).astype(np.uint8)
-    yy, xx = np.mgrid[0 : shape[0], 0 : shape[1]]
-    cy, cx = shape[0] // 2, shape[1] // 2
-    img[((yy - cy) ** 2 / (r * r) + (xx - cx) ** 2 / (1.8 * r) ** 2) <= 1.0] = intensity
-    return img
-
-
-def make_loki_tree(root: str, n_frames: int, objects_per_frame: int, frame_shape, seed: int = 0,
-                   big_every: int = 0) -> str:
-    """A LOKI sample tree as the camera writes it: ``Log/LOKI_*.log``,
-    ``meta.yaml``, ``Telemetrie/*.tmd`` and ``Pictures/<hour>/<object id>.png``
-    (60×80 vignettes at random positions of ``frame_shape`` frames; with
-    ``big_every``, every ``big_every``-th vignette 150-400 px a side), in the
-    layout of ``tests/fixtures.py:make_loki_sample``, encoded by the port's
-    ``encode_image``. Returns the sample root."""
-    from maze_image_processing_pipeline_tpu_torch.dataio.imageio import encode_image
-
-    rng = np.random.default_rng(seed)
-    sample = os.path.join(root, "LOKI_00001.01")
-    for d in ("Log", "Telemetrie"):
-        os.makedirs(os.path.join(sample, d), exist_ok=True)
-    with open(os.path.join(sample, "Log", "LOKI_00001.log"), "w") as f:
-        f.write("DEVICE: LOKI\nCRUISE: PS122\nSTATION: PS122-1\nHAUL: 7\nVESSEL: Polarstern\n"
-                "REGION: Arctic Ocean\nLOCATION: Central Arctic\nGPS_LAT: 84.95\nGPS_LON: 134.72\n"
-                "BOTTOM_DEPTH: 4200\n")
-    with open(os.path.join(sample, "meta.yaml"), "w") as f:
-        f.write("sample_program: MOSAiC\n")
-    date = "20220103"
-    times = [f"12{(62 + 30 * i) // 60:02d}{(62 + 30 * i) % 60:02d}" for i in range(n_frames)]
-    for i, t in enumerate(times):
-        with open(os.path.join(sample, "Telemetrie", f"{date} {t}.tmd"), "w") as f:
-            f.write(f"GPS_LON;134.{70 + i}\nGPS_LAT;84.{90 + i}\nPRESS;{10.5 + i}\n"
-                    f"TEMP;{-1.5 + 0.1 * i}\nOXY_CON;{300 + i}\nCOND_SALY;{34.2}\n")
-    pic_dir = os.path.join(sample, "Pictures", f"{date} 12")
-    os.makedirs(pic_dir, exist_ok=True)
-    H, W = frame_shape
-    for t in times:
-        for oi in range(objects_per_frame):
-            ch, cw = 60, 80
-            if big_every and oi % big_every == 0:
-                ch, cw = (int(v) for v in rng.integers(150, 401, 2))
-            r = 8 + int(rng.integers(0, 6)) if ch == 60 else int(min(ch, cw) // 4)
-            posx = int(rng.integers(0, max(1, W - cw - 10)))
-            posy = int(rng.integers(0, max(1, H - ch - 10)))
-            oid = OBJECT_ID_FMT.format(date=date, time=t, ms=333, seq=oi, posx=posx, posy=posy)
-            with open(os.path.join(pic_dir, oid + ".png"), "wb") as f:
-                f.write(encode_image(draw_blob(rng, (ch, cw), r), oid + ".png"))
-    return sample
-
-
-def write_unet(path: str, cfg: dict, dtype: str, seed: int, gain=None, channel_names=("foreground",)) -> str:
-    """A ``UNet`` checkpoint of seeded random weights, written by the port's
-    ``save_model``. ``gain`` scales the 1×1 head and sets its bias to
-    ``-gain / 2``, so that logits lie far from 0 (no score within float noise
-    of the 0.5 threshold) and featureless pixels score as background."""
-    from maze_image_processing_pipeline_tpu_torch.models.model_io import init_unet_params, params_from_jax, save_model
-    from maze_image_processing_pipeline_tpu_torch.models.unet import UNet
-
-    params = init_unet_params(cfg, seed=seed)
-    if gain is not None:
-        head = params["params"][f"Conv_{cfg['depth']}"]
-        head["kernel"] *= gain
-        head["bias"][:] = -gain / 2
-    module = UNet(**cfg, dtype=dtype)
-    module.load_state_dict(params_from_jax(params))
-    save_model(path, module, outputs={"pred": {"channel_names": list(channel_names)}})
-    return path
-
-
-def write_classifier(path: str, cfg: dict, dtype: str, seed: int) -> str:
-    """A ``ConvClassifier`` checkpoint of seeded random weights, written by
-    the port's ``save_model`` (one output, ``probs``, without channel names,
-    as ``tools/bench_e2e.py`` writes it)."""
-    from maze_image_processing_pipeline_tpu_torch.models.classifier import ConvClassifier
-    from maze_image_processing_pipeline_tpu_torch.models.model_io import (
-        init_classifier_params,
-        params_from_jax,
-        save_model,
-    )
-
-    module = ConvClassifier(**cfg, dtype=dtype)
-    module.load_state_dict(params_from_jax(init_classifier_params(cfg, seed=seed)))
-    save_model(path, module, outputs={"probs": {}})
-    return path
-
-
 # -- phase 7: maze-ipp predict through the port's Runner ---------------------
 
-# The taxonomy of tests/test_predict_pipeline.py and tools/bench_e2e.py.
-TAXONOMY_YAML = """
-Copepoda:
-  _index: 0
-  Calanoida:
-    _index: 1
-  Cyclopoida:
-    _index: 2
-  _tags:
-    oil-sack: 3
-"""
-ECOTAXA_TAXONOMY = {
-    "display_name": ["Copepoda", "Calanoida", "Cyclopoida", "Calanoida with oil", "Copepoda with oil",
-                     "Cyclopoida with oil"],
-    "lineage": ["Copepoda", "Copepoda>Calanoida", "Copepoda>Cyclopoida", "Copepoda>Calanoida>oil-sack",
-                "Copepoda>oil-sack", "Copepoda>Cyclopoida>oil-sack"],
-}
 SEMSEG_UNET = dict(out_channels=2, base_features=32, depth=4)
 CLASSIFIER = dict(n_outputs=8, features=[32, 64, 128, 256])
 SMALL_SEMSEG_UNET = dict(out_channels=2, base_features=4, depth=1)
 SMALL_CLASSIFIER = dict(n_outputs=4, features=[4, 8])
 CHANNELS = ("prosoma", "oilsack")
-
-
-def make_taxonomy_files(root: str) -> tuple:
-    """The polytaxo taxonomy (YAML) and its EcoTaxa translation (CSV)."""
-    import pandas as pd
-
-    os.makedirs(root, exist_ok=True)
-    tax_fn, csv_fn = os.path.join(root, "taxonomy.yaml"), os.path.join(root, "ecotaxa_taxonomy.csv")
-    with open(tax_fn, "w") as f:
-        f.write(TAXONOMY_YAML)
-    pd.DataFrame(ECOTAXA_TAXONOMY).to_csv(csv_fn, index=False)
-    return tax_fn, csv_fn
-
-
-def make_crop_archive(fn: str, sizes, seed: int, with_annotations: bool = False) -> str:
-    """An EcoTaxa archive of blob crops of the given (h, w) sizes, written by
-    the port's ``EcotaxaWriter`` (PNG images, one TSV row each)."""
-    from maze_image_processing_pipeline_tpu_torch.dataio import EcotaxaWriter
-    from maze_image_processing_pipeline_tpu_torch.engine import Call, Pipeline, Unpack
-
-    rng = np.random.default_rng(seed)
-    crops = [draw_blob(rng, (h, w), r=int(max(3, min(h, w) // 4))) for h, w in sizes]
-
-    def meta_for(i):
-        m = {"object_id": f"obj{i:04d}", "object_area": 100.0 + i}
-        if with_annotations:
-            m["object_annotation_category"] = "Copepoda"
-            m["object_annotation_status"] = "validated" if i % 3 == 0 else "predicted"
-        return m
-
-    with Pipeline() as p:
-        i = Unpack(list(range(len(crops))))
-        EcotaxaWriter(fn, [(Call(lambda k: f"obj{k:04d}.png", i), Call(lambda k: crops[k], i))], Call(meta_for, i))
-    p.run()
-    return fn
 
 
 def semseg_task(archive: str, model_fn: str, target_dir: str, tiling=None, segmentation=None, **model) -> dict:
@@ -1417,6 +1388,92 @@ def check_fused_measurement(captured: dict, ref_device="cpu") -> str:
     return "; ".join(out)
 
 
+def host_remeasured(ref_fn: str, fn: str) -> int:
+    """The semseg archives of two runs whose fetched maps differ in type
+    (float16 without ``.h5``; float32 or uint8 at those ``raw_h5_dtype``
+    rungs): masks that overflow the fused measurement are measured again on
+    the host from the fetched maps, so their channel measurements may move
+    by the pixels whose probability rounds across 0.5. Every other column
+    must be equal (``compare_archives``); the channel columns may differ in
+    at most 5 % of the rows, each value by at most 1 pixel or 2 %. Returns
+    (rows, rows that differ)."""
+    with zipfile.ZipFile(ref_fn) as za, zipfile.ZipFile(fn) as zb:
+        a, b = _read_archive_tsv(za), _read_archive_tsv(zb)
+    channel = [c for c in a.columns if c.startswith(tuple(f"object_{ch}_" for ch in CHANNELS))]
+    rows = compare_archives(ref_fn, fn, skip_columns=RUN_COLUMNS + tuple(channel))
+    x, y = a[channel].to_numpy(np.float64), b[channel].to_numpy(np.float64)
+    d = np.abs(x - y)
+    check(np.all(d <= np.maximum(1.0, 0.02 * np.abs(x))), f"channel measurements of {fn} moved too far")
+    moved = int((d > 0).any(axis=1).sum())
+    check(moved <= 0.05 * rows, f"channel measurements of {moved} of {rows} rows moved in {fn}")
+    return rows, moved
+
+
+def semseg_h5(work: str, inp: dict, wall_plain: float) -> list:
+    """Phase 7's semseg task with ``save_raw_h5: true`` at each
+    ``raw_h5_dtype`` rung: its archive must equal the run without ``.h5``
+    (float16, whose fetched maps are those of the run without ``.h5``), or
+    differ only where ``host_remeasured`` allows (float32, uint8); the file
+    must start with the HDF5 signature and hold one dataset per object, and
+    a second write of the prediction stream the writer received (captured on
+    the way) must give the same bytes. Returns a line per rung with the
+    ``.h5`` export's seconds (the wall with ``.h5`` less the wall
+    without)."""
+    from maze_image_processing_pipeline_tpu_torch.dataio import HDF5Writer
+    from maze_image_processing_pipeline_tpu_torch.engine import Call, Pipeline, Unpack
+    from maze_image_processing_pipeline_tpu_torch.predict import pipeline as pp
+
+    streams = []
+
+    class Capturing(HDF5Writer):
+        """The predict pipeline's writer, keeping each dataset it writes."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            streams.append((kwargs, []))
+
+        def _create(self, h5, name, value):
+            streams[-1][1].append((name, value.copy()))
+            super()._create(h5, name, value)
+
+    lines = []
+    plain = os.path.join(work, "semseg", "crops.segmentation.zip")
+    pp.HDF5Writer = Capturing
+    try:
+        for rung in ("float32", "float16", "uint8"):
+            streams.clear()
+            out = os.path.join(work, f"semseg_h5_{rung}")
+            wall = run_predict({**semseg_task(inp["archive"], inp["unet"], out), "save_raw_h5": True,
+                                "raw_h5_dtype": rung})
+            archive = os.path.join(out, "crops.segmentation.zip")
+            if rung == "float16":
+                n, how = compare_archives(plain, archive), "archive equal to the run without .h5"
+            else:
+                n, moved = host_remeasured(plain, archive)
+                how = f"archive equal to the run without .h5 but for {moved} rows re-measured from {rung} maps"
+            fn = os.path.join(out, "crops.h5")
+            with open(fn, "rb") as f:
+                first = f.read()
+            kwargs, items = streams[0]
+            check(first[:8] == b"\x89HDF\r\n\x1a\n", f"{fn} does not start with the HDF5 signature")
+            check(len(items) == n == 480, f"{fn}: {len(items)} datasets for {n} objects")
+            again = os.path.join(out, "again.h5")
+            with Pipeline() as p:
+                item = Unpack(items)
+                HDF5Writer(again, [(Call(lambda t: t[0], item), Call(lambda t: t[1], item))], **kwargs)
+            p.run()
+            with open(again, "rb") as f:
+                check(f.read() == first, f"a second write of the {rung} stream gives other bytes")
+            mb = sum(v.nbytes for _, v in items) / 1e6
+            lines.append(f"semseg with save_raw_h5, raw_h5_dtype {rung}: {how}, {len(items)} datasets ({mb:.1f} "
+                         f"MB of {items[0][1].dtype} maps, {len(first) / 1e6:.1f} MB on disk), a second write of "
+                         f"the stream gives the same bytes; wall {wall:.3f} s, the .h5 export "
+                         f"{wall - wall_plain:.3f} s ({100 * (wall - wall_plain) / wall:.1f} % of the wall)")
+    finally:
+        pp.HDF5Writer = HDF5Writer
+    return lines
+
+
 def phase_predict(limit: str, work: str) -> dict:
     """``maze-ipp predict`` (semseg, then polytaxo) at the benchmark's task
     settings on the card, then a small task on the card and on the CPU."""
@@ -1433,7 +1490,7 @@ def phase_predict(limit: str, work: str) -> dict:
     wall_s = run_predict(semseg("semseg"))
     wall_p = run_predict(poly("poly"))
     launches = read_launches("phase 7", expected=("hpass", "cumsum_rows", "vertical_pass", "group_norm"),
-                             absent=REGION_KERNELS + ("group_norm_bwd",))
+                             absent=REGION_KERNELS + ("group_norm_bwd", "anchor"))
     measured = [f"object_{c}_{k}" for c in CHANNELS for k in ("raw_area", "area", "axis_major_length", "area_convex")]
     check_predict_archive(os.path.join(work, "semseg", "crops.segmentation.zip"), 480, measured)
     check_predict_archive(os.path.join(work, "poly", "crops.polytaxo.zip"), 480, [])
@@ -1443,6 +1500,8 @@ def phase_predict(limit: str, work: str) -> dict:
     msg = check_fused_measurement(fused_inputs)
     say(f"  fused measurement of the full-width run's canvases, card against CPU: equal ({msg}; "
         f"{time.perf_counter() - t0:.1f} s)")
+    for line in semseg_h5(work, inp, wall_s):
+        say(f"  {line} [{limit}]")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1470,26 +1529,6 @@ def phase_predict(limit: str, work: str) -> dict:
 TRAIN_UNET = dict(out_channels=2, base_features=32, depth=4)
 TRAIN_BATCH = (8, 512, 512, 3)
 LOKI_UNET = dict(out_channels=1, base_features=32, depth=4)
-
-
-def distill_batches(n_out: int, size: int = 128, batch: int = 8, seed: int = 0):
-    """``tools/bench_e2e.py``'s distillation batches (``ensure_models``):
-    noise up to 90 with four bright discs an image, targets the threshold at
-    100 (two channels: 100 and 180), images scaled to [0, 1]."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:size, 0:size]
-    while True:
-        x = (rng.random((batch, size, size, 3)) * 90).astype(np.float32)
-        for i in range(batch):
-            for _ in range(4):
-                cy, cx = rng.integers(10, size - 10, 2)
-                r = rng.integers(4, 14)
-                x[i][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = rng.integers(120, 250)
-        if n_out == 1:
-            y = (x[..., :1] > 100).astype(np.float32)
-        else:
-            y = np.stack([(x[..., 0] > 100), (x[..., 0] > 180)], axis=-1).astype(np.float32)
-        yield x / 255.0, y
 
 
 def full_width_step(dev):
@@ -1541,6 +1580,42 @@ def train_grads_card_vs_cpu(dev) -> str:
             f"within tolerance (largest difference over its tensor's norm {worst:.3g})")
 
 
+def resumed_step(dev, step, state, x, y, n_steps: int, work: str) -> str:
+    """The full-width step after a resume: ``state`` saved by
+    ``save_checkpoint`` and restored by ``restore_checkpoint`` into a fresh
+    state (every AdamW ``step`` counter must stay on the CPU, as a fresh
+    run keeps it), then ``n_steps`` steps of the fresh and of the resumed
+    state in turns, twice. The resumed step may be no slower than the fresh
+    one beyond the spread of the fresh blocks (at least 3 %)."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models.train_loop import restore_checkpoint, save_checkpoint
+
+    ckpt = os.path.join(work, "ckpt")
+    save_checkpoint(ckpt, state, 13)
+    step2, state2, _, _ = full_width_step(dev)
+    restore_checkpoint(ckpt, state2)
+    opt = state2.optimizer
+    counters = [opt.state[p]["step"].device.type for g in opt.param_groups for p in g["params"]]
+    check(counters and set(counters) == {"cpu"}, f"resumed AdamW step counters lie on {set(counters)}")
+    blocks = {"fresh": [], "resumed": []}
+    for _ in range(2):
+        for name, fn, st in (("fresh", step, state), ("resumed", step2, state2)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                fn(st, x, y)
+            torch.cuda.synchronize()
+            blocks[name].append(1e3 * (time.perf_counter() - t0) / n_steps)
+    fresh, resumed = (sum(v) / len(v) for v in (blocks["fresh"], blocks["resumed"]))
+    spread = max(max(blocks["fresh"]) - min(blocks["fresh"]), 0.03 * fresh)
+    check(resumed <= fresh + spread, f"the resumed step takes {resumed:.2f} ms, the fresh one {fresh:.2f} ms "
+                                     f"(spread {spread:.2f} ms)")
+    del step2, state2
+    return (f"after a resume ({len(counters)} AdamW step counters on the CPU): fresh / resumed steps in turns "
+            f"{' / '.join(f'{a:.2f} / {b:.2f}' for a, b in zip(blocks['fresh'], blocks['resumed']))} ms a step")
+
+
 def phase_train(dev, limit: str, work: str) -> dict:
     """Training through the port's ``models.train`` and ``train_loop`` on the
     card: the full-width U-Net step (tiles/s, a falling loss, 18 K5 and 18
@@ -1574,6 +1649,7 @@ def phase_train(dev, limit: str, work: str) -> dict:
         f"{wall:.3f} s, {1e3 * wall / n_steps:.2f} ms a step, {TRAIN_BATCH[0] * n_steps / wall:.3f} tiles/s; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches a step K5 {launches['group_norm'] // n_steps}, K6 "
         f"{launches['group_norm_bwd'] // n_steps} [{limit}]")
+    say(f"  {resumed_step(dev, step, state, x, y, n_steps, work)} [{limit}]")
     del step, state, x, y
 
     clf = ConvClassifier(**CLASSIFIER, dtype="bfloat16")
@@ -1596,13 +1672,14 @@ def phase_train(dev, limit: str, work: str) -> dict:
 
     say(f"  card against CPU: {train_grads_card_vs_cpu(dev)}")
 
-    # A loki U-Net distilled on the card, then phase 6's task on it.
+    # A loki U-Net distilled on the card (as the haul driver distils its
+    # own, phase 11 reuses it), then phase 6's task on it.
     t0 = time.perf_counter()
     module = UNet(**LOKI_UNET, dtype="bfloat16")
     fit(module, distill_batches(1), 200, input_shape=(8, 128, 128, 3), log_interval=1e9, device=dev)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
-    unet = os.path.join(work, "distilled_unet")
+    unet = os.path.join(work, "haul_models", "loki-unet")
     save_model(unet, module, outputs={"pred": {"channel_names": ["foreground"]}})
     data = os.path.join(work, "data")
     if not os.path.isdir(data):
@@ -1803,6 +1880,58 @@ def threshold_stage_breakdown(limit: str, work: str) -> None:
     idle_share(lambda: run_loki(threshold_task(data, os.path.join(work, "thr_profiled"))), plain)
 
 
+def phase_lab(dev, limit: str) -> dict:
+    """The port's frame-chain perf lab at (8, 1024, 1024): every experiment
+    (CUDA-event times printed as the JAX lab prints them), K9 launched by
+    ``morph_anchor_label`` and ``chain_anchor``; then ``chain`` and
+    ``chain_anchor`` must give the same labels, counts and props, and
+    ``chain_plain`` (the plain versions, on a CPU copy of the frames) the
+    same labels and counts and the props within phase 2's tolerance."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.tools import perf_lab
+
+    reset_launches()
+    results = perf_lab.run(device=dev)
+    launches = read_launches("phase 10", expected=LAB_KERNELS, absent=("group_norm", "group_norm_bwd"))
+    x = torch.from_numpy(perf_lab.lab_frames()).to(dev)
+    with torch.inference_mode():
+        ref, anchored, plain = perf_lab.chain(x), perf_lab.chain(x, anchored=True), perf_lab.chain(x.cpu())
+    torch.cuda.synchronize()
+    for name, other in (("chain_anchor", anchored), ("chain_plain", plain)):
+        check(torch.equal(ref[0].cpu(), other[0].cpu()) and torch.equal(ref[1].cpu(), other[1].cpu()),
+              f"chain and {name} differ in labels")
+    check(ref[2].keys() == anchored[2].keys() and all(torch.equal(v, anchored[2][k]) for k, v in ref[2].items()),
+          "chain and chain_anchor differ in props")
+    worst = compare_props(ref[2], plain[2], "the perf lab's chain")
+    say(f"  chain and chain_anchor: the same labels, counts ({ref[1].tolist()} regions kept per frame) and props; "
+        f"chain_plain the same labels and counts, props within tolerance (largest float difference {worst:.3g}); "
+        f"chain {results['chain'] * 1e3:.3f} ms, chain_anchor {results['chain_anchor'] * 1e3:.3f} ms a batch of 8; "
+        f"launches {launches} [{limit}]")
+    return launches
+
+
+def phase_haul(limit: str, work: str) -> dict:
+    """The port's haul driver, ``--haul standard --repeat 1``: the loki
+    U-Net distilled in phase 9 is reused from the model directory, the
+    semseg U-Net is distilled here (K6 launches) and the classifier seeded.
+    Its JSON line is printed; the loki stage must find at least 432 of the
+    480 planted objects."""
+    from maze_image_processing_pipeline_tpu_torch.tools import bench_e2e
+
+    models = os.path.join(work, "haul_models")
+    check(os.path.isdir(os.path.join(models, "loki-unet")), "phase 9's distilled loki U-Net is missing")
+    reset_launches()
+    result = bench_e2e.main(["--haul", "standard", "--repeat", "1", "--model-dir", models,
+                             "--workdir", os.path.join(work, "haul")])
+    launches = read_launches("phase 11", expected=INFERENCE_KERNELS + ("group_norm_bwd",), absent=("anchor",))
+    check(result["objects"] >= 432, f"the haul found {result['objects']} of 480 planted objects (at least 432)")
+    say(f"  standard haul: {result['objects']} of 480 objects, {result['value']:.3f} objects/s (loki "
+        f"{result['loki_s']:.3f} s, semseg with .h5 {result['semseg_s']:.3f} s, polytaxo {result['polytaxo_s']:.3f} "
+        f"s; model preparation {result['model_prep_s']:.1f} s); launches {launches} [{limit}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1832,6 +1961,7 @@ def main() -> int:
         measured.update(phase_region_kernels(dev))
         measured.update(phase_group_norm(dev))
         measured.update(phase_group_norm_bwd(dev))
+        measured.update(phase_anchor(dev))
 
         t0 = time.perf_counter()
         msg = phase_frame_chain(dev)
@@ -1861,13 +1991,23 @@ def main() -> int:
         t0 = time.perf_counter()
         launches[9] = phase_train(dev, limit, work)
         say(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+
+        say("phase 10 the frame-chain perf lab:")
+        t0 = time.perf_counter()
+        launches[10] = phase_lab(dev, limit)
+        say(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+
+        say("phase 11 the haul driver (loki U-Net, semseg with .h5, polytaxo):")
+        t0 = time.perf_counter()
+        launches[11] = phase_haul(limit, work)
+        say(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(not any(m == "jax" or m.startswith(("jax.", "maze_image_processing_pipeline_tpu."))
                   or m == "maze_image_processing_pipeline_tpu" for m in sys.modules),
           "jax or the JAX package was imported")
 
-    # launches: the main paths' runs of this script (phases 5 to 9) in all.
+    # launches: the main paths' runs of this script (phases 5 to 11) in all.
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
          "launches": sum(launches[p][k] for p in launches),

@@ -52,6 +52,7 @@ SIGNATURES = {
     "group_norm_bwd_launch": [_vp] * 10 + [_i, _i, _i, _ll, _i, _i, _i, _ll, _i, _vp],
     "region_histogram_launch": [_vp, _vp, _vp, _i, _ll, _i, _vp],
     "region_props_launch": [_vp] * 8 + [_i, _i, _i, _i, _vp],
+    "anchor_launch": [_vp, _vp, _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _vp],
 }
 
 _lock = threading.Lock()

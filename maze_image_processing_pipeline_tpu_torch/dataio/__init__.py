@@ -7,8 +7,9 @@ here is host code backed by native-accelerated libraries (zipfile, pandas,
 cv2/PIL); the engine overlaps it with device work via stream buffers.
 
 The port's copy of ``maze_image_processing_pipeline_tpu/dataio/``: the
-modules are copies of their originals (each names its file); ``hdf5`` is
-left out (the predict workload's HDF5 export, not ported yet).
+modules are copies of their originals (each names its file), apart from
+``hdf5``, whose writer builds the file itself (h5py is not on the card's
+machine).
 """
 
 from .archive import Archive, ArchivePath
@@ -20,6 +21,7 @@ from .ecotaxa import (
     read_tsv,
     write_tsv,
 )
+from .hdf5 import HDF5Writer
 from .imageio import ImageReader, decode_image, encode_image
 from .loki import LOG_FIELDS_TO_ECOTAXA, find_data_roots, read_dat, read_log, read_tmd, read_yaml
 from .telemetry import Telemetry
@@ -33,6 +35,7 @@ __all__ = [
     "EcotaxaObject",
     "EcotaxaReader",
     "EcotaxaWriter",
+    "HDF5Writer",
     "ImageReader",
     "decode_image",
     "encode_image",

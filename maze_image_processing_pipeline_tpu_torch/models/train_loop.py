@@ -76,8 +76,11 @@ def restore_checkpoint(checkpoint_dir: str, state: TrainState) -> Tuple[TrainSta
     steps = _saved_steps(checkpoint_dir)
     if not steps:
         return state, 0
-    device = next(state.module.parameters()).device
-    saved = torch.load(os.path.join(checkpoint_dir, str(steps[-1]), _FILE), map_location=device, weights_only=True)
+    # Loaded to the CPU: load_state_dict places the module's tensors and
+    # AdamW's moments where the parameters live and leaves each ``step`` on
+    # the CPU, as a fresh run has it (a ``step`` on the card costs a host
+    # sync per parameter in every update).
+    saved = torch.load(os.path.join(checkpoint_dir, str(steps[-1]), _FILE), map_location="cpu", weights_only=True)
     state.module.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])

@@ -6,9 +6,7 @@ differences:
 
 * ``model.device`` defaults to ``"cuda"``, accepts ``"cpu"``, and reads
   ``"tpu"`` (and ``"gpu"``) as the accelerator, i.e. the CUDA card;
-* ``parallel`` accepts only ``false`` (multi-GPU execution: ROADMAP A6);
-* ``save_raw_h5: true`` validates but the Runner raises (the HDF5 writer is
-  not ported: ROADMAP A3b).
+* ``parallel`` accepts only ``false`` (multi-GPU execution: ROADMAP A6).
 
 Every other field and default is the original's.
 """

@@ -11,8 +11,9 @@ behind stream buffers. ``_convex_area``, :func:`measure_segments`,
 ``_prepare_translation`` and :func:`build_polytaxo_pipeline` are copies of
 the originals (``tests/test_torch_host_copies.py`` holds them equal).
 
-Not ported yet: the raw HDF5 export (``save_raw_h5: true`` raises, ROADMAP
-A3b) and multi-GPU execution (ROADMAP A6).
+The raw HDF5 export (``save_raw_h5: true``) goes through the port's own
+writer, :class:`..dataio.HDF5Writer`, which needs no h5py. Not ported yet:
+multi-GPU execution (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from ..common import (
     natsorted,
     recursive_update,
 )
-from ..dataio import VALID_PREFIXES, EcotaxaReader, EcotaxaWriter
+from ..dataio import VALID_PREFIXES, EcotaxaReader, EcotaxaWriter, HDF5Writer
 from ..engine import (
     BatchedPipeline,
     Call,
@@ -644,6 +645,7 @@ class Runner(PipelineRunner):
                     input_archive_fn,
                 )
 
+            predictions_fn = out_fn(".h5")
             measurements_fn = out_fn(".segmentation.zip")
             polytaxo_fn = out_fn(".polytaxo.zip")
 
@@ -815,11 +817,32 @@ class Runner(PipelineRunner):
             StreamBuffer(64)
 
             if config.save_raw_h5:
-                raise NotImplementedError(
-                    "save_raw_h5: the raw HDF5 export is not ported to PyTorch "
-                    "yet (ROADMAP A3b: an HDF5 writer without h5py); set "
-                    "save_raw_h5: false, or run the JAX package's `maze-ipp "
-                    "predict` for the export"
+                # As the JAX package: one dataset per object for tiled
+                # models, appended columns otherwise; DEFLATE level 1 +
+                # shuffle; the effective storage dtype as a root attribute.
+                h5_mode_create = config.model.tiling is not False
+                h5_pred = predictions
+                if raw_f16:
+                    h5_pred = Call(
+                        lambda p: np.asarray(p, np.float16), predictions
+                    )
+                HDF5Writer(
+                    predictions_fn,
+                    (
+                        [(object_id, h5_pred)]
+                        if h5_mode_create
+                        else [("object_id", object_id), ("predictions", h5_pred)]
+                    ),
+                    dataset_mode="create" if h5_mode_create else "append",
+                    compression="gzip",
+                    compression_opts=1,
+                    file_attrs={
+                        "raw_dtype": (
+                            "uint8" if raw_u8
+                            else ("float16" if raw_f16 else "float32")
+                        ),
+                        **({"raw_scale": 1.0 / 255.0} if raw_u8 else {}),
+                    },
                 )
 
             if config.segmentation:

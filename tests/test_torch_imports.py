@@ -13,8 +13,9 @@
   host-blend task with merging and the full-frame archive, threshold
   segmentation), its ``predict`` Runner as phase 7 does, and ``fit`` with
   checkpoints on ``chip_smoke.distill_batches`` as phase 9 does, at a small
-  size. ``optax`` and ``orbax`` are blocked too: the port's training carries
-  JAX states and checkpoints without them.
+  size, and its ``.h5`` export (``save_raw_h5: true``, the port's own
+  writer) with h5py blocked. ``optax`` and ``orbax`` are blocked too: the
+  port's training carries JAX states and checkpoints without them.
 """
 
 import ast
@@ -100,6 +101,12 @@ PredictRunner._configure_and_run(cs.polytaxo_task(crops, clf, os.path.join(work,
 n = cs.compare_archives(*[os.path.join(work, "semseg", "crops.segmentation.zip")] * 2)
 m = cs.compare_archives(*[os.path.join(work, "poly", "crops.polytaxo.zip")] * 2)
 print("predict rows", n, m)
+task = cs.semseg_task(crops, unet2, os.path.join(work, "h5"), device="cpu", dtype="float32", batch_size=2,
+                      tiling={{"size": 64, "stride": 48}})
+PredictRunner._configure_and_run({{**task, "save_raw_h5": True, "raw_h5_dtype": "uint8"}})
+with open(os.path.join(work, "h5", "crops.h5"), "rb") as f:
+    head = f.read(8)
+print("h5 written", head == b"\x89HDF\r\n\x1a\n")
 
 from maze_image_processing_pipeline_tpu_torch.models import fit, save_model
 module = UNet(out_channels=1, base_features=4, depth=1, dtype="float32")
@@ -151,4 +158,5 @@ def test_port_runs_without_the_packages_the_card_lacks():
     assert "threshold rows 6" in res.stdout
     assert "full frames 2" in res.stdout
     assert "predict rows 2 2" in res.stdout
+    assert "h5 written True" in res.stdout
     assert "trained steps 2" in res.stdout

@@ -17,7 +17,9 @@ port's ``EcotaxaWriter``:
 The archives must be equal (``chip_smoke.compare_archives``): the same
 members, columns and rows; text and integers exact, floats within rtol 1e-5
 / atol 1e-3; decoded images equal. The CLI runs ``predict``, ``semseg``,
-``polytaxo`` and ``config predict``; ``save_raw_h5: true`` raises.
+``polytaxo`` and ``config predict``. ``save_raw_h5: true`` (the ``.h5`` export
+at each ``raw_h5_dtype`` rung, tiled and untiled) gives equal archives and
+``.h5`` files of the same datasets and attributes.
 """
 
 import logging
@@ -137,11 +139,54 @@ def test_cli_runs_predict_semseg_polytaxo(work, tmp_path, monkeypatch, restore_r
     assert res.exit_code == 0 and "polytaxo:" in res.output and "tiling:" in res.output
 
 
-def test_save_raw_h5_raises(work, tmp_path):
-    task = _semseg(work, tmp_path / "out")
-    task["save_raw_h5"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-        TorchRunner._configure_and_run(task)
+H5_MODES = {
+    "create": {},  # tiled: one dataset per object
+    "append": {"tiling": False, "input_size": 64},  # untiled: appended columns
+}
+
+
+@pytest.mark.parametrize("mode", list(H5_MODES))
+@pytest.mark.parametrize("rung", ["float32", "float16", "uint8"])
+def test_save_raw_h5_matches_jax(work, rung, mode):
+    """``save_raw_h5: true`` through both Runners at each ``raw_h5_dtype``
+    rung, tiled (create mode) and untiled (append mode; uint8 falls back to
+    float16 there in both packages): equal archives, and ``.h5`` files with
+    the same datasets, shapes, maximum shapes, dtypes, filters and root
+    attributes. Values agree within 2e-3 (float) or one level of 255
+    (uint8): two frameworks' float32 forwards put a few unsaturated pixels
+    ~1e-3 apart (``write_unet(..., gain=1000)``)."""
+    from test_torch_hdf5 import summary
+
+    root = work["root"] / f"h5_{rung}_{mode}"
+    out = {}
+    for name, runner in (("jax", JaxRunner), ("torch", TorchRunner)):
+        task = {**_semseg(work, root / name), "save_raw_h5": True, "raw_h5_dtype": rung}
+        if mode == "append":
+            task["model"].update(H5_MODES[mode])
+            task["segmentation"]["device"] = False
+        runner._configure_and_run(task)
+        out[name] = summary(str(root / name / "crops.h5"))
+    rows = chip_smoke.compare_archives(str(root / "jax" / SEGMENTATION), str(root / "torch" / SEGMENTATION))
+    assert rows == len(SIZES)
+    ref, ours = out["jax"], out["torch"]
+    assert list(ours) == list(ref) and len(ours) == (1 + len(SIZES) if mode == "create" else 3)
+    effective = "float16" if (rung == "uint8" and mode == "append") else rung
+    assert ours["/attrs"]["raw_dtype"] == (str, effective) == ref["/attrs"]["raw_dtype"]
+    assert ours["/attrs"].keys() == ref["/attrs"].keys()
+    if effective == "uint8":
+        assert ours["/attrs"]["raw_scale"] == ref["/attrs"]["raw_scale"] == (np.float64, 1.0 / 255.0)
+    for name, r in ref.items():
+        if name == "/attrs":
+            continue
+        o = ours[name]
+        for k in ("shape", "maxshape", "dtype", "compression", "compression_opts", "shuffle"):
+            assert o[k] == r[k], (name, k)
+        if r["dtype"].kind == "S":
+            np.testing.assert_array_equal(o["value"], r["value"])
+        else:
+            atol = 1 if effective == "uint8" else 2e-3
+            np.testing.assert_allclose(o["value"].astype(np.float32), r["value"].astype(np.float32), rtol=0,
+                                       atol=atol, err_msg=name)
 
 
 def test_predict_runner_raises_without_a_card(work, tmp_path, monkeypatch):
