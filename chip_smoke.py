@@ -15,12 +15,19 @@ csrc`` and runs, one line of output per phase:
    times of both beside the kernel's bound:
    K1 ``hpass`` and K2 ``cumsum_rows`` (fg densities 0-1, a serpentine),
    K4 ``vertical_pass`` (the same masks, both connectivities, both
-   directions; random labels and the raster ids ``label`` seeds), K8
+   directions; random labels and the raster ids ``label`` seeds),
+   ``ccl_fixpoint`` (the same masks and seeds, both connectivities, labels
+   and per-frame sweep counts; the serpentine capped at 1 and 3 sweeps),
+   K8
    ``remove_small_objects`` (R = 256, min_area 30, ids beyond R,
    all-background and one-region frames), all bit-exact at the loki path's
-   shape (8, 1024, 1280) and at edge shapes, and K1, K2, K4 at the fused
-   measurement's shapes of phase 7 (``PREDICT_LABEL_SHAPES``: chunks of up
-   to 32 canvases of 64-512 × 128-512) on thresholded-blob and noisy masks;
+   shape (8, 1024, 1280) and at edge shapes (W = 1, 37, 1000, 1277; H =
+   1), and K1, K2, K4 and the fixpoint at the fused measurement's shapes of
+   phase 7 (``PREDICT_LABEL_SHAPES``: chunks of up to 32 canvases of
+   64-512 × 128-512) on thresholded-blob and noisy masks; the fixpoint's
+   time per ``label()`` fixpoint at (8, 1024, 1280) and (32, 256, 256)
+   beside the old host loop of standalone K1 / K4 launches (the time to
+   beat), its plain version and its bound;
    K3 ``region_histogram`` (bit-exact) and K7 ``regionprops_fused`` (its
    partials and integer props exact, the perimeter too; the other props
    within rtol 1e-5 / atol 1e-3, the orientation modulo pi) at (8, 1024,
@@ -114,11 +121,14 @@ csrc`` and runs, one line of output per phase:
     its JSON line, at least 432 of the 480 planted objects found.
 
 Kernel launches are counted per phase (counts set to 0 just before each
-timed run, read just after): every kernel but K6 and K9 must launch in
-phases 5 and 6; K1, K2, K4 and K5 in phase 7, and not K3 or K7; K1, K2, K4,
-K3 and K7 in phase 8; K5 and K6, and no other, in phase 9; K1, K2, K4, K8,
-K3, K7 and K9, and not K5 or K6, in phase 10; all but K9 in phase 11. K9
-launches in no phase but 10. The last lines are a JSON object of the
+timed run, read just after): every kernel but K6, K9 and the CCL passes
+alone (K1, K4) must launch in phases 5 and 6; ``ccl_fixpoint``, K2 and K5
+in phase 7, and not K3 or K7; ``ccl_fixpoint``, K2, K3 and K7 in phase 8;
+K5 and K6, and no other, in phase 9; K1, K4 (the lab's probes of them),
+``ccl_fixpoint``, K2, K8, K3, K7 and K9, and not K5 or K6, in phase 10; all
+but K9 and K1, K4 alone in phase 11. ``label`` runs K1 and K4 inside
+``ccl_fixpoint``: alone they launch in phase 10 and no other. K9 launches in
+no phase but 10. The last lines are a JSON object of the
 kernels, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before the last line.
 """
@@ -156,9 +166,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
 KERNELS = {
     # name: (source, TPU kernel it replaces, bytes per pixel (element) that
     # the function must move: each input read once, each output written once)
-    "hpass": (f"{CSRC}/row_scan.cu", "maze_image_processing_pipeline_tpu/ops/pallas_scan.py:111", 4 + 1 + 4),
+    "hpass": (f"{CSRC}/ccl.cu", "maze_image_processing_pipeline_tpu/ops/pallas_scan.py:111", 4 + 1 + 4),
     "cumsum_rows": (f"{CSRC}/row_scan.cu", "maze_image_processing_pipeline_tpu/ops/pallas_scan.py:77", 4 + 4),
-    "vertical_pass": (f"{CSRC}/vertical_pass.cu", "attic/pallas_label.py:58", 4 + 1 + 4),
+    "vertical_pass": (f"{CSRC}/ccl.cu", "attic/pallas_label.py:58", 4 + 1 + 4),
+    # The label fixpoint in one launch: the `jax.lax.while_loop` of `label`
+    # over K1 (pallas_scan.py:111) and K4 (attic/pallas_label.py:58); seed
+    # labels and mask read once, labels written once.
+    "ccl_fixpoint": (f"{CSRC}/ccl.cu", "maze_image_processing_pipeline_tpu/ops/label.py:212", 4 + 1 + 4),
     "remove_small_objects": (f"{CSRC}/relabel.cu", "attic/pallas_relabel.py:99", 4 + 4),
     # bfloat16 activations, as every norm of the path: 2 B read, 2 B written.
     "group_norm": (f"{CSRC}/group_norm.cu", "attic/pallas_norm.py:95", 2 + 2),
@@ -174,11 +188,14 @@ KERNELS = {
 }
 # The kernels of the frame chain's region measurement (K3, K7).
 REGION_KERNELS = ("region_histogram", "regionprops_fused")
-# The kernels inference may launch (all but the GroupNorm backward, K6, and
-# the perf lab's anchor, K9).
-INFERENCE_KERNELS = tuple(k for k in KERNELS if k not in ("group_norm_bwd", "anchor"))
+# The CCL passes alone (K1, K4): `label` runs them inside `ccl_fixpoint`, so
+# they launch only in phase 2 and in the perf lab's probes of them.
+CCL_PASSES = ("hpass", "vertical_pass")
+# The kernels inference may launch (all but the GroupNorm backward, K6, the
+# perf lab's anchor, K9, and the CCL passes alone).
+INFERENCE_KERNELS = tuple(k for k in KERNELS if k not in ("group_norm_bwd", "anchor") + CCL_PASSES)
 # The kernels of the perf lab's experiments (phase 10).
-LAB_KERNELS = ("hpass", "cumsum_rows", "vertical_pass", "remove_small_objects") + REGION_KERNELS + ("anchor",)
+LAB_KERNELS = CCL_PASSES + ("ccl_fixpoint", "cumsum_rows", "remove_small_objects") + REGION_KERNELS + ("anchor",)
 # The norms' (B, C, H, W) on the path: loki level 0 (16 tiles of 1024²),
 # semseg level 0 (64 tiles of 256²), classifier stage 1 (256 crops of 256²).
 GN_SHAPES = ((16, 32, 1024, 1024), (64, 32, 256, 256), (256, 32, 128, 128))
@@ -347,11 +364,77 @@ def blob_masks(shape, seed: int) -> np.ndarray:
 PREDICT_LABEL_SHAPES = ((32, 256, 256), (8, 512, 512), (29, 64, 128), (3, 384, 512))
 
 
-def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000), (8, 1, 1280))) -> dict:
-    """K1, K2, K4 and K8 against their plain versions on the card,
-    bit-exact, at the main path's shape, at edge shapes and (K1, K2, K4) at
-    the fused measurement's shapes; CUDA-event times at the main path's
-    shape."""
+def host_loop_fixpoint(lab0, fg, connectivity: int, max_iters: int = 256):
+    """The label fixpoint as the port ran it before ``ccl_fixpoint``: a
+    host loop of standalone K1 and K4 launches, four a sweep, with a host
+    synchronisation after every sweep. The time to beat. Returns the labels
+    and the number of sweeps."""
+    from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+    from maze_image_processing_pipeline_tpu_torch.ops import row_scan
+
+    def sweep(lab):
+        lab = row_scan.hpass(lab, fg)
+        lab = tl.vertical_pass(lab, fg, connectivity, reverse=False)
+        lab = tl.vertical_pass(lab, fg, connectivity, reverse=True)
+        return row_scan.hpass(lab, fg)
+
+    lab, prev, i = sweep(lab0), lab0, 1
+    while i < max_iters and bool((lab != prev).any()):
+        lab, prev = sweep(lab), lab
+        i += 1
+    return lab, i
+
+
+# The fixpoint's timed inputs: loki's frames (8-connected), and the fused
+# measurement's largest chunk of canvases.
+FIXPOINT_SHAPES = ((8, 1024, 1280), (32, 256, 256))
+
+
+def fixpoint_timings(dev) -> dict:
+    """``ccl_fixpoint`` per ``label()`` fixpoint (the raster seed) on loki-
+    like frames and on thresholded blob canvases, both connectivities, by
+    CUDA events: beside the old host loop of standalone launches on the same
+    input (its labels must agree), the plain version and the bound; and K1
+    and K4 alone on the same input. Returns the numbers at the first shape,
+    8-connected."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+    from maze_image_processing_pipeline_tpu_torch.ops import row_scan
+
+    out = None
+    for shape in FIXPOINT_SHAPES:
+        B, H, W = shape
+        fg_np = make_frames(B, H, W, 20, seed=11) > 50 if shape == FIXPOINT_SHAPES[0] else blob_masks(shape, seed=12)
+        fg = torch.from_numpy(fg_np).to(dev)
+        lin = torch.arange(1, H * W + 1, dtype=torch.int32, device=dev).reshape(H, W)
+        lab0 = torch.where(fg, lin, 2**30)
+        k1 = cuda_ms(lambda: row_scan.hpass(lab0, fg))
+        k4 = [cuda_ms(lambda: tl.vertical_pass(lab0, fg, conn, False)) for conn in (2, 1)]
+        say(f"  at {shape}: hpass {k1:.4f} ms, vertical_pass 8-connected {k4[0]:.4f} ms, 4-connected {k4[1]:.4f} ms; "
+            f"bound {bound_ms('hpass', lab0.numel()):.4f} ms each")
+        for conn in (2, 1):
+            lab, sweeps = tl._fixpoint(lab0, fg, conn, 256)
+            check(torch.equal(lab, host_loop_fixpoint(lab0, fg, conn)[0]), f"the host loop differs at {shape}")
+            m = dict(ms=cuda_ms(lambda: tl._fixpoint(lab0, fg, conn, 256)),
+                     host_loop_ms=cuda_ms(lambda: host_loop_fixpoint(lab0, fg, conn)),
+                     plain_ms=cuda_ms(lambda: tl.fixpoint_plain(lab0, fg, conn, 256), iters=3),
+                     bound_ms=bound_ms("ccl_fixpoint", lab0.numel()), library_ms=None)
+            say(f"  ccl_fixpoint at {shape} {4 * conn}-connected, fg {float(fg_np.mean()):.3f}: {m['ms']:.4f} ms a "
+                f"fixpoint, sweeps per frame {sorted(set(sweeps.tolist()))}; the old host loop of K1/K4 launches "
+                f"{m['host_loop_ms']:.4f} ms; plain {m['plain_ms']:.4f} ms; bound {m['bound_ms']:.4f} ms")
+            if out is None:
+                out = m
+    return out
+
+
+def phase_kernels(dev, main=(8, 1024, 1280),
+                  edges=((8, 1024, 1), (8, 1024, 1000), (8, 1, 1280), (4, 64, 37), (2, 96, 1277))) -> dict:
+    """K1, K2, K4, ``ccl_fixpoint`` and K8 against their plain versions on
+    the card, bit-exact (the fixpoint's sweep counts too), at the main
+    path's shape, at edge shapes and (K1, K2, K4, the fixpoint) at the fused
+    measurement's shapes; CUDA-event times at the main path's shape (the
+    fixpoint's also at (32, 256, 256))."""
     import torch
 
     from maze_image_processing_pipeline_tpu_torch.ops import label as tl
@@ -370,6 +453,13 @@ def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000
         if e:
             raise AssertionError(f"{name} differs from its plain version at {where} by {e}")
 
+    def record_fixpoint(lab0, fg, conn, cap, where) -> int:
+        lab, sweeps = tl._fixpoint(lab0, fg, conn, cap)
+        ref, ref_sweeps = tl.fixpoint_plain(lab0, fg, conn, cap)
+        e = max(max_err(lab, ref), max_err(sweeps, ref_sweeps))
+        record("ccl_fixpoint", e, f"{where} connectivity={conn} max_iters={cap} (labels and sweep counts)")
+        return int(sweeps.max())
+
     for where, shape, p in cases:
         if p == "serpentine":
             fg_np = serpentine(*shape)
@@ -383,12 +473,16 @@ def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000
         # Random labels, and the raster ids on the foreground that `label` seeds.
         raster = torch.arange(1, math.prod(shape[1:]) + 1, dtype=torch.int32, device=dev).reshape(shape[1:])
         random_lab = torch.from_numpy(rng.integers(1, 2**30, shape, dtype=np.int32)).to(dev)
-        for lab in (random_lab, torch.where(fg, raster, torch.tensor(2**30, dtype=torch.int32, device=dev))):
+        sweeps = []
+        for lab in (random_lab, torch.where(fg, raster, 2**30)):
             record("hpass", max_err(row_scan.hpass(lab, fg), row_scan.hpass_plain(lab, fg)), where)
             for conn in (1, 2):
                 for rev in (False, True):
                     e = max_err(tl.vertical_pass(lab, fg, conn, rev), tl.vertical_pass_plain(lab, fg, conn, rev))
                     record("vertical_pass", e, f"{where} connectivity={conn} reverse={rev}")
+                # The serpentine needs a sweep a switchback: capped, it stops half done.
+                for cap in (1, 3) if p == "serpentine" else (256,):
+                    sweeps.append(record_fixpoint(lab, fg, conn, cap, where))
         lab = random_lab
         torch.cuda.synchronize()
         if shape == main and p == 0.05:
@@ -407,7 +501,8 @@ def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000
             say(f"  {where}: 8-connected vertical_pass {out['vertical_pass']['ms']:.4f} ms, "
                 f"4-connected {vp4:.4f} ms")
         say(f"  {where}: hpass, cumsum_rows, vertical_pass (4/8-connected, down/up; random and raster "
-            f"labels) bit-exact, fg {float(fg_np.mean()):.3f}")
+            f"labels), ccl_fixpoint (4/8-connected, sweeps {sorted(set(sweeps))}) bit-exact, "
+            f"fg {float(fg_np.mean()):.3f}")
 
     R, min_area = 4 * POSTPROCESS.max_regions, POSTPROCESS.min_area
     lab_cases = [(f"{main} rectangles", region_labels(main, R, seed=2)),
@@ -427,6 +522,7 @@ def phase_kernels(dev, main=(8, 1024, 1280), edges=((8, 1024, 1), (8, 1024, 1000
                 plain_ms=cuda_ms(lambda: tl.remove_small_objects_plain(lab, min_area, R)),
                 bound_ms=bound_ms("remove_small_objects", lab.numel()), library_ms=None)
 
+    out["ccl_fixpoint"] = fixpoint_timings(dev)
     for name, m in out.items():
         m.update(max_abs_err=err[name], bound_by="bytes")
         say(f"  {name} at {main}: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms"
@@ -995,6 +1091,7 @@ def _counted():
     from maze_image_processing_pipeline_tpu_torch.ops.anchor import anchor
 
     return {"hpass": row_scan.hpass, "cumsum_rows": row_scan.cumsum_rows, "vertical_pass": tl.vertical_pass,
+            "ccl_fixpoint": tl._fixpoint,
             "remove_small_objects": tl.remove_small_objects, "group_norm": layers.group_norm,
             "group_norm_bwd": layers.group_norm_bwd, "region_histogram": rh.region_histogram,
             "regionprops_fused": rf.regionprops_fused, "anchor": anchor}
@@ -1005,7 +1102,7 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def read_launches(where: str, expected=INFERENCE_KERNELS, absent=("group_norm_bwd", "anchor")) -> dict:
+def read_launches(where: str, expected=INFERENCE_KERNELS, absent=("group_norm_bwd", "anchor") + CCL_PASSES) -> dict:
     """The launch counts since :func:`reset_launches`; every kernel the
     phase's path runs (``expected``) must have launched, and the kernels of
     other paths (``absent``) must not have."""
@@ -1280,7 +1377,7 @@ def phase_threshold(limit: str, work: str) -> dict:
     run_loki(threshold_task(data, os.path.join(work, "thr_warm")))
     reset_launches()
     wall = run_loki(threshold_task(data, os.path.join(work, "thr_card")))
-    launches = read_launches("phase 8", expected=("hpass", "cumsum_rows", "vertical_pass") + REGION_KERNELS)
+    launches = read_launches("phase 8", expected=("ccl_fixpoint", "cumsum_rows") + REGION_KERNELS)
     card = os.path.join(work, "thr_card", archive)
     rows, members = check_archive(card)
     check(rows == 1920, f"the threshold archive holds {rows} objects, expected 1920")
@@ -1489,8 +1586,8 @@ def phase_predict(limit: str, work: str) -> dict:
     reset_launches()
     wall_s = run_predict(semseg("semseg"))
     wall_p = run_predict(poly("poly"))
-    launches = read_launches("phase 7", expected=("hpass", "cumsum_rows", "vertical_pass", "group_norm"),
-                             absent=REGION_KERNELS + ("group_norm_bwd", "anchor"))
+    launches = read_launches("phase 7", expected=("ccl_fixpoint", "cumsum_rows", "group_norm"),
+                             absent=REGION_KERNELS + ("group_norm_bwd", "anchor") + CCL_PASSES)
     measured = [f"object_{c}_{k}" for c in CHANNELS for k in ("raw_area", "area", "axis_major_length", "area_convex")]
     check_predict_archive(os.path.join(work, "semseg", "crops.segmentation.zip"), 480, measured)
     check_predict_archive(os.path.join(work, "poly", "crops.polytaxo.zip"), 480, [])
@@ -1801,7 +1898,7 @@ def predict_stage_breakdown(limit: str, work: str) -> None:
     patches = [
         (dti, "_forward", "U-Net forward (upload, pre, forward, sigmoid)"),
         (dti, "_run_bucket", "dispatch of a bucket (tile cut, forward, blend, measurement, cast)"),
-        (segment_measure, "measure_channels_packed", "fused measurement (label K1/K2/K4, moments, extremes)"),
+        (segment_measure, "measure_channels_packed", "fused measurement (label: ccl_fixpoint, K2; moments, extremes)"),
         (dti, "_unpack_chunk", "fetch + unpack"),
         (ti, "_dispatch", "classifier dispatch (stack, crop, upload, forward, cast)"),
         (ti, "_fetch", "classifier fetch"),
@@ -1924,7 +2021,8 @@ def phase_haul(limit: str, work: str) -> dict:
     reset_launches()
     result = bench_e2e.main(["--haul", "standard", "--repeat", "1", "--model-dir", models,
                              "--workdir", os.path.join(work, "haul")])
-    launches = read_launches("phase 11", expected=INFERENCE_KERNELS + ("group_norm_bwd",), absent=("anchor",))
+    launches = read_launches("phase 11", expected=INFERENCE_KERNELS + ("group_norm_bwd",),
+                             absent=("anchor",) + CCL_PASSES)
     check(result["objects"] >= 432, f"the haul found {result['objects']} of 480 planted objects (at least 432)")
     say(f"  standard haul: {result['objects']} of 480 objects, {result['value']:.3f} objects/s (loki "
         f"{result['loki_s']:.3f} s, semseg with .h5 {result['semseg_s']:.3f} s, polytaxo {result['polytaxo_s']:.3f} "

@@ -5,14 +5,22 @@ same results:
 
 1. **Init** — every foreground pixel takes its linear index + 1 as label.
 2. **Propagate** — sweeps of horizontal pass, vertical pass down, vertical
-   pass up, horizontal pass, to a fixpoint capped at ``max_iters`` sweeps.
-   The horizontal pass is :func:`.row_scan.hpass` and the vertical pass
-   :func:`vertical_pass` (CUDA kernels on the card, K1 and K4).
+   pass up, horizontal pass, to a fixpoint capped at ``max_iters`` sweeps
+   (:func:`_fixpoint`). On the card the whole fixpoint is one CUDA launch
+   (``csrc/ccl.cu``: one block per frame loops the sweeps itself and stops
+   when a sweep changes nothing, with no host synchronisation); its plain
+   version :func:`fixpoint_plain` runs the sweeps of the horizontal pass
+   (:func:`.row_scan.hpass_plain`, K1) and :func:`vertical_pass_plain` (K4).
+   Both passes also stand alone on the card (:func:`.row_scan.hpass`,
+   :func:`vertical_pass`), over the same device code.
 3. **Compact** — each component's final label is the linear index of its
    raster-first pixel, so the raster rank of the roots (a per-row prefix
    sum, :func:`.row_scan.cumsum_rows`, plus a prefix sum of row totals) gives
    consecutive ids in scipy/skimage order; the rank spreads through each
    component with the same sweep.
+
+On the card :func:`label` makes no host synchronisation: ``n_regions``
+stays a device tensor.
 
 Region tables (areas, border contact, the id remap) use ``bincount`` and
 ``gather`` over the region axis instead of one-hot compares.
@@ -21,7 +29,7 @@ Region tables (areas, border contact, the id remap) use ``bincount`` and
 Each kernel's wrapper takes the plain PyTorch version (``*_plain``, in this
 module or :mod:`.row_scan`) for a tensor on the CPU; a CUDA tensor always
 launches the kernel, and the wrapper raises if the kernel does not take it
-or does not launch. ``vertical_pass.launches`` and
+or does not launch. ``_fixpoint.launches``, ``vertical_pass.launches`` and
 ``remove_small_objects.launches`` count the launches.
 """
 
@@ -32,19 +40,22 @@ from typing import Tuple
 
 import torch
 
-from .row_scan import INF, _check_cuda, _raise_on, cumsum_rows, hpass
+from .row_scan import INF, _check_cuda, _raise_on, cumsum_rows, hpass_plain
 
 __all__ = [
     "label",
     "vertical_pass",
     "vertical_pass_plain",
+    "fixpoint_plain",
     "remove_small_objects",
     "remove_small_objects_plain",
     "clear_border",
     "region_areas",
 ]
 
-_MAX_W8 = 8192  # widest row the 8-connected kernel takes (8 columns a thread)
+# Widest row the 8-connected pass and the fixpoint take: a block walks whole
+# rows, 16 columns a thread at most (the 4-connected pass alone takes bands).
+_MAX_W8 = 8192
 
 
 def vertical_pass_plain(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, reverse: bool):
@@ -52,9 +63,9 @@ def vertical_pass_plain(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, 
     foreground (with diagonal links for 8-connectivity), top to bottom or
     bottom to top."""
     H = lab.shape[-2]
+    fg = fg.bool()
     out = torch.empty_like(lab)
     carry = torch.full_like(lab[..., 0, :], INF)
-    inf = torch.tensor(INF, dtype=lab.dtype, device=lab.device)
     order = range(H - 1, -1, -1) if reverse else range(H)
     for r in order:
         neigh = carry
@@ -62,7 +73,7 @@ def vertical_pass_plain(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, 
             neigh = carry.clone()
             neigh[..., 1:] = torch.minimum(neigh[..., 1:], carry[..., :-1])
             neigh[..., :-1] = torch.minimum(neigh[..., :-1], carry[..., 1:])
-        carry = torch.where(fg[..., r, :], torch.minimum(lab[..., r, :], neigh), inf)
+        carry = torch.where(fg[..., r, :], torch.minimum(lab[..., r, :], neigh), INF)
         out[..., r, :] = carry
     return out
 
@@ -113,20 +124,79 @@ def vertical_pass(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, revers
 vertical_pass.launches = 0
 
 
-def _fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters: int):
-    def sweep(lab):
-        lab = hpass(lab, fg)
-        lab = vertical_pass(lab, fg, connectivity, reverse=False)
-        lab = vertical_pass(lab, fg, connectivity, reverse=True)
-        return hpass(lab, fg)
+def _sweep_plain(lab: torch.Tensor, fg: torch.Tensor, connectivity: int) -> torch.Tensor:
+    lab = hpass_plain(lab, fg)
+    lab = vertical_pass_plain(lab, fg, connectivity, reverse=False)
+    lab = vertical_pass_plain(lab, fg, connectivity, reverse=True)
+    return hpass_plain(lab, fg)
 
-    lab = sweep(lab0)
-    prev = lab0
+
+def fixpoint_plain(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters: int):
+    """Plain version of the fixpoint kernel: sweeps of the whole batch until
+    no pixel changes or ``max_iters`` sweeps have run (at least one). The
+    sweeps of a frame are counted as the same loop run on that frame alone
+    would count them: a frame that stopped changing is a fixed point of the
+    sweep, so the batch's further sweeps leave it as it is."""
+    lab = _sweep_plain(lab0, fg, connectivity)
+    sweeps = torch.ones(lab.shape[0], dtype=torch.int32, device=lab.device)
+    active = (lab != lab0).flatten(1).any(1)
     i = 1
-    while i < max_iters and bool((lab != prev).any()):
-        lab, prev = sweep(lab), lab
+    while i < max_iters and bool(active.any()):
+        nxt = _sweep_plain(lab, fg, connectivity)
+        sweeps += active.to(torch.int32)
+        active &= (nxt != lab).flatten(1).any(1)
+        lab = nxt
         i += 1
-    return lab
+    return lab, sweeps
+
+
+def _fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters: int):
+    """The CCL fixpoint over (B, H, W) frames: sweeps of horizontal pass,
+    vertical pass down, vertical pass up, horizontal pass, until no pixel of
+    a frame changes or ``max_iters`` sweeps have run (at least one).
+
+    Args:
+        lab0: int32 (B, H, W) seed labels.
+        fg: bool or uint8 foreground mask of the same shape.
+        connectivity: 2 = 8-connected, 1 = 4-connected.
+        max_iters: cap on the sweeps of each frame.
+
+    Returns:
+        (labels, sweeps): int32 (B, H, W), and int32 (B,) the sweeps each
+        frame ran. On the card one launch (``csrc/ccl.cu``), updating a copy
+        of ``lab0`` in place; nothing is read back.
+    """
+    if lab0.dtype != torch.int32:
+        raise TypeError(f"_fixpoint: labels must be int32, got {lab0.dtype}")
+    if fg.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"_fixpoint: mask must be bool or uint8, got {fg.dtype}")
+    if lab0.shape != fg.shape or lab0.dim() != 3:
+        raise ValueError(f"_fixpoint: need equal (B, H, W) shapes, got {tuple(lab0.shape)} and {tuple(fg.shape)}")
+    if connectivity not in (1, 2):
+        raise ValueError("_fixpoint: connectivity must be 1 or 2")
+    if lab0.device.type == "cpu":
+        return fixpoint_plain(lab0, fg, connectivity, max_iters)
+    _check_cuda("_fixpoint", lab0, fg)
+    B, H, W = lab0.shape
+    if W > _MAX_W8:
+        raise ValueError(f"_fixpoint: rows wider than {_MAX_W8} are not supported, got {W}")
+    lab = lab0.clone()
+    if lab.numel() == 0:
+        return lab, torch.ones((B,), dtype=torch.int32, device=lab.device)
+    sweeps = torch.empty((B,), dtype=torch.int32, device=lab.device)
+    from .._build import kernels
+
+    with torch.cuda.device(lab.device):
+        stream = torch.cuda.current_stream(lab.device).cuda_stream
+        err = kernels().ccl_fixpoint_launch(
+            lab.data_ptr(), fg.data_ptr(), sweeps.data_ptr(), B, H, W, connectivity, int(max_iters), stream
+        )
+    _raise_on("_fixpoint", err)
+    _fixpoint.launches += 1
+    return lab, sweeps
+
+
+_fixpoint.launches = 0
 
 
 def label(
@@ -152,9 +222,8 @@ def label(
     dev = fg.device
 
     lin = torch.arange(H * W, dtype=torch.int32, device=dev).reshape(1, H, W)
-    inf = torch.tensor(INF, dtype=torch.int32, device=dev)
-    lab0 = torch.where(fg, lin + 1, inf)
-    lab = _fixpoint(lab0, fg, connectivity, max_iters)
+    lab0 = torch.where(fg, lin + 1, INF)
+    lab, _ = _fixpoint(lab0, fg, connectivity, max_iters)
 
     # Compaction: rank the roots in raster order, then spread the rank.
     is_root = fg & (lab == lin + 1)
@@ -164,9 +233,9 @@ def label(
     ranks = within_row + (row_prefix_incl - row_counts)[..., None]
     n_regions = row_prefix_incl[..., -1]  # (B,)
 
-    rank_seed = torch.where(is_root, ranks, inf)
-    rank_img = _fixpoint(rank_seed, fg, connectivity, max_iters)
-    compact = torch.where(fg, rank_img, torch.zeros((), dtype=torch.int32, device=dev))
+    rank_seed = torch.where(is_root, ranks, INF)
+    rank_img, _ = _fixpoint(rank_seed, fg, connectivity, max_iters)
+    compact = torch.where(fg, rank_img, 0)
     return compact.reshape(batch_shape + (H, W)), n_regions.reshape(batch_shape)
 
 

@@ -2,7 +2,8 @@
 
 * :func:`hpass` — the horizontal pass of the connected-component labelling:
   every foreground pixel receives the minimum label of its horizontal run,
-  background receives ``2**30`` (K1, ``csrc/row_scan.cu:hpass_kernel``).
+  background receives ``2**30`` (K1, ``csrc/ccl.cu:hpass_kernel``, over
+  the row function that :func:`.label._fixpoint`'s kernel runs too).
 * :func:`cumsum_rows` — the inclusive int32 prefix sum along each row, which
   ranks component roots in raster order (K2,
   ``csrc/row_scan.cu:cumsum_rows_kernel``).
@@ -21,6 +22,7 @@ import torch
 __all__ = ["hpass", "hpass_plain", "cumsum_rows", "cumsum_rows_plain", "INF"]
 
 INF = 2**30  # background label of the CCL
+_MAX_W1 = 46000  # widest row K1 takes: the row is staged in one block's shared memory
 
 
 def _shift(v: torch.Tensor, d: int, fill, reverse: bool) -> torch.Tensor:
@@ -48,12 +50,11 @@ def _segmented_min_doubling(v, r, reverse: bool):
 def hpass_plain(lab: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: forward then reverse segmented min-scan."""
     fg = fg.bool()
-    inf = torch.tensor(INF, dtype=torch.int32, device=lab.device)
-    v = torch.where(fg, lab, inf)
+    v = torch.where(fg, lab, INF)
     resets = ~fg
     v = _segmented_min_doubling(v, resets, reverse=False)
     v = _segmented_min_doubling(v, resets, reverse=True)
-    return torch.where(fg, v, inf)
+    return torch.where(fg, v, INF)
 
 
 def cumsum_rows_plain(x: torch.Tensor) -> torch.Tensor:
@@ -105,6 +106,8 @@ def hpass(lab: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
     _check_cuda("hpass", lab, fg)
     out = torch.empty_like(lab)
     rows, W = _rows(lab)
+    if W > _MAX_W1:
+        raise ValueError(f"hpass: rows wider than {_MAX_W1} are not supported, got {W}")
     if rows == 0:
         return out
     from .._build import kernels

@@ -20,9 +20,10 @@ calls between two events, synchronised. Each line reads ``ms/batch``, the
 
 Experiments: ``morph``, ``morph_label``, ``morph_anchor_label`` (K9 between
 the morphology and ``label``), ``label_alone``, ``morph_hpass`` (K1),
-``morph_vpass`` (K4), ``morph_sweep1``, ``morph_fix``, ``props`` (K7 + K3
-on fixed labels), ``rsmall`` (K8), ``chain`` and ``chain_anchor`` (with
-K9; both launch K1, K2, K4, K8, K7 and K3), and, for reference only,
+``morph_vpass`` (K4), ``morph_sweep1`` and ``morph_fix`` (the label
+fixpoint kernel capped at 1 and 64 sweeps), ``props`` (K7 + K3 on fixed
+labels), ``rsmall`` (K8), ``chain`` and ``chain_anchor`` (with K9; both
+launch the fixpoint, K2, K8, K7 and K3), and, for reference only,
 ``props_plain`` and ``chain_plain``: the same on a CPU copy of the frames,
 where every op takes its plain version, timed by the host clock (the cost
 of ``device: cpu``; they replace the JAX lab's ``propsxla``, ``chainxla``
