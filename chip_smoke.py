@@ -28,13 +28,19 @@ csrc`` and runs, one line of output per phase:
    time per ``label()`` fixpoint at (8, 1024, 1280) and (32, 256, 256)
    beside the old host loop of standalone K1 / K4 launches (the time to
    beat), its plain version and its bound;
-   K3 ``region_histogram`` (bit-exact) and K7 ``regionprops_fused`` (its
-   partials and integer props exact, the perimeter too; the other props
-   within rtol 1e-5 / atol 1e-3, the orientation modulo pi) at (8, 1024,
-   1280) with R = 64 on blob, serpentine and rectangle label frames (ids
-   beyond R), all-background and one-region frames, at (8, 1024, 1),
-   (8, 1, 1280), (3, 1000, 1280) and (2, 37, 1000), and at the threshold
-   path's buckets (256, 64, 128) and (8, 512, 512) with R = 2;
+   K3 ``region_histogram`` and K7 ``regionprops_fused``, one kernel
+   (``csrc/region_measure.cu``): its partials (the perimeter units
+   included) and histogram bit-exact against the plain versions and the
+   same bits in two launches, the histogram alone too, the props' integers
+   exact and the rest within rtol 1e-5 / atol 1e-3 (the orientation modulo
+   pi), at (8, 1024, 1280) with R = 64 on blob, serpentine and rectangle
+   label frames (ids beyond R), all-background and one-region frames,
+   negative ids, at (8, 1024, 1), (8, 1, 1280), (3, 1000, 1280), (2, 37,
+   1000), (2, 96, 1277), (4, 64, 37), rows not 16-B aligned, the dense
+   haul's (2, 2048, 2560) with intensity 255, R = 256, and the threshold
+   path's buckets (256, 64, 128) and (8, 512, 512) with R = 2; the fused
+   launch, the histogram alone, the whole call and its derivation timed at
+   the first shape and the buckets;
    K5 ``group_norm`` at the path's shapes (16, 32, 1024, 1024) (loki level
    0), (64, 32, 256, 256) (semseg level 0) and (256, 32, 128, 128)
    (classifier stage 1) and at odd shapes ((3, 16, 5, 7), C = 512, H·W not
@@ -180,8 +186,10 @@ KERNELS = {
     "group_norm_bwd": (f"{CSRC}/group_norm.cu", "attic/pallas_norm.py:256", 2 + 2 + 2),
     # Labels and intensity read (5 B/px) plus outputs per region, not per
     # pixel: their bounds are reckoned in phase_region_kernels.
-    "region_histogram": (f"{CSRC}/region_histogram.cu", "attic/pallas_hist.py:94", None),
-    "regionprops_fused": (f"{CSRC}/region_props.cu", "attic/pallas_props.py:167", None),
+    # K3 and K7 are one kernel: `region_histogram` counts its launches that
+    # write a histogram, `regionprops_fused` those that write the partials.
+    "region_histogram": (f"{CSRC}/region_measure.cu", "attic/pallas_hist.py:94", None),
+    "regionprops_fused": (f"{CSRC}/region_measure.cu", "attic/pallas_props.py:167", None),
     # The perf lab's layout anchor: the mask read once and written once
     # (1 + 1 B per bool element).
     "anchor": (f"{CSRC}/anchor.cu", "tools/perf_lab.py:94", 1 + 1),
@@ -530,30 +538,6 @@ def phase_kernels(dev, main=(8, 1024, 1280),
     return out
 
 
-def plain_partials(lab, img, R: int) -> tuple:
-    """K7's partials by PyTorch scatters (the kernel's oracle for them):
-    Σ I, Σ I·y, Σ I·x per region, per-(row, region) count, x-sum, x-min (W
-    if absent), x-max (-1 if absent), per-(column, region) count."""
-    import torch
-
-    B, H, W = lab.shape
-    seg = torch.where((lab >= 0) & (lab < R), lab, R).long()
-    yy = torch.arange(H, device=lab.device)[:, None].expand(B, H, W)
-    xx = torch.arange(W, device=lab.device)[None, :].expand(B, H, W).contiguous()
-    iv = img.long()
-    sums = torch.zeros(B, R + 1, 3, dtype=torch.int64, device=lab.device)
-    for k, v in enumerate((iv, iv * yy, iv * xx)):
-        sums[..., k].scatter_add_(1, seg.reshape(B, -1), v.reshape(B, -1))
-    ones = torch.ones_like(seg)
-    rowcnt = torch.zeros(B, H, R + 1, dtype=torch.int64, device=lab.device).scatter_add_(2, seg, ones)
-    rowsumx = torch.zeros_like(rowcnt).scatter_add_(2, seg, xx)
-    rowminx = torch.full_like(rowcnt, W).scatter_reduce(2, seg, xx, reduce="amin")
-    rowmaxx = torch.full_like(rowcnt, -1).scatter_reduce(2, seg, xx, reduce="amax")
-    colcnt = torch.zeros(B, W, R + 1, dtype=torch.int64, device=lab.device)
-    colcnt.scatter_add_(2, seg.transpose(1, 2).contiguous(), ones.transpose(1, 2))
-    return (sums[:, :R],) + tuple(t[..., :R].int() for t in (rowcnt, rowsumx, rowminx, rowmaxx, colcnt))
-
-
 # K7's props that are integers (or exact float64 sums of float32 terms, the
 # perimeter) and must be equal; the rest must agree within rtol 1e-5 / atol
 # 1e-3 (mu11 is centred per row on the kernel route, per pixel on the plain
@@ -604,87 +588,167 @@ def compare_props(kp: dict, pp: dict, where: str) -> float:
     return worst
 
 
-def phase_region_kernels(dev, main=(8, 1024, 1280)) -> dict:
-    """K3 (region_histogram) and K7 (regionprops_fused) against their plain
-    versions on the card: the loki frame chain's shape with R = 64 (blob,
-    serpentine and rectangle label frames with ids beyond R,
-    all-background, one region), edge shapes, a height that is not a
-    multiple of the kernel's strip, and the threshold path's buckets with
-    R = 2. K3 bit-exact; K7's partials and integer props exact, the rest
-    within tolerance. Times at the main shape on the blob frames."""
-    import scipy.ndimage as ndi
+def on_card(arr: np.ndarray, dev, offset: int = 0):
+    """``arr`` as a contiguous tensor on the card whose data starts
+    ``offset`` elements past the start of its allocation (offset 1: no row
+    is 16-B aligned)."""
     import torch
 
-    from maze_image_processing_pipeline_tpu_torch.ops import region_histogram as rh
-    from maze_image_processing_pipeline_tpu_torch.ops import regionprops_fused as rf
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    out = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)[offset:].view(t.shape)
+    return out.copy_(t)
+
+
+def region_cases(main=(8, 1024, 1280)) -> list:
+    """The region-measurement kernel's cases: (where, labels, intensity, R,
+    offset). loki's shape with R = 64 on blob, serpentine and rectangle
+    label frames (ids beyond R), all-background and one-region frames, ids
+    beyond R and negative ids; ragged widths and heights; unaligned rows;
+    the dense haul's width with intensity 255 everywhere (Σ I·x and Σ I·y
+    past 2³²); R = 256 (the histogram in device memory); the threshold
+    path's buckets with R = 2."""
+    import scipy.ndimage as ndi
 
     rng = np.random.default_rng(5)
     R = POSTPROCESS.max_regions
     frames = make_frames(main[0], main[1], main[2], 20, seed=15)
     blobs = np.stack([ndi.label(f > 60, np.ones((3, 3)))[0] for f in frames]).astype(np.int32)
-    snake = serpentine(*main).astype(np.int32)
-    cases = [(f"{main} blobs", blobs, frames, R),
-             (f"{main} serpentine", snake, frames, R),
-             (f"{main} rectangles", region_labels(main, R, seed=16), frames, R),
-             (f"{main} background", np.zeros(main, np.int32), frames, R),
-             (f"{main} one region", np.ones(main, np.int32), frames, R)]
-    for shape in ((8, 1024, 1), (8, 1, 1280), (3, 1000, 1280), (2, 37, 1000)):
+    odd = blobs.copy()
+    odd[rng.random(main) < 0.01] = -3
+    odd[rng.random(main) < 0.01] = R + 7
+    cases = [(f"{main} blobs", blobs, frames, R, 0),
+             (f"{main} serpentine", serpentine(*main).astype(np.int32), frames, R, 0),
+             (f"{main} rectangles", region_labels(main, R, seed=16), frames, R, 0),
+             (f"{main} background", np.zeros(main, np.int32), frames, R, 0),
+             (f"{main} one region", np.ones(main, np.int32), frames, R, 0),
+             (f"{main} blobs, ids beyond R and negative", odd, frames, R, 0)]
+    for shape in ((8, 1024, 1), (8, 1, 1280), (3, 1000, 1280), (2, 37, 1000), (2, 96, 1277), (4, 64, 37)):
         cases.append((f"{shape} rectangles", region_labels(shape, R, seed=17),
-                      rng.integers(0, 256, shape, dtype=np.uint8), R))
+                      rng.integers(0, 256, shape, dtype=np.uint8), R, 0))
+    shape = (2, 96, 1280)
+    cases.append((f"{shape} rectangles, rows not 16-B aligned", region_labels(shape, R, seed=18),
+                  rng.integers(0, 256, shape, dtype=np.uint8), R, 1))
+    dense = (2, 2048, 2560)
+    cases.append((f"{dense} rectangles, intensity 255", region_labels(dense, R, seed=19),
+                  np.full(dense, 255, np.uint8), R, 0))
+    shape = (2, 512, 640)
+    cases.append((f"{shape} rectangles", region_labels(shape, 256, seed=20),
+                  rng.integers(0, 256, shape, dtype=np.uint8), 256, 0))
     for imgs in threshold_buckets():
-        cases.append((f"{imgs.shape} threshold crops", (imgs > 50).astype(np.int32), imgs, 2))
+        cases.append((f"{imgs.shape} threshold crops", (imgs > 50).astype(np.int32), imgs, 2, 0))
+    return cases
 
-    worst = {"region_histogram": 0, "regionprops_fused": 0.0}
-    out = {}
-    for where, lab_np, img_np, r in cases:
-        lab, img = torch.from_numpy(lab_np).to(dev), torch.from_numpy(np.ascontiguousarray(img_np)).to(dev)
-        hist = rh.region_histogram(lab, img, r)
-        e = max_err(hist, rh.region_histogram_plain(lab, img, r))
-        check(e == 0, f"region_histogram differs from its plain version at {where} by {e}")
-        got = rf.region_props_partials(lab, img, r)
-        ref = plain_partials(lab, img, r)
-        check(torch.equal(got[0][..., 2:], ref[0]), f"K7 intensity sums differ at {where}")
-        for name, a, b in zip(("rowcnt", "rowsumx", "rowminx", "rowmaxx", "colcnt"), got[1:], ref[1:]):
-            check(torch.equal(a, b), f"K7 {name} differs at {where}")
+
+PARTIAL_NAMES = ("sums", "rowcnt", "rowsumx", "rowminx", "rowmaxx", "colcnt")
+
+
+def check_region_kernel(lab, img, r: int, where: str) -> None:
+    """The region-measurement kernel's partials and histogram against their
+    plain versions, bit for bit, and the same bits in a second launch; the
+    histogram alone (``region_histogram``) too."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops import region_histogram as rh
+    from maze_image_processing_pipeline_tpu_torch.ops import regionprops_fused as rf
+
+    got = rf.region_props_partials(lab, img, r)
+    again = rf.region_props_partials(lab, img, r)
+    ref = rf.region_props_partials_plain(lab, img, r)
+    for name, a, b, c in zip(PARTIAL_NAMES, got, again, ref):
+        check(torch.equal(a, c), f"the region kernel's {name} differs from the plain version at {where} "
+              f"by {max_err(a, c)}")
+        check(torch.equal(a, b), f"the region kernel's {name} differs between two launches at {where}")
+    if img is not None:
+        hist = rh.region_histogram_plain(lab, img, r)
+        check(torch.equal(got[6].float(), hist), f"the fused histogram differs at {where} by {max_err(got[6], hist)}")
+        check(torch.equal(got[6], again[6]), f"the fused histogram differs between two launches at {where}")
+        alone = rh.region_histogram(lab, img, r)
+        check(torch.equal(alone, hist), f"region_histogram differs at {where} by {max_err(alone, hist)}")
+
+
+def region_timings(lab, img, R: int) -> dict:
+    """CUDA-event times of the fused launch, the histogram alone, the whole
+    ``regionprops_fused`` call and its derivation (the call less the
+    launch), beside the bounds: the fused launch's (labels and intensity
+    read once, partials and histogram written once) and the histogram's
+    alone; the plain versions' and ``bincount``'s (K3's plain version)."""
+    from maze_image_processing_pipeline_tpu_torch.ops import region_histogram as rh
+    from maze_image_processing_pipeline_tpu_torch.ops import regionprops_fused as rf
+
+    B, H, W = lab.shape
+    px = lab.numel()
+    partials_out = B * R * 5 * 8 + 4 * B * H * R * 4 + B * W * R * 4
+    hist_out = B * R * 256 * 4
+    m = dict(fused_ms=cuda_ms(lambda: rf.region_props_partials(lab, img, R)),
+             hist_ms=cuda_ms(lambda: rh.region_histogram(lab, img, R)),
+             call_ms=cuda_ms(lambda: rf.regionprops_fused(lab, img, num_segments=R)),
+             fused_bound_ms=bytes_ms(5 * px + partials_out + hist_out),
+             hist_bound_ms=bytes_ms(5 * px + hist_out),
+             plain_fused_ms=cuda_ms(lambda: (rf.region_props_partials_plain(lab, img, R),
+                                             rh.region_histogram_plain(lab, img, R)), iters=3),
+             plain_call_ms=cuda_ms(lambda: rf.regionprops_fused_plain(lab, img, num_segments=R), iters=3),
+             bincount_ms=cuda_ms(lambda: rh.region_histogram_plain(lab, img, R)))
+    m["derivation_ms"] = m["call_ms"] - m["fused_ms"]
+    return m
+
+
+def phase_region_kernels(dev, main=(8, 1024, 1280)) -> dict:
+    """K3 and K7, one kernel (``csrc/region_measure.cu``), against their
+    plain versions on the card at ``region_cases``: the partials (the
+    perimeter units included) and the histogram bit-exact and the same in
+    two launches, the histogram alone too, the props of ``regionprops_fused``
+    (integers exact, the rest within tolerance) and its options (no
+    intensity, no histogram, no feret). Times at the main shape on the blob
+    frames and at the threshold path's buckets."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops import regionprops_fused as rf
+
+    R = POSTPROCESS.max_regions
+    worst = 0.0
+    times = {}
+    for where, lab_np, img_np, r, offset in region_cases(main):
+        lab, img = on_card(lab_np, dev, offset), on_card(img_np, dev, offset)
+        check_region_kernel(lab, img, r, where)
         kp = rf.regionprops_fused(lab, img, num_segments=r)
         pp = rf.regionprops_fused_plain(lab, img, num_segments=r)
-        worst["regionprops_fused"] = max(worst["regionprops_fused"], compare_props(kp, pp, where))
+        worst = max(worst, compare_props(kp, pp, where))
         if where == f"{(2, 37, 1000)} rectangles":
+            check_region_kernel(lab, None, r, f"{where} without intensity")
             # The wrapper's options that no path of the port uses yet.
             for kw in (dict(intensity=None), dict(compute_histogram=False), dict(n_feret_angles=0)):
                 args = {"intensity": img, "num_segments": r, **kw}
                 compare_props(rf.regionprops_fused(lab, **args), rf.regionprops_fused_plain(lab, **args), f"{where} {kw}")
-            say(f"  {where}: regionprops_fused without intensity, without histogram, without feret within tolerance")
-        say(f"  {where}, R={r}: region_histogram bit-exact; regionprops_fused partials and integer props exact, "
-            f"float props within tolerance; regions present per frame up to {int((kp['area'] > 0).sum(-1).max())}")
-        if where == f"{main} blobs":
-            px = lab.numel()
-            # K7's outputs: (B, R, 5) int64 sums, 4 (B, H, R) and a (B, W, R) int32 partials.
-            k7_out = main[0] * R * 5 * 8 + 4 * main[0] * main[1] * R * 4 + main[0] * main[2] * R * 4
-            hist_out = main[0] * R * 256 * 4
-            out["region_histogram"] = dict(
-                ms=cuda_ms(lambda: rh.region_histogram(lab, img, R)),
-                plain_ms=cuda_ms(lambda: rh.region_histogram_plain(lab, img, R)),
-                bound_ms=bytes_ms(5 * px + hist_out),
-                # The library call is torch.bincount of the joint index built in
-                # the timed region: the plain version itself.
-                library_ms=cuda_ms(lambda: rh.region_histogram_plain(lab, img, R)),
-            )
-            out["regionprops_fused"] = dict(
-                ms=cuda_ms(lambda: rf.region_props_partials(lab, img, R)),
-                wrapper_ms=cuda_ms(lambda: rf.regionprops_fused(lab, img, num_segments=R)),
-                plain_ms=cuda_ms(lambda: rf.regionprops_fused_plain(lab, img, num_segments=R), iters=3),
-                bound_ms=bytes_ms(5 * px + k7_out),
-                wrapper_bound_ms=bytes_ms(5 * px + k7_out + hist_out),
-                library_ms=None,
-            )
-        del lab, img, hist, got, ref, kp, pp
-    for name, m in out.items():
-        m.update(max_abs_err=worst[name], bound_by="bytes")
-        extra = f", whole regionprops_fused call {m['wrapper_ms']:.4f} ms" if "wrapper_ms" in m else ""
-        say(f"  {name} at {main}, R={R}: {m['ms']:.4f} ms{extra}, plain {m['plain_ms']:.4f} ms, "
-            f"bound {m['bound_ms']:.4f} ms" + (f", library {m['library_ms']:.4f} ms" if m["library_ms"] else ""))
-    return out
+            say(f"  {where}: partials without intensity bit-exact; regionprops_fused without intensity, without "
+                f"histogram, without feret within tolerance")
+        say(f"  {where}, R={r}: partials and histogram bit-exact, the same twice, region_histogram bit-exact; "
+            f"props within tolerance; regions present per frame up to {int((kp['area'] > 0).sum(-1).max())}")
+        if where == f"{main} blobs" or where.endswith("threshold crops"):
+            times[where] = m = region_timings(lab, img, r)
+            say(f"  times at {where}, R={r}: fused launch {m['fused_ms']:.4f} ms (bound {m['fused_bound_ms']:.4f}), "
+                f"region_histogram alone {m['hist_ms']:.4f} ms (bound {m['hist_bound_ms']:.4f}), whole "
+                f"regionprops_fused call {m['call_ms']:.4f} ms, its derivation {m['derivation_ms']:.4f} ms; plain "
+                f"partials + histogram {m['plain_fused_ms']:.4f} ms, plain call {m['plain_call_ms']:.4f} ms, "
+                f"bincount {m['bincount_ms']:.4f} ms")
+        del lab, img, kp, pp
+    m = times[f"{main} blobs"]
+    buckets = {k: v for k, v in times.items() if k != f"{main} blobs"}
+    return {
+        "region_histogram": dict(
+            ms=m["hist_ms"], plain_ms=m["bincount_ms"], bound_ms=m["hist_bound_ms"],
+            # The library call is torch.bincount of the joint index built in
+            # the timed region: the plain version itself.
+            library_ms=m["bincount_ms"], max_abs_err=0, bound_by="bytes",
+            at_buckets={k: v["hist_ms"] for k, v in buckets.items()},
+        ),
+        "regionprops_fused": dict(
+            ms=m["fused_ms"], plain_ms=m["plain_fused_ms"], bound_ms=m["fused_bound_ms"], library_ms=None,
+            max_abs_err=0, bound_by="bytes", call_ms=m["call_ms"], derivation_ms=m["derivation_ms"],
+            plain_call_ms=m["plain_call_ms"], props_max_abs_err=worst,
+            at_buckets={k: {n: v[n] for n in ("fused_ms", "call_ms", "derivation_ms", "fused_bound_ms")}
+                        for k, v in buckets.items()},
+        ),
+    }
 
 
 def half_ulp(v, mantissa_bits: int):

@@ -51,8 +51,7 @@ SIGNATURES = {
     "remove_small_objects_launch": [_vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _vp],
     "group_norm_launch": [_vp] * 7 + [_i, _i, _i, _ll, _i, _i, _i, _ll, _i, _f, _vp],
     "group_norm_bwd_launch": [_vp] * 10 + [_i, _i, _i, _ll, _i, _i, _i, _ll, _i, _vp],
-    "region_histogram_launch": [_vp, _vp, _vp, _i, _ll, _i, _vp],
-    "region_props_launch": [_vp] * 8 + [_i, _i, _i, _i, _vp],
+    "region_measure_launch": [_vp] * 7 + [_ll, _i, _i, _i, _i, _vp],
     "anchor_launch": [_vp, _vp, _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _vp],
 }
 

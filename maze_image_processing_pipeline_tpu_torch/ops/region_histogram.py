@@ -1,29 +1,33 @@
 """Per-region 256-bin intensity histograms: the K3 kernel and its plain version.
 
 :func:`region_histogram` counts, for every frame and region id in
-[0, ``num_segments``), the pixels of each intensity value 0..255 (K3,
-``csrc/region_histogram.cu``, which replaces ``region_histogram_pallas`` of
-``attic/pallas_hist.py``). Labels outside [0, ``num_segments``) are not
-counted; intensity is clipped to [0, 255] and truncated, as the Pallas kernel
-does. The region measurement (:mod:`.regionprops_fused`) takes its histograms
-from here.
+[0, ``num_segments``), the pixels of each intensity value 0..255. Labels
+outside [0, ``num_segments``) are not counted; intensity is clipped to
+[0, 255] and truncated, as the Pallas kernel ``region_histogram_pallas`` of
+``attic/pallas_hist.py`` does.
 
-A tensor on the CPU goes through :func:`region_histogram_plain` (one
-``bincount`` of the joint index ``frame·(R+1)·256 + region·256 + bin``); a
-CUDA tensor always launches the kernel, and the wrapper raises if the kernel
-does not take it or does not launch. ``region_histogram.launches`` counts the
-launches.
+On the card the histogram is written by the region-measurement kernel
+(``csrc/region_measure.cu``, K7 and K3 in one pass), which
+:func:`region_measure` launches: here with the histogram alone, from
+:mod:`.regionprops_fused` with the region partials too, in one read of the
+labels and the intensity. A tensor on the CPU goes through
+:func:`region_histogram_plain` (one ``bincount`` of the joint index
+``frame·(R+1)·256 + region·256 + bin``); a CUDA tensor always launches the
+kernel, and the wrapper raises if the kernel does not take it or does not
+launch. ``region_histogram.launches`` counts the kernel's launches that
+write a histogram, this function's and the measurement's.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from .row_scan import _check_cuda, _raise_on
 
-__all__ = ["region_histogram", "region_histogram_plain"]
+__all__ = ["region_histogram", "region_histogram_plain", "region_measure"]
 
 
 def region_histogram_plain(labels: torch.Tensor, intensity: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -71,17 +75,53 @@ def region_histogram(labels: torch.Tensor, intensity: torch.Tensor, num_segments
     H, W = labels.shape[-2:]
     batch_shape = labels.shape[:-2]
     B = math.prod(batch_shape)
-    counts = torch.zeros(batch_shape + (num_segments, 256), dtype=torch.int32, device=labels.device)
-    from .._build import kernels
-
-    with torch.cuda.device(labels.device):
-        stream = torch.cuda.current_stream(labels.device).cuda_stream
-        err = kernels().region_histogram_launch(
-            labels.data_ptr(), intensity.data_ptr(), counts.data_ptr(), B, H * W, num_segments, stream
-        )
-    _raise_on("region_histogram", err)
-    region_histogram.launches += 1
-    return counts.to(torch.float32)
+    _, hist = region_measure(labels.reshape(B, H, W), intensity.reshape(B, H, W), num_segments, partials=False)
+    return hist.to(torch.float32).reshape(batch_shape + (num_segments, 256))
 
 
 region_histogram.launches = 0
+
+
+def region_measure(labels: torch.Tensor, intensity: Optional[torch.Tensor], num_segments: int, partials: bool):
+    """Launch the region-measurement kernel once on contiguous (B, H, W)
+    int32 labels and uint8 intensity (or None) on the card.
+
+    Returns ``(partials, hist)``: with ``partials`` the (B, R, 5) int64 sums
+    (perimeter units n1 and n065, Σ I, Σ I·y, Σ I·x), the (B, H, R) int32
+    row count, x-sum, x-min (W if absent) and x-max (-1 if absent) and the
+    (B, W, R) int32 column count, else None; the (B, R, 256) int32
+    histogram with intensity, else None. Counts the launch on
+    ``region_histogram.launches`` when it writes a histogram; the caller
+    counts the partials.
+    """
+    B, H, W = labels.shape
+    R = num_segments
+    dev = labels.device
+    n_sums = 2 * B * R * 5 if partials else 0  # int64 as int32 pairs, first (8-B aligned)
+    n_col = B * W * R if partials else 0
+    n_hist = B * R * 256 if intensity is not None else 0
+    # The outputs that blocks add to lie in one buffer, with the kernel's B
+    # strip counters last, zeroed by its launcher (one memset) or by the
+    # blocks themselves.
+    zero = torch.empty(n_sums + n_col + n_hist + B, dtype=torch.int32, device=dev)
+    hist = zero[n_sums + n_col : n_sums + n_col + n_hist].view(B, R, 256) if n_hist else None
+    sums = rows = colcnt = None
+    if partials:
+        sums = zero[:n_sums].view(torch.int64).view(B, R, 5)
+        rows = torch.empty((4, B, H, R), dtype=torch.int32, device=dev)
+        colcnt = zero[n_sums : n_sums + n_col].view(B, W, R)
+    from .._build import kernels
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = kernels().region_measure_launch(
+            labels.data_ptr(), ptr(intensity), ptr(sums), ptr(rows), ptr(colcnt), ptr(hist),
+            zero.data_ptr(), 4 * zero.numel(), B, H, W, R, stream,
+        )
+    _raise_on("region_measure", err)
+    if hist is not None:
+        region_histogram.launches += 1
+    return ((sums, *rows, colcnt) if partials else None), hist

@@ -9,13 +9,16 @@ the centroids and the separable second moments; the row x-extremes give the
 feret diameter; the histogram gives the intensity moments and extremes.
 Labels at or above ``num_segments`` are not measured.
 
-On a CUDA tensor :func:`regionprops_fused` computes the partials with the K7
-kernel (``csrc/region_props.cu``, replacing ``regionprops_fused_pallas`` of
-``attic/pallas_props.py``) and the histogram with the K3 kernel
-(:func:`.region_histogram.region_histogram`); it takes uint8 intensity only,
-and raises if a kernel does not take its input or does not launch. On the
-CPU it runs :func:`regionprops_fused_plain`, which scatters per pixel and is
-the kernels' oracle. ``regionprops_fused.launches`` counts K7's launches.
+On a CUDA tensor :func:`regionprops_fused` computes the partials and the
+histogram with one launch of the region-measurement kernel
+(``csrc/region_measure.cu``: K7, replacing ``regionprops_fused_pallas`` of
+``attic/pallas_props.py``, and K3, replacing ``region_histogram_pallas`` of
+``attic/pallas_hist.py``, in one read of the labels and the intensity); it
+takes uint8 intensity only, and raises if the kernel does not take its input
+or does not launch. On the CPU it runs :func:`regionprops_fused_plain`,
+which scatters per pixel; :func:`region_props_partials_plain` gives the
+kernel's partials the same way (its oracle). ``regionprops_fused.launches``
+counts the kernel's launches that write the partials.
 
 Integer results (counts, areas, bounding boxes, histograms, intensity sums
 and extremes) are exact on both routes, and so is the perimeter: each 2×2
@@ -32,18 +35,34 @@ rounding.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
 import torch
 
-from .region_histogram import region_histogram, region_histogram_plain
+from .region_histogram import region_histogram_plain, region_measure
 from .regionprops import marching_squares_length
 from .row_scan import _check_cuda, _raise_on
 
-__all__ = ["regionprops_fused", "regionprops_fused_plain", "region_props_partials", "feret_from_row_extremes"]
+__all__ = [
+    "regionprops_fused",
+    "regionprops_fused_plain",
+    "region_props_partials",
+    "region_props_partials_plain",
+    "feret_from_row_extremes",
+]
 
 _F32, _F64 = torch.float32, torch.float64
+
+
+@functools.lru_cache(maxsize=None)
+def _directions(n_angles: int, dev: torch.device):
+    """float32 cos and sin of the feret sweep's angles k·π/n on ``dev``,
+    copied there once (a copy from the host synchronises with the card)."""
+    angles = [k * math.pi / n_angles for k in range(n_angles)]
+    return (torch.tensor([math.cos(a) for a in angles], dtype=torch.float32, device=dev),
+            torch.tensor([math.sin(a) for a in angles], dtype=torch.float32, device=dev))
 
 
 def feret_from_row_extremes(
@@ -71,9 +90,7 @@ def feret_from_row_extremes(
     hh = torch.arange(H, dtype=torch.float32, device=dev)[:, None, None]
     # All angles at once on a trailing axis: a few large launches, not a
     # dozen small ones per angle.
-    angles = [k * math.pi / n_angles for k in range(n_angles)]
-    c = torch.tensor([math.cos(a) for a in angles], dtype=torch.float32, device=dev)
-    s = torch.tensor([math.sin(a) for a in angles], dtype=torch.float32, device=dev)
+    c, s = _directions(n_angles, dev)
     p1 = hh * c + rowminx[..., None] * s
     p2 = hh * c + rowmaxx[..., None] * s
     present = row_present[..., None]
@@ -82,10 +99,10 @@ def feret_from_row_extremes(
     return (hi - lo).amax(dim=-1) + 1.0
 
 
-def _per_pixel_perimeter(fg: torch.Tensor) -> torch.Tensor:
-    """Each 2×2 block's contour length, given to its raster-last fg corner
-    (float64: the sum of a pixel's blocks is exact)."""
-    block_len = marching_squares_length(fg).to(_F64)  # (B, H+1, W+1)
+def _to_last_corner(fg: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """Each 2×2 block's value (``block``: (B, H+1, W+1), the blocks of the
+    zero-padded (B, H, W) mask ``fg``) given to its raster-last foreground
+    corner: (B, H, W)."""
     m = torch.nn.functional.pad(fg.to(torch.int32), (1, 1, 1, 1)).bool()
     a = m[..., :-1, :-1]
     b = m[..., :-1, 1:]
@@ -95,14 +112,33 @@ def _per_pixel_perimeter(fg: torch.Tensor) -> torch.Tensor:
     to_c = c & ~d
     to_b = b & ~c & ~d
     to_a = a & ~b & ~c & ~d
-    zero = torch.zeros((), dtype=_F64, device=fg.device)
+    zero = torch.zeros((), dtype=block.dtype, device=fg.device)
     # Block (i, j) corners: a=(i-1, j-1) b=(i-1, j) c=(i, j-1) d=(i, j).
-    out = torch.zeros(fg.shape, dtype=_F64, device=fg.device)
-    out = out + torch.where(to_d, block_len, zero)[..., :-1, :-1]
-    out = out + torch.where(to_c, block_len, zero)[..., :-1, 1:]
-    out = out + torch.where(to_b, block_len, zero)[..., 1:, :-1]
-    out = out + torch.where(to_a, block_len, zero)[..., 1:, 1:]
+    out = torch.zeros(fg.shape, dtype=block.dtype, device=fg.device)
+    out = out + torch.where(to_d, block, zero)[..., :-1, :-1]
+    out = out + torch.where(to_c, block, zero)[..., :-1, 1:]
+    out = out + torch.where(to_b, block, zero)[..., 1:, :-1]
+    out = out + torch.where(to_a, block, zero)[..., 1:, 1:]
     return out
+
+
+def _per_pixel_perimeter(fg: torch.Tensor) -> torch.Tensor:
+    """Each 2×2 block's contour length, given to its raster-last fg corner
+    (float64: the sum of a pixel's blocks is exact)."""
+    return _to_last_corner(fg, marching_squares_length(fg).to(_F64))
+
+
+def _perimeter_units(fg: torch.Tensor):
+    """The kernel's count of :func:`_per_pixel_perimeter`: per pixel, the
+    int64 number of its blocks of length 1 (n1) and of 0.65-units (n065; a
+    diagonal pair, 1.3, is two)."""
+    m = torch.nn.functional.pad(fg.to(torch.int64), (1, 1, 1, 1))
+    a, b, c, d = m[..., :-1, :-1], m[..., :-1, 1:], m[..., 1:, :-1], m[..., 1:, 1:]
+    count = a + b + c + d
+    diagonal = (count == 2) & (a == d)
+    n1 = ((count == 2) & ~diagonal).long()
+    n065 = ((count == 1) | (count == 3)).long() + 2 * diagonal.long()
+    return _to_last_corner(fg, n1), _to_last_corner(fg, n065)
 
 
 def _shape_props(rowcnt, colcnt, cy, cx, mu11, perim) -> Dict[str, torch.Tensor]:
@@ -351,35 +387,48 @@ def regionprops_fused(
     H, W = labels.shape[-2:]
     B = math.prod(batch_shape)
     labels, intensity = labels.reshape(B, H, W), None if intensity is None else intensity.reshape(B, H, W)
-    partials = region_props_partials(labels, intensity, num_segments)
-    hist = None if intensity is None else region_histogram(labels, intensity, num_segments)
+    *partials, hist = region_props_partials(labels, intensity, num_segments)
+    hist = None if hist is None else hist.to(_F32)
     props = _props_from_partials(*partials, hist, compute_histogram, n_feret_angles)
     return {k: v.reshape(batch_shape + v.shape[1:]) for k, v in props.items()}
 
 
 def region_props_partials(labels: torch.Tensor, intensity: Optional[torch.Tensor], num_segments: int):
-    """Launch K7 on contiguous (B, H, W) int32 labels and uint8 intensity (or
-    None) on the card: returns the (B, R, 5) int64 sums (perimeter units n1
-    and n065, Σ I, Σ I·y, Σ I·x), the (B, H, R) int32 row count, x-sum,
-    x-min (W if absent) and x-max (-1 if absent), and the (B, W, R) int32
-    column count."""
-    B, H, W = labels.shape
-    R = num_segments
-    dev = labels.device
-    sums = torch.zeros((B, R, 5), dtype=torch.int64, device=dev)
-    rows = torch.empty((4, B, H, R), dtype=torch.int32, device=dev)
-    colcnt = torch.zeros((B, W, R), dtype=torch.int32, device=dev)
-    from .._build import kernels
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = kernels().region_props_launch(
-            labels.data_ptr(), 0 if intensity is None else intensity.data_ptr(), sums.data_ptr(),
-            *(r.data_ptr() for r in rows), colcnt.data_ptr(), B, H, W, R, stream,
-        )
-    _raise_on("regionprops_fused", err)
+    """One launch of the region-measurement kernel on contiguous (B, H, W)
+    int32 labels and uint8 intensity (or None) on the card: returns the
+    partials of :func:`region_props_partials_plain` and the (B, R, 256)
+    int32 histogram (None without intensity)."""
+    partials, hist = region_measure(labels, intensity, num_segments, partials=True)
     regionprops_fused.launches += 1
-    return (sums, *rows, colcnt)
+    return (*partials, hist)
 
 
 regionprops_fused.launches = 0
+
+
+def region_props_partials_plain(labels: torch.Tensor, intensity: Optional[torch.Tensor], num_segments: int):
+    """Plain version of the kernel's partials, by scatters, on (B, H, W)
+    labels and intensity (or None): the (B, R, 5) int64 sums (perimeter
+    units n1 and n065, Σ I, Σ I·y, Σ I·x; the last three 0 without
+    intensity), the (B, H, R) int32 row count, x-sum, x-min (W if absent)
+    and x-max (-1 if absent), and the (B, W, R) int32 column count."""
+    B, H, W = labels.shape
+    R = num_segments
+    dev = labels.device
+    lab = labels.long()
+    seg = torch.where((lab >= 0) & (lab < R), lab, R)
+    flat = seg.reshape(B, -1)
+    yy = torch.arange(H, device=dev)[:, None].expand(B, H, W)
+    xx = torch.arange(W, device=dev)[None, :].expand(B, H, W).contiguous()
+    iv = torch.zeros_like(lab) if intensity is None else intensity.long()
+    sums = torch.zeros(B, R + 1, 5, dtype=torch.int64, device=dev)
+    for k, v in enumerate((*_perimeter_units(lab > 0), iv, iv * yy, iv * xx)):
+        sums[..., k].scatter_add_(1, flat, v.reshape(B, -1))
+    ones = torch.ones_like(seg)
+    rowcnt = torch.zeros(B, H, R + 1, dtype=torch.int64, device=dev).scatter_add_(2, seg, ones)
+    rowsumx = torch.zeros_like(rowcnt).scatter_add_(2, seg, xx)
+    rowminx = torch.full_like(rowcnt, W).scatter_reduce(2, seg, xx, reduce="amin")
+    rowmaxx = torch.full_like(rowcnt, -1).scatter_reduce(2, seg, xx, reduce="amax")
+    colcnt = torch.zeros(B, W, R + 1, dtype=torch.int64, device=dev)
+    colcnt.scatter_add_(2, seg.transpose(1, 2).contiguous(), ones.transpose(1, 2))
+    return (sums[:, :R],) + tuple(t[..., :R].int() for t in (rowcnt, rowsumx, rowminx, rowmaxx, colcnt))

@@ -1,5 +1,9 @@
 """K3 (region histogram) and K7 (fused region measurement) of the PyTorch port.
 
+On the card both are one kernel (``csrc/region_measure.cu``): one launch
+reads the labels and the intensity once and writes K7's partials and K3's
+histogram.
+
 * K3's plain version (``ops/region_histogram.py:region_histogram_plain``) is
   held, bit for bit, against the TPU kernel ``region_histogram_pallas`` in
   interpret mode (``attic/pallas_hist.py``), with and without its
@@ -10,15 +14,20 @@
   (``attic/pallas_props.py``) on the regions present, at the tolerance of
   ``tests/test_attic_kernels.py``: integers exact, the rest within rtol 2e-3
   / atol 2e-2 (the Pallas kernel sums in float32), the orientation modulo pi.
-* The kernel route's derivation (``_props_from_partials``), fed the partials
-  K7 computes (here by numpy, with the kernel's perimeter-unit count), gives
-  the plain version's props: exact, the perimeter included.
+* The plain version of the kernel's partials
+  (``region_props_partials_plain``, the perimeter units included), through
+  the kernel route's derivation (``_props_from_partials``) with K3's plain
+  histogram, gives the plain version's props exactly, and the Pallas
+  kernel's at that tolerance; its perimeter units are the per-pixel
+  perimeter's.
 * The wrappers take the plain versions for CPU tensors and refuse, on any
-  other device, what the kernels do not take. The kernels themselves run on
-  the card (tests marked ``cuda``, at phase 2's shapes and with the
-  wrapper's options: no intensity, no histogram, no feret;
-  ``python3 chip_smoke.py`` phase 2).
+  other device, what the kernels do not take. The kernel itself runs on the
+  card (tests marked ``cuda``: partials and histogram bit-exact against the
+  plain versions and the same twice, one launch a call, no host
+  synchronisation; ``python3 chip_smoke.py`` phase 2).
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -84,14 +93,13 @@ PALLAS_EXACT = {"area", "min_row", "max_row", "min_col", "max_col", "histogram",
                 "intensity_max", "intensity_sum"}
 
 
-@pytest.mark.parametrize("shape,R", [((2, 24, 64), 16), ((1, 19, 40), 8)])
-def test_regionprops_fused_plain_matches_pallas(shape, R):
-    lab, img = _scene(shape, R, seed=4)
-    ours = rf.regionprops_fused_plain(torch.from_numpy(lab), torch.from_numpy(img), num_segments=R)
-    ref = regionprops_fused_pallas(jnp.asarray(lab), jnp.asarray(img), num_segments=R, interpret=True)
+def _assert_matches_pallas(ours, ref, lab, R):
+    """``ours`` against the Pallas kernel's props on the regions present
+    (1..max id of each frame): integers exact, the rest at the tolerance of
+    tests/test_attic_kernels.py, the orientation modulo pi."""
     assert set(ours) == set(ref)
     n = lab.reshape(len(lab), -1).max(-1)
-    assert (n < R).all() and n.min() > 1
+    assert (n < R).all() and n.min() >= 1
     for k in ref:
         for b in range(len(lab)):
             o, r = ours[k].numpy()[b, 1 : n[b] + 1], np.asarray(ref[k])[b, 1 : n[b] + 1]
@@ -102,8 +110,65 @@ def test_regionprops_fused_plain_matches_pallas(shape, R):
                 assert (np.minimum(d, np.pi - d) < 2e-2).all(), k
             else:
                 np.testing.assert_allclose(o, r, rtol=2e-3, atol=2e-2, err_msg=k)
+
+
+@pytest.mark.parametrize("shape,R", [((2, 24, 64), 16), ((1, 19, 40), 8)])
+def test_regionprops_fused_plain_matches_pallas(shape, R):
+    lab, img = _scene(shape, R, seed=4)
+    ours = rf.regionprops_fused_plain(torch.from_numpy(lab), torch.from_numpy(img), num_segments=R)
+    ref = regionprops_fused_pallas(jnp.asarray(lab), jnp.asarray(img), num_segments=R, interpret=True)
+    assert lab.reshape(len(lab), -1).max(-1).min() > 1
+    _assert_matches_pallas(ours, ref, lab, R)
     wrapped = rf.regionprops_fused(torch.from_numpy(lab), torch.from_numpy(img), num_segments=R)
     assert all(torch.equal(wrapped[k], ours[k]) for k in ours)
+
+
+def _threshold_crops(shape, seed):
+    """Crops as the threshold path measures them: a bright disc on dark
+    noise, zero padded; labels ``intensity > 50`` (region 1)."""
+    rng = np.random.default_rng(seed)
+    N, H, W = shape
+    img = np.zeros(shape, np.uint8)
+    yy, xx = np.mgrid[:H, :W]
+    for i in range(N):
+        h, w = int(rng.integers(H // 2, H + 1)), int(rng.integers(W // 2, W + 1))
+        img[i, :h, :w] = rng.integers(0, 40, (h, w))
+        disc = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 <= (min(h, w) / 3) ** 2
+        img[i][disc] = rng.integers(120, 250)
+    return (img > 50).astype(np.int32), img
+
+
+PARTIAL_CASES = {
+    "(2, 24, 64), R=16": lambda: (*_scene((2, 24, 64), 16, seed=11), 16),
+    "ragged (1, 19, 37), R=8": lambda: (*_scene((1, 19, 37), 8, seed=12), 8),
+    "H=1 (3, 1, 40), R=8": lambda: (np.array([[[0, 1, 1, 0, 2] * 8]] * 3, np.int32),
+                                    np.random.default_rng(13).integers(0, 256, (3, 1, 40)).astype(np.uint8), 8),
+    "threshold crops (4, 16, 32), R=2": lambda: (*_threshold_crops((4, 16, 32), seed=14), 2),
+}
+
+
+@pytest.mark.parametrize("case", list(PARTIAL_CASES))
+def test_partials_plain_props_match_pallas(case):
+    lab, img, R = PARTIAL_CASES[case]()
+    labels, inten = torch.from_numpy(lab), torch.from_numpy(img)
+    partials = rf.region_props_partials_plain(labels, inten, R)
+    ours = rf._props_from_partials(*partials, rh.region_histogram_plain(labels, inten, R), True, 16)
+    ref = regionprops_fused_pallas(jnp.asarray(lab), jnp.asarray(img), num_segments=R, interpret=True)
+    _assert_matches_pallas(ours, ref, lab, R)
+
+
+def test_perimeter_units_sum_to_the_per_pixel_perimeter():
+    R = 8
+    lab, _ = _scene((3, 17, 33), R, seed=15, beyond=True, negative=True)
+    labels = torch.from_numpy(lab)
+    sums = rf.region_props_partials_plain(labels, None, R)[0]
+    units = sums[..., 0].double() + sums[..., 1].double() * rf._CUT
+    seg = torch.where((labels >= 0) & (labels < R), labels, R).long().reshape(len(lab), -1)
+    ref = torch.zeros(len(lab), R + 1, dtype=torch.float64)
+    ref.scatter_add_(1, seg, rf._per_pixel_perimeter(labels > 0).reshape(len(lab), -1))
+    np.testing.assert_array_equal(units.numpy(), ref[:, :R].numpy())
+    assert units[:, 1:].max() > 0
+    assert (sums[..., 2:] == 0).all()  # no intensity: no intensity sums
 
 
 def _perimeter_units(lab):
@@ -134,14 +199,15 @@ def test_kernel_route_derivation_matches_plain(with_intensity, compute_histogram
     R = 8
     lab, img = _scene((3, 17, 33), R, seed=5, beyond=True, negative=True)
     labels, inten = torch.from_numpy(lab), torch.from_numpy(img)
-    partials = chip_smoke.plain_partials(labels, inten, R)
+    partials = rf.region_props_partials_plain(labels, inten if with_intensity else None, R)
+    # Its perimeter units are the count made here by numpy.
     seg = torch.from_numpy(np.where((lab >= 0) & (lab < R), lab, R)).long().reshape(len(lab), -1)
     units = torch.zeros(len(lab), R + 1, 2, dtype=torch.int64)
     for k, u in enumerate(_perimeter_units(lab)):
         units[..., k].scatter_add_(1, seg, torch.from_numpy(u).reshape(len(lab), -1))
-    sums = torch.cat([units[:, :R], partials[0]], dim=-1)
+    assert torch.equal(partials[0][..., :2], units[:, :R])
     hist = rh.region_histogram_plain(labels, inten, R) if with_intensity else None
-    ours = rf._props_from_partials(sums, *partials[1:], hist, compute_histogram, 16)
+    ours = rf._props_from_partials(*partials, hist, compute_histogram, 16)
     ref = rf.regionprops_fused_plain(labels, inten if with_intensity else None, num_segments=R,
                                      compute_histogram=compute_histogram)
     # Without the histogram the plain version takes integer intensity's
@@ -216,3 +282,70 @@ def test_cuda_kernel_options_match_plain(option):
     img = torch.from_numpy(np.random.default_rng(9).integers(0, 256, shape, dtype=np.uint8)).to(dev)
     args = {"intensity": img, "num_segments": R, **option}
     chip_smoke.compare_props(rf.regionprops_fused(lab, **args), rf.regionprops_fused_plain(lab, **args), str(option))
+
+
+# The kernel's cases of chip_smoke.py phase 2 (loki's shape on blob,
+# serpentine, rectangle, all-background and one-region frames, ids beyond R
+# and negative ids; ragged widths and heights; rows not 16-B aligned; the
+# dense haul's width with intensity 255; R = 256; the threshold buckets),
+# by name.
+@functools.lru_cache(maxsize=1)
+def _region_cases():
+    return {c[0]: c for c in chip_smoke.region_cases()}
+
+
+def _region_case(where):
+    return _region_cases()[where]
+
+
+REGION_CASE_NAMES = [
+    "(8, 1024, 1280) blobs", "(8, 1024, 1280) serpentine", "(8, 1024, 1280) rectangles",
+    "(8, 1024, 1280) background", "(8, 1024, 1280) one region", "(8, 1024, 1280) blobs, ids beyond R and negative",
+    "(8, 1024, 1) rectangles", "(8, 1, 1280) rectangles", "(2, 37, 1000) rectangles", "(2, 96, 1277) rectangles",
+    "(4, 64, 37) rectangles", "(2, 96, 1280) rectangles, rows not 16-B aligned",
+    "(2, 2048, 2560) rectangles, intensity 255", "(2, 512, 640) rectangles",
+    "(256, 64, 128) threshold crops", "(8, 512, 512) threshold crops",
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", REGION_CASE_NAMES)
+def test_cuda_region_kernel_bit_exact(where):
+    dev = _card()
+    _, lab_np, img_np, R, offset = _region_case(where)
+    lab, img = chip_smoke.on_card(lab_np, dev, offset), chip_smoke.on_card(img_np, dev, offset)
+    chip_smoke.check_region_kernel(lab, img, R, where)
+    chip_smoke.check_region_kernel(lab, None, R, f"{where} without intensity")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_regionprops_fused_is_one_launch_without_host_sync():
+    dev = _card()
+    _, lab_np, img_np, R, _ = _region_case("(8, 1024, 1280) blobs")
+    lab, img = torch.from_numpy(lab_np).to(dev), torch.from_numpy(img_np).to(dev)
+    rf.regionprops_fused(lab, img, num_segments=R)  # builds the kernels, warms the allocator
+    torch.cuda.synchronize()
+    n3, n7 = rh.region_histogram.launches, rf.regionprops_fused.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        props = rf.regionprops_fused(lab, img, num_segments=R)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # One launch that writes both the partials and the histogram.
+    assert (rh.region_histogram.launches, rf.regionprops_fused.launches) == (n3 + 1, n7 + 1)
+    chip_smoke.compare_props(props, rf.regionprops_fused_plain(lab, img, num_segments=R), "sync-debug run")
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_on_what_the_kernel_refuses():
+    dev = _card()
+    lab = torch.zeros(1, 4, 5, dtype=torch.int32, device=dev)
+    img = torch.zeros(1, 4, 5, dtype=torch.uint8, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rf.regionprops_fused(lab, img, num_segments=1 << 15)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rh.region_histogram(lab, img, 1 << 15)
+    wide = torch.zeros(1, 1, (1 << 16) + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rf.regionprops_fused(wide, None, num_segments=4)
