@@ -43,16 +43,23 @@ csrc`` and runs, one line of output per phase:
    the first shape and the buckets;
    K5 ``group_norm`` at the path's shapes (16, 32, 1024, 1024) (loki level
    0), (64, 32, 256, 256) (semseg level 0) and (256, 32, 128, 128)
-   (classifier stage 1) and at odd shapes ((3, 16, 5, 7), C = 512, H·W not
-   a multiple of 8), NCHW and channels_last, float32 within rtol 1e-5 /
-   atol 1e-5, bfloat16 and float16 within one ulp, with ``F.group_norm``'s
-   time beside it; the layouts the U-Net and the classifier feed their
-   norms are printed; K6 ``group_norm_bwd`` at the train step's shapes
-   (8, 32, 512, 512) … (8, 512, 32, 32) and at odd shapes, NCHW and
-   channels_last, float32, bfloat16 and float16: dx within rtol 1e-4 plus
-   1e-5 of its largest magnitude (float32) or one ulp, dweight and dbias
-   within the float32 tolerance, the same bits twice; with the plain
-   version's and ``native_group_norm_backward``'s times beside it;
+   (classifier stage 1), the train step's, the distillation's (8, 32, 128,
+   128) … (8, 512, 8, 8) and odd shapes ((3, 16, 5, 7), C = 512, H·W not
+   a multiple of 8, C = 2600: a channels_last pixel of more vectors than a
+   block has threads), NCHW and channels_last, float32 within rtol 1e-5 /
+   atol 1e-5, bfloat16 and float16 within one ulp, the same bits twice,
+   each shape's mode (one read or two passes) printed, with
+   ``F.group_norm``'s time beside it; the layouts the U-Net and the
+   classifier feed their norms are printed; K6 ``group_norm_bwd`` at the
+   train step's shapes (8, 32, 512, 512) … (8, 512, 32, 32), the
+   distillation's and odd shapes, NCHW and channels_last, float32,
+   bfloat16 and float16: dx within rtol 1e-4 plus 1e-5 of its largest
+   magnitude (float32) or one ulp, dweight and dbias within the float32
+   tolerance, the same bits twice; with the plain version's and
+   ``native_group_norm_backward``'s times beside it; one device operation
+   (one kernel, no memset) a K5 and a K6 call at the path's, the train
+   step's and the distillation's shapes (``tools/norm_ops.py`` under
+   ``torch.profiler``, in a process of its own);
    K9 ``anchor`` bit-exact at (8, 1024, 1024) and (8, 2048, 2560) bool,
    (8, 1023, 1277) and (1, 1, 1), contiguous, transposed and sliced views,
    bool, uint8, int32 and float32, with ``Tensor.clone()``'s and the
@@ -113,8 +120,9 @@ csrc`` and runs, one line of output per phase:
    batch 64 of 256², ``bce_loss``, three steps; ``UNet(1, 8, 2)``
    float32's first-step loss and gradients card against CPU (TF32 off);
    a ``UNet(1, 32, 4)`` bf16 distilled by ``fit`` for 200 steps of
-   ``tools/bench_e2e.py``'s batches, saved by ``save_model``, then phase
-   6's task on it: at least 432 of the 480 planted objects; the
+   ``synth.vignette_batches`` (tiles like phase 6's stitched frames),
+   saved by ``save_model``, then phase 6's task on it: at least 432 of the
+   480 planted objects; the
    full-width step after ``save_checkpoint`` / ``restore_checkpoint``
    (AdamW's step counters on the CPU), fresh and resumed steps in turns,
    the resumed no slower beyond the fresh blocks' spread;
@@ -161,6 +169,7 @@ from maze_image_processing_pipeline_tpu_torch.tools.synth import (  # noqa: F401
     make_crop_archive,
     make_loki_tree,
     make_taxonomy_files,
+    vignette_batches,
     write_classifier,
     write_unet,
 )
@@ -211,6 +220,10 @@ GN_SHAPES = ((16, 32, 1024, 1024), (64, 32, 256, 256), (256, 32, 128, 128))
 # 8 of 512²): 4 norms at each of the first four, 2 at the last.
 GN_TRAIN_SHAPES = ((8, 32, 512, 512), (8, 64, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64), (8, 512, 32, 32))
 GN_TRAIN_NORMS = (4, 4, 4, 4, 2)
+# The norms' (B, C, H, W) of the haul's distillation (`fit` of UNet(1, 32, 4)
+# on tools/bench_e2e.py's DISTILL_SHAPE (8, 128, 128, 3)), where phase 11
+# launches K5 and K6 thousands of times.
+GN_DISTILL_SHAPES = ((8, 32, 128, 128), (8, 64, 64, 64), (8, 128, 32, 32), (8, 256, 16, 16), (8, 512, 8, 8))
 
 # Frame-chain and segmentation settings of the end-to-end benchmark's loki
 # stage (tools/bench_e2e.py): postprocess min_area 30, closing radius 2; the
@@ -791,20 +804,36 @@ def norm_layouts(dev) -> str:
     return "; ".join(out)
 
 
+def norm_times(fn, plain, library, bound: float) -> dict:
+    """A GroupNorm kernel's times: CUDA events around host-paced calls
+    (``ms``), the device time with the queue kept full (``queued_ms``), the
+    plain version's and the library call's, and the bound."""
+    return dict(ms=cuda_ms(fn, iters=10), queued_ms=queued_ms(fn, iters=20), plain_ms=cuda_ms(plain, iters=3),
+                library_ms=cuda_ms(library, iters=10), bound_ms=bound)
+
+
+def say_times(t: dict, library: str) -> str:
+    return (f"; {t['ms']:.4f} ms (queue full {t['queued_ms']:.4f}), plain {t['plain_ms']:.4f} ms, {library} "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+
+
 def phase_group_norm(dev) -> dict:
-    """K5 against its plain version on the card at the inference path's and
-    the train step's shapes and odd shapes, both layouts, float32, bfloat16
-    and float16 (a task may ask for any of them): y within 1e-5 (float32)
-    or one 16-bit ulp, and the mean and rstd it saves for the backward (K6)
-    within rtol 1e-5 / atol 1e-5 of ``group_stats_plain``'s. Times at the
-    inference path's shapes in bfloat16."""
+    """K5 against its plain version on the card at the inference path's,
+    the train step's and the distillation's shapes and odd shapes, both
+    layouts, float32, bfloat16 and float16 (a task may ask for any of
+    them): y within 1e-5 (float32) or one 16-bit ulp, the same bits from
+    two calls, and the mean and rstd it saves for the backward (K6) within
+    rtol 1e-5 / atol 1e-5 of ``group_stats_plain``'s. Each shape's mode
+    (one read or two passes, ``layers.group_norm_plan``) is printed. Times
+    at the inference path's and the distillation's shapes in bfloat16."""
     import torch
     import torch.nn.functional as F
 
     from maze_image_processing_pipeline_tpu_torch.models import layers
 
     gen = torch.Generator(device=dev).manual_seed(11)
-    shapes = list(GN_SHAPES) + list(GN_TRAIN_SHAPES) + [(3, 16, 5, 7), (4, 512, 9, 11), (8, 32, 30, 31)]
+    shapes = (list(GN_SHAPES) + list(GN_TRAIN_SHAPES) + list(GN_DISTILL_SHAPES)
+              + [(3, 16, 5, 7), (4, 512, 9, 11), (8, 32, 30, 31), (2, 2600, 4, 4)])
     mantissa = {torch.bfloat16: 7, torch.float16: 10}
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0, torch.float16: 0.0}
     times = {}
@@ -820,12 +849,15 @@ def phase_group_norm(dev) -> dict:
                 if layout == "channels_last":
                     x = x.contiguous(memory_format=torch.channels_last)
                 y, stats = layers._group_norm_forward(x, w, b, G, 1e-6)
+                y2, stats2 = layers._group_norm_forward(x, w, b, G, 1e-6)
                 ref = layers.group_norm_plain(x, w, b, G)
                 ref_stats = layers.group_stats_plain(x, G)
                 torch.cuda.synchronize()
-                check(y.stride() == x.stride(), f"group_norm changed the layout at {shape} {layout}")
+                where = f"{shape} {str(dtype)[6:]} {layout}"
+                check(y.stride() == x.stride(), f"group_norm changed the layout at {where}")
+                check(torch.equal(y, y2) and torch.equal(stats, stats2), f"group_norm not deterministic at {where}")
                 check(torch.allclose(stats, ref_stats, rtol=1e-5, atol=1e-5),
-                      f"group_norm's saved statistics differ from the plain ones at {shape} {dtype} {layout} by "
+                      f"group_norm's saved statistics differ from the plain ones at {where} by "
                       f"{float((stats - ref_stats).abs().max()):.3g}")
                 err = float((y.float() - ref.float()).abs().max())
                 worst[dtype] = max(worst[dtype], err)
@@ -836,23 +868,37 @@ def phase_group_norm(dev) -> dict:
                     ok = bool(((y.float() - ref.float()).abs() <= half_ulp(ref.float(), mantissa[dtype])).all())
                     detail = f"{int((y != ref).sum())} of {y.numel()} elements differ by one ulp"
                 if not ok:
-                    raise AssertionError(f"group_norm differs from its plain version at {shape} {dtype} {layout}")
-                if shape in GN_SHAPES and dtype == torch.bfloat16:
-                    times[(shape, layout)] = dict(
-                        ms=cuda_ms(lambda: layers.group_norm(x, w, b, G), iters=10),
-                        plain_ms=cuda_ms(lambda: layers.group_norm_plain(x, w, b, G), iters=3),
-                        library_ms=cuda_ms(lambda: F.group_norm(x, G, w.to(dtype), b.to(dtype), eps=1e-6), iters=10),
-                        bound_ms=bound_ms("group_norm", x.numel()),
-                    )
-                    t = times[(shape, layout)]
-                    detail += (f"; {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, F.group_norm "
-                               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
-                say(f"  {shape} {str(dtype)[6:]} {layout}: group_norm and its statistics within tolerance, {detail}")
-                del x, y, ref, stats, ref_stats
+                    raise AssertionError(f"group_norm differs from its plain version at {where}")
+                if shape in GN_SHAPES + GN_DISTILL_SHAPES and dtype == torch.bfloat16:
+                    t = times[(shape, layout)] = norm_times(
+                        lambda: layers.group_norm(x, w, b, G), lambda: layers.group_norm_plain(x, w, b, G),
+                        lambda: F.group_norm(x, G, w.to(dtype), b.to(dtype), eps=1e-6),
+                        bound_ms("group_norm", x.numel()))
+                    detail += say_times(t, "F.group_norm")
+                say(f"  {where}: group_norm ({layers.group_norm_plan(x, G).mode}) and its statistics within "
+                    f"tolerance, the same bits twice, {detail}")
+                del x, y, y2, ref, stats, stats2, ref_stats
         del base
     say(f"  group_norm feeds: {norm_layouts(dev)}")
     main = times[(GN_SHAPES[0], "channels_last")]
     return {"group_norm": dict(main, max_abs_err=worst[torch.bfloat16], bound_by="bytes")}
+
+
+def phase_norm_ops() -> None:
+    """The device operations of one K5 and one K6 call at the path's, the
+    train step's and the distillation's shapes, both layouts
+    (``tools/norm_ops.py`` under ``torch.profiler``, in a process of its
+    own): each must be one kernel, with no memset or copy."""
+    out = subprocess.run([sys.executable, "-m", "maze_image_processing_pipeline_tpu_torch.tools.norm_ops"],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"tools/norm_ops.py failed: {out.stderr[-3000:]}")
+    for case in json.loads(out.stdout.strip().splitlines()[-1])["cases"]:
+        where = f"{tuple(case['shape'])} bfloat16 {case['layout']}"
+        for kind, name in (("fwd", "gn_fwd_kernel"), ("bwd", "gn_bwd_kernel")):
+            ops = case[kind]
+            check(len(ops) == 1 and sum(ops.values()) == 1 and name in next(iter(ops)),
+                  f"{name} at {where}: device operations {ops}")
+        say(f"  {where}: one device operation a call, K5 ({case['mode_fwd']}) and K6 ({case['mode_bwd']})")
 
 
 def within_f32(got, ref) -> bool:
@@ -879,7 +925,8 @@ def phase_group_norm_bwd(dev) -> dict:
     from maze_image_processing_pipeline_tpu_torch.models import layers
 
     gen = torch.Generator(device=dev).manual_seed(12)
-    shapes = list(GN_TRAIN_SHAPES) + [(3, 16, 5, 7), (4, 512, 9, 11), (8, 32, 30, 31), (2, 24, 7, 5)]
+    shapes = list(GN_TRAIN_SHAPES) + list(GN_DISTILL_SHAPES) + [(3, 16, 5, 7), (4, 512, 9, 11), (8, 32, 30, 31),
+                                                                (2, 24, 7, 5), (2, 2600, 4, 4)]
     mantissa = {torch.bfloat16: 7, torch.float16: 10}
     worst = 0.0
     times = {}
@@ -926,7 +973,7 @@ def phase_group_norm_bwd(dev) -> dict:
                         raise AssertionError(f"group_norm_bwd {how} differs from its plain version at {where}: "
                                              f"{details[-1]}")
                 detail = "; ".join(details)
-                if shape in GN_TRAIN_SHAPES and dtype == torch.bfloat16:
+                if shape in GN_TRAIN_SHAPES + GN_DISTILL_SHAPES and dtype == torch.bfloat16:
                     # The card's native GroupNorm takes statistics and weight
                     # in the activations' dtype (as F.group_norm in phase 2).
                     mean, rstd, w_lib = stats[0].view(B, G).to(dtype), stats[1].view(B, G).to(dtype), w.to(dtype)
@@ -937,24 +984,23 @@ def phase_group_norm_bwd(dev) -> dict:
 
                     lib = library()
                     lib_err = float((lib[0].float() - ref[0].float()).abs().max())
-                    times[(shape, layout)] = dict(
-                        ms=cuda_ms(lambda: layers.group_norm_bwd(x, ct, w, stats, G), iters=10),
-                        plain_ms=cuda_ms(lambda: layers.group_norm_bwd_plain(x, ct, w, stats, G), iters=3),
-                        library_ms=cuda_ms(library, iters=10),
-                        bound_ms=bound_ms("group_norm_bwd", x.numel()),
-                    )
-                    t = times[(shape, layout)]
-                    detail += (f"; {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, native_group_norm_backward "
-                               f"{t['library_ms']:.4f} ms (its dx within {lib_err:.3g} of the plain version's), "
-                               f"bound {t['bound_ms']:.4f} ms")
+                    t = times[(shape, layout)] = norm_times(
+                        lambda: layers.group_norm_bwd(x, ct, w, stats, G),
+                        lambda: layers.group_norm_bwd_plain(x, ct, w, stats, G), library,
+                        bound_ms("group_norm_bwd", x.numel()))
+                    detail += (say_times(t, "native_group_norm_backward")
+                               + f" (its dx within {lib_err:.3g} of the plain version's)")
                     del lib
-                say(f"  {where}: group_norm_bwd within tolerance, the same bits twice, {detail}")
+                say(f"  {where}: group_norm_bwd ({layers.group_norm_plan(x, G, backward=True).mode}) within "
+                    f"tolerance, the same bits twice, {detail}")
                 del x, ct, got, again, ref, xg, auto
         del base_x, base_ct
     for layout in ("NCHW", "channels_last"):
         step = sum(k * times[(s, layout)]["ms"] for s, k in zip(GN_TRAIN_SHAPES, GN_TRAIN_NORMS))
+        queued = sum(k * times[(s, layout)]["queued_ms"] for s, k in zip(GN_TRAIN_SHAPES, GN_TRAIN_NORMS))
         bound = sum(k * times[(s, layout)]["bound_ms"] for s, k in zip(GN_TRAIN_SHAPES, GN_TRAIN_NORMS))
-        say(f"  group_norm_bwd over the train step's 18 norms, all {layout}: {step:.4f} ms, bound {bound:.4f} ms")
+        say(f"  group_norm_bwd over the train step's 18 norms, all {layout}: {step:.4f} ms (queue full "
+            f"{queued:.4f}), bound {bound:.4f} ms")
     main = times[(GN_TRAIN_SHAPES[0], "channels_last")]
     return {"group_norm_bwd": dict(main, max_abs_err=worst, bound_by="bytes")}
 
@@ -1833,11 +1879,14 @@ def phase_train(dev, limit: str, work: str) -> dict:
 
     say(f"  card against CPU: {train_grads_card_vs_cpu(dev)}")
 
-    # A loki U-Net distilled on the card (as the haul driver distils its
-    # own, phase 11 reuses it), then phase 6's task on it.
+    # A loki U-Net distilled on the card, then phase 6's task on it; phase
+    # 11 reuses it. It learns from tiles like the stitched frames it then
+    # segments: the haul driver's own batches (noise and discs) hold no
+    # black frame, and a model distilled on them finds 276 to 1600
+    # objects depending on the seed and the rounding of its training.
     t0 = time.perf_counter()
     module = UNet(**LOKI_UNET, dtype="bfloat16")
-    fit(module, distill_batches(1), 200, input_shape=(8, 128, 128, 3), log_interval=1e9, device=dev)
+    fit(module, vignette_batches(1), 200, input_shape=(8, 128, 128, 3), log_interval=1e9, device=dev)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     unet = os.path.join(work, "haul_models", "loki-unet")
@@ -1848,7 +1897,7 @@ def phase_train(dev, limit: str, work: str) -> dict:
     wall = run_loki(loki_task(data, unet, os.path.join(work, "distilled")))
     rows, _ = check_archive(os.path.join(work, "distilled", "LOKI_PS122-1_7.zip"))
     check(rows >= 432, f"the distilled U-Net found {rows} of the 480 planted objects (at least 432 needed)")
-    say(f"  UNet(1, 32, 4) bf16 distilled for 200 steps of (8, 128, 128, 3) in {t_fit:.1f} s; phase 6's task on it: "
+    say(f"  UNet(1, 32, 4) bf16 distilled for 200 steps of (8, 128, 128, 3) vignette tiles in {t_fit:.1f} s; phase 6's task on it: "
         f"{rows} of 480 objects, wall {wall:.3f} s (first run, not warmed up)")
     return launches
 
@@ -1882,8 +1931,7 @@ def train_stage_breakdown(dev, limit: str) -> None:
         say(f"  {stage}: {1e3 * t / n:.2f} ms a step, {100 * t / wall:.1f} %")
     busy, events = idle_share(run, plain, steps=n)
     kernel = {name: sum(e.self_device_time_total for e in events if any(s in e.key for s in keys)) / 1e6
-              for name, keys in (("K5", ("gn_stats_kernel", "gn_apply_kernel")),
-                                 ("K6", ("gn_bwd_reduce_kernel", "gn_bwd_apply_kernel")))}
+              for name, keys in (("K5", ("gn_fwd_kernel",)), ("K6", ("gn_bwd_kernel",)))}
     say(f"  K5 {1e3 * kernel['K5'] / n:.3f} ms a step ({100 * kernel['K5'] / busy:.1f} % of the device time), "
         f"K6 {1e3 * kernel['K6'] / n:.3f} ms a step ({100 * kernel['K6'] / busy:.1f} %)")
 
@@ -2123,6 +2171,7 @@ def main() -> int:
         measured.update(phase_region_kernels(dev))
         measured.update(phase_group_norm(dev))
         measured.update(phase_group_norm_bwd(dev))
+        phase_norm_ops()
         measured.update(phase_anchor(dev))
 
         t0 = time.perf_counter()

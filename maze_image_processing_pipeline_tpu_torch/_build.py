@@ -49,8 +49,9 @@ SIGNATURES = {
     "vertical_pass_launch": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     "ccl_fixpoint_launch": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     "remove_small_objects_launch": [_vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _vp],
-    "group_norm_launch": [_vp] * 7 + [_i, _i, _i, _ll, _i, _i, _i, _ll, _i, _f, _vp],
-    "group_norm_bwd_launch": [_vp] * 10 + [_i, _i, _i, _ll, _i, _i, _i, _ll, _i, _vp],
+    "group_norm_capacity": [_i, _i, _i, _i, _vp],
+    "group_norm_launch": [_vp] * 7 + [_i, _i, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _f, _vp],
+    "group_norm_bwd_launch": [_vp] * 9 + [_i, _i, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _vp],
     "region_measure_launch": [_vp] * 7 + [_ll, _i, _i, _i, _i, _vp],
     "anchor_launch": [_vp, _vp, _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _vp],
 }

@@ -1,8 +1,8 @@
 // Shared-memory staging for the port's CUDA kernels: mbarriers and
 // asynchronous global-to-shared copies (cp.async, 16 B where a 16-B block
 // lies in the tensor, 4-B words or single bytes at a ragged edge). Used by
-// ccl.cu (the label walk's ring) and region_measure.cu (the measurement's
-// strips).
+// ccl.cu (the label walk's ring), region_measure.cu (the measurement's
+// strips) and group_norm.cu (the shares of a normalisation unit).
 
 #pragma once
 

@@ -14,16 +14,22 @@ tensor on the CPU it takes the plain PyTorch versions
 always launches the hand-written kernels of ``csrc/group_norm.cu``: K5 in
 the forward (the counterpart of the Pallas ``group_norm_pallas`` of
 ``attic/pallas_norm.py``), K6 in the backward (``group_norm_bwd_pallas``),
-in NCHW-contiguous or channels_last layout. The forward keeps K5's
-per-group mean and rstd for the backward. The wrappers raise on any other
-layout of ``x`` or a failed launch. ``group_norm.launches`` and
-``group_norm_bwd.launches`` count the launches.
+in NCHW-contiguous or channels_last layout. Each call on the card is one
+device operation: one cooperative launch (no memset, no host
+synchronisation), cut into blocks by :func:`norm_plan`, which reads each
+input once wherever a normalisation unit fits in the card's shared memory.
+The forward keeps K5's per-group mean and rstd for the backward. The
+wrappers raise on any other layout of ``x`` or a failed launch.
+``group_norm.launches`` and ``group_norm_bwd.launches`` count the launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -31,15 +37,17 @@ from torch.autograd.function import once_differentiable
 
 __all__ = [
     "GroupNorm",
+    "NormPlan",
     "group_norm",
     "group_norm_bwd",
     "group_norm_bwd_plain",
     "group_norm_plain",
+    "group_norm_plan",
     "group_stats_plain",
+    "norm_plan",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_BLOCK_ELEMENTS = 16384  # elements a statistics block reduces
 
 
 def _check_groups(C: int, G: int) -> None:
@@ -169,12 +177,176 @@ def _param(t: torch.Tensor, x: torch.Tensor, name: str) -> torch.Tensor:
     return out
 
 
-def _splits(n_units: int, unit_elems: int) -> Tuple[int, int]:
-    """(units a block reduces, blocks) for ``n_units`` units of
-    ``unit_elems`` elements: about ``_BLOCK_ELEMENTS`` elements a block, at
-    most 65535 blocks."""
-    per_split = max(1, _BLOCK_ELEMENTS // unit_elems, -(-n_units // 65535))
-    return per_split, -(-n_units // per_split)
+# Constants of csrc/group_norm.cu that the plan must respect.
+_THREADS = 256  # kThreads: a block's threads
+_TABLE = 2048  # kTable: floats of the shared table, at least
+_MAX_BLOCK_CHANNELS = 64  # kMaxBlockChannels: K6 NCHW, channel planes a share may touch
+_MAX_PIECES = 128  # kMaxPieces: K6 NCHW, pieces a share is cut into
+_PIECE = 64  # K6 NCHW: vectors a warp reduces at a time, at least
+_MIN_SHARE_BYTES = 16384  # staged bytes a share has at least, where the unit has them
+
+
+@dataclass(frozen=True)
+class NormPlan:
+    """How K5 or K6 cuts a call into blocks (:func:`norm_plan`).
+
+    A unit (one statistic's elements: a (b, g) group in NCHW, an image in
+    channels_last) of ``unit_vectors`` vectors is cut into ``splits`` shares
+    of ``vectors_per_split`` vectors (the last may be shorter), one block a
+    share; a block stages the first ``stage_vectors`` vectors of its share
+    (of x, and of ct for K6: ``staged_bytes`` in all). ``units_per_wave``
+    units run at a time on ``grid`` co-resident blocks.
+    """
+
+    units: int
+    unit_vectors: int
+    splits: int
+    vectors_per_split: int
+    stage_vectors: int
+    units_per_wave: int
+    piece: int
+    staged_bytes: int
+
+    @property
+    def grid(self) -> int:
+        return self.units_per_wave * self.splits
+
+    @property
+    def waves(self) -> int:
+        return -(-self.units // self.units_per_wave)
+
+    @property
+    def one_read(self) -> bool:
+        """Every share fits its block's shared memory: each input is read
+        once; else the unstaged rest of a share is read twice."""
+        return self.stage_vectors == self.vectors_per_split
+
+    @property
+    def mode(self) -> str:
+        return "one read" if self.one_read else "two passes"
+
+
+@functools.lru_cache(maxsize=4096)
+def norm_plan(
+    shape: Tuple[int, ...],
+    num_groups: int,
+    channels_last: bool,
+    itemsize: int,
+    vec: int,
+    backward: bool,
+    capacity: int,
+    stage_bytes: int,
+) -> NormPlan:
+    """The one place K5 (``backward`` False) and K6 choose their mode, blocks
+    per unit and staged bytes, for activations of ``shape`` (B, C, *spatial)
+    loaded ``vec`` elements of ``itemsize`` bytes at a time, on a card that
+    holds ``capacity`` co-resident blocks of ``stage_bytes`` stageable bytes
+    each (``group_norm_capacity`` of csrc/group_norm.cu).
+
+    A unit whose inputs fit ``capacity`` blocks' shared memory is read once:
+    it gets the fewest blocks that hold it, raised (while the shares stay at
+    least ``_MIN_SHARE_BYTES``) until the units of a wave, spread evenly over
+    the waves, fill the card. A larger unit takes the whole grid and each
+    block stages what it can; the rest of its share is read twice (two
+    passes).
+    """
+    B, C = shape[0], shape[1]
+    HW = math.prod(shape[2:])
+    G = num_groups
+    inputs = 2 if backward else 1
+    vb = vec * itemsize
+    units = B if channels_last else B * G
+    unit_vectors = (C * HW if channels_last else C // G * HW) // vec
+    max_stage = (stage_bytes // inputs) // 16 * 16 // vb
+    if max_stage < 1 or capacity < 1:
+        raise ValueError(f"norm_plan: a block must stage a vector ({stage_bytes} bytes, {capacity} blocks)")
+    max_vps = unit_vectors
+    if backward and not channels_last:  # a share touches few enough channel planes
+        max_vps = min(max_vps, (_MAX_BLOCK_CHANNELS - 1) * (HW // vec))
+    need = -(-unit_vectors // min(max_stage, max_vps))
+    want = -(-unit_vectors // max(1, _MIN_SHARE_BYTES // (inputs * vb)))
+    if need <= capacity:
+        per_wave = min(units, capacity // need)
+        per_wave = -(-units // -(-units // per_wave))  # the same number of waves, evenly filled
+        splits = max(need, min(capacity // per_wave, want))
+    else:
+        per_wave = 1
+        splits = max(min(capacity, want), -(-unit_vectors // max_vps))
+        if splits > capacity:
+            raise ValueError(f"norm_plan: {shape} needs {splits} blocks a unit, the card holds {capacity}")
+    vps = -(-unit_vectors // splits)
+    splits = -(-unit_vectors // vps)
+    stage = min(vps, max_stage)
+    piece = max(_PIECE, -(-vps // (_MAX_PIECES - _MAX_BLOCK_CHANNELS))) if backward and not channels_last else 1
+    return NormPlan(
+        units=units,
+        unit_vectors=unit_vectors,
+        splits=splits,
+        vectors_per_split=vps,
+        stage_vectors=stage,
+        units_per_wave=per_wave,
+        piece=piece,
+        staged_bytes=inputs * -(-stage * vb // 16) * 16,
+    )
+
+
+_CAPACITY: Dict[tuple, Tuple[int, int]] = {}
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _capacity(x: torch.Tensor, backward: bool, vec: int, channels_last: bool) -> Tuple[int, int]:
+    """(co-resident blocks, stageable bytes a block) of the kernel that takes
+    ``x``: asked of the card once per kernel and device."""
+    key = (x.device.index, backward, x.dtype, vec, channels_last)
+    cap = _CAPACITY.get(key)
+    if cap is None:
+        from .._build import kernels
+
+        out = (ctypes.c_int * 3)()
+        err = kernels().group_norm_capacity(int(backward), _DTYPE_CODES[x.dtype], vec, int(channels_last),
+                                            ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"group_norm: the kernel's occupancy query failed with CUDA error {err}")
+        cap = _CAPACITY[key] = (out[0] * out[1], out[2])
+    return cap
+
+
+def _counters(x: torch.Tensor, stream: int, n: int) -> torch.Tensor:
+    """The kernels' barrier counters for ``x``'s device and ``stream``, at
+    least ``n``: zeroed once when made, left zeroed by every launch."""
+    key = (x.device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=x.device)
+    return buf
+
+
+def _table_floats(C: int, G: int, channels_last: bool, vec: int) -> int:
+    """Floats of the kernels' shared table (``table_floats`` of
+    csrc/group_norm.cu): more than ``_TABLE`` where a channels_last pixel
+    has more than ``_THREADS`` vectors (two sums of each channel) or the
+    image has more than ``_TABLE / 2`` groups; the staging loses the rest."""
+    t = max(_TABLE, (2 * C if C // vec > _THREADS else 0), 2 * G) if channels_last else _TABLE
+    return -(-t // 4) * 4
+
+
+def _card_plan(x: torch.Tensor, num_groups: int, backward: bool, *others: torch.Tensor) -> Tuple[bool, int, NormPlan]:
+    """(channels_last, vec, plan) of K5 / K6 for ``x`` on the card."""
+    name = "group_norm_bwd" if backward else "group_norm"
+    channels_last = _cuda_layout(x, num_groups, name)
+    C = x.shape[1]
+    vec = _vector_width(C if channels_last else math.prod(x.shape[2:]), x.element_size(), x, *others)
+    capacity, stage_bytes = _capacity(x, backward, vec, channels_last)
+    stage_bytes -= 4 * (_table_floats(C, num_groups, channels_last, vec) - _TABLE)
+    plan = norm_plan(tuple(x.shape), num_groups, channels_last, x.element_size(), vec, backward, capacity,
+                     stage_bytes)
+    return channels_last, vec, plan
+
+
+def group_norm_plan(x: torch.Tensor, num_groups: int, backward: bool = False) -> NormPlan:
+    """The plan K5 (or, ``backward``, K6) runs for activations ``x`` on the
+    card."""
+    return _card_plan(x, num_groups, backward)[2]
 
 
 def _group_norm_forward(x, weight, bias, G, eps) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -182,27 +354,25 @@ def _group_norm_forward(x, weight, bias, G, eps) -> Tuple[torch.Tensor, torch.Te
     if x.device.type == "cpu":
         stats = group_stats_plain(x, G, eps)
         return _normalize_plain(x, weight, bias, stats, G), stats
-    channels_last = _cuda_layout(x, G, "group_norm")
+    y = torch.empty_like(x)  # same layout as x
     w, b = _param(weight, x, "group_norm"), _param(bias, x, "group_norm")
     B, C = x.shape[:2]
-    y = torch.empty_like(x)  # same layout as x
     stats = torch.empty((2, B * G), dtype=torch.float32, device=x.device)
-    HW = math.prod(x.shape[2:])
     if y.numel() == 0:
+        _cuda_layout(x, G, "group_norm")
         return y, stats.zero_()
-    Cg = C // G
-    vec = _vector_width(Cg if channels_last else HW, x.element_size(), x, y)
-    per_split, splits = _splits(HW if channels_last else Cg * HW // vec, Cg if channels_last else vec)
-    part = torch.empty((2, B * G, splits), dtype=torch.float32, device=x.device)
-    counters = torch.zeros((B * G,), dtype=torch.int32, device=x.device)  # the kernel leaves them dirty
+    channels_last, vec, plan = _card_plan(x, G, False, y)
+    part = torch.empty((plan.units * plan.splits * (2 * G if channels_last else 2),), dtype=torch.float32,
+                       device=x.device)
     from .._build import kernels
 
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        counters = _counters(x, stream, plan.units + 1)
         err = kernels().group_norm_launch(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), part.data_ptr(), stats.data_ptr(),
-            counters.data_ptr(), B, C, G, HW, int(channels_last), _DTYPE_CODES[x.dtype], vec,
-            per_split, splits, float(eps), stream,
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), stats.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), B, C, G, math.prod(x.shape[2:]), int(channels_last), _DTYPE_CODES[x.dtype], vec,
+            plan.splits, plan.vectors_per_split, plan.stage_vectors, plan.units_per_wave, float(eps), stream,
         )
     if err != 0:
         raise RuntimeError(f"group_norm: kernel launch failed with CUDA error {err}")
@@ -237,27 +407,26 @@ def group_norm_bwd(
     w = _param(weight, x, "group_norm_bwd")
     stats = stats.contiguous()
     dx = torch.empty_like(x)
-    dwb = torch.empty((2, C), dtype=torch.float32, device=x.device)  # the apply kernel's block 0 fills it
-    HW = math.prod(x.shape[2:])
+    dwb = torch.empty((2, C), dtype=torch.float32, device=x.device)  # the last unit's block fills it
     if dx.numel() == 0:
         dwb.zero_()
         return dx, dwb[0], dwb[1]
-    Cg = C // G
-    vec = _vector_width(Cg if channels_last else HW, x.element_size(), x, ct, dx)
-    # Units: channels_last, a group's HW pixels; NCHW, one plane's vectors.
-    per_split, splits = _splits(HW if channels_last else HW // vec, Cg if channels_last else vec)
-    part = torch.empty((2, B * C, splits), dtype=torch.float32, device=x.device)
-    rows = torch.empty((2, B * C), dtype=torch.float32, device=x.device)
-    coef = torch.empty((2, B * G), dtype=torch.float32, device=x.device)
-    counters = torch.zeros((B * G,), dtype=torch.int32, device=x.device)
+    channels_last, vec, plan = _card_plan(x, G, True, ct, dx)
+    # A share's partials: two per group of the unit, then two per channel.
+    slots = (2 * G + 2 * C) if channels_last else (2 + 2 * _MAX_BLOCK_CHANNELS)
+    n_part = plan.units * plan.splits * slots
+    scratch = torch.empty((n_part + 2 * B * C,), dtype=torch.float32, device=x.device)
+    rows = scratch[n_part:]
     from .._build import kernels
 
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        counters = _counters(x, stream, plan.units + 1)
         err = kernels().group_norm_bwd_launch(
             x.data_ptr(), ct.data_ptr(), w.data_ptr(), stats.data_ptr(), dx.data_ptr(), dwb.data_ptr(),
-            part.data_ptr(), rows.data_ptr(), coef.data_ptr(), counters.data_ptr(), B, C, G, HW,
-            int(channels_last), _DTYPE_CODES[x.dtype], vec, per_split, splits, stream,
+            scratch.data_ptr(), rows.data_ptr(), counters.data_ptr(), B, C, G,
+            math.prod(x.shape[2:]), int(channels_last), _DTYPE_CODES[x.dtype], vec, plan.splits,
+            plan.vectors_per_split, plan.stage_vectors, plan.units_per_wave, plan.piece, stream,
         )
     if err != 0:
         raise RuntimeError(f"group_norm_bwd: kernel launch failed with CUDA error {err}")

@@ -1,7 +1,9 @@
-"""A/B walls of checkouts: the ``maze-ipp loki`` Runner's wall for two or
-more checkouts of this repo, in turns, on one set of inputs::
+"""A/B walls of checkouts: the ``maze-ipp loki`` Runner's wall (or, with
+``--norms``, the GroupNorm kernels' times) for two or more checkouts of
+this repo, in turns, on one set of inputs::
 
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] [--workdir DIR]
+    python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --norms [--iters N]
 
 The task is ``chip_smoke.py``'s phase 6: the standard haul's loki task
 (24 frames of 1024×1280, 20 vignettes a frame, a ``UNet(1, 32, 4)`` bf16 of
@@ -12,6 +14,18 @@ that checkout's package (its kernels built at the first call into its own
 Name the trees in the order they should run, for example parent, change,
 change, parent. One line is printed per run, then a JSON object of the
 walls by tree. Times are taken on the card only.
+
+``--norms`` times instead, in each TREE's process, K5 (``group_norm``) and
+K6 (``group_norm_bwd``) in bfloat16 with G = 8, NCHW and channels_last: K5
+at the norms of the haul's path, the train step's and the distillation's
+shapes, K6 at the train step's and the distillation's shapes. A kernel's
+time is its device time with the stream's queue kept full
+(``chip_smoke.queued_ms``: the card sleeps while the calls are enqueued, so
+the wrapper's host time drops out), mean of ``--iters`` calls after one
+warm-up; beside it the time by CUDA events around calls paced by the host.
+Then the full-width train step of the checkout's
+``chip_smoke.full_width_step`` (``UNet(2, 32, 4)`` bf16, batch 8 of 512²):
+ms a step over ten steps after three warm-ups.
 """
 
 from __future__ import annotations
@@ -28,6 +42,12 @@ from .bench_e2e import LOKI_SEGMENTATION, LOKI_UNET
 from .synth import make_loki_tree, write_unet
 
 WALLS = 3  # timed runs a process, after one warm-up
+
+# --norms: the shapes (B, C, H, W) of the haul's path, the train step and the distillation.
+PATH = ((16, 32, 1024, 1024), (64, 32, 256, 256), (256, 32, 128, 128))
+TRAIN = ((8, 32, 512, 512), (8, 64, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64), (8, 512, 32, 32))
+DISTILL = ((8, 32, 128, 128), (8, 64, 64, 64), (8, 128, 32, 32), (8, 256, 16, 16), (8, 512, 8, 8))
+NORM_CASES = [("fwd", s) for s in PATH + TRAIN + DISTILL] + [("bwd", s) for s in TRAIN + DISTILL]
 
 # Runs in the checkout's process: argv = data, model, output root, walls, segmentation.
 _WORKER = """
@@ -48,27 +68,86 @@ wall("warm")
 print("WALLS " + json.dumps([wall(i) for i in range(n)]), flush=True)
 """
 
+# --norms, in the checkout's process: argv = cases, iters.
+_NORMS_WORKER = """
+import json, sys, time, torch
+from chip_smoke import cuda_ms, full_width_step, queued_ms
+from maze_image_processing_pipeline_tpu_torch.models import layers
+cases, iters = json.loads(sys.argv[1]), int(sys.argv[2])
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+out = {}
+for kind, shape in cases:
+    C, G = shape[1], 8
+    w = torch.rand(C, device=dev, generator=gen) + 0.5
+    b = torch.randn(C, device=dev, generator=gen)
+    for layout in ("NCHW", "channels_last"):
+        fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+        x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16).contiguous(memory_format=fmt)
+        if kind == "fwd":
+            fn = lambda: layers.group_norm(x, w, b, G)
+        else:
+            ct = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16).contiguous(memory_format=fmt)
+            stats = layers.group_stats_plain(x, G)
+            fn = lambda: layers.group_norm_bwd(x, ct, w, stats, G)
+        out[f"{kind} {tuple(shape)} {layout}"] = [queued_ms(fn, iters), cuda_ms(fn, iters)]
+        del x, fn
+step, state, x, y = full_width_step(dev)
+for _ in range(3):
+    step(state, x, y)
+torch.cuda.synchronize()
+t = time.perf_counter()
+for _ in range(10):
+    step(state, x, y)
+torch.cuda.synchronize()
+out["train step"] = [(time.perf_counter() - t) / 10 * 1e3]
+print("TIMES " + json.dumps(out), flush=True)
+"""
 
-def run_tree(tree: str, data: str, unet: str, out: str) -> List[float]:
-    """The walls of one run of ``tree``'s package, in its own process."""
+
+def run_worker(tree: str, worker: str, argv: List[str], marker: str):
+    """Runs ``worker`` (Python source) with ``argv`` in a process of its own
+    that imports ``tree``'s package; returns the JSON of its line that
+    starts with ``marker``."""
     env = dict(os.environ, PYTHONPATH=tree)
-    proc = subprocess.run([sys.executable, "-c", _WORKER, data, unet, out, str(WALLS), json.dumps(LOKI_SEGMENTATION)],
-                          cwd=tree, env=env, capture_output=True, text=True)
+    proc = subprocess.run([sys.executable, "-c", worker, *argv], cwd=tree, env=env, capture_output=True, text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith("WALLS "):
-            return json.loads(line[len("WALLS "):])
+        if line.startswith(marker + " "):
+            return json.loads(line[len(marker) + 1:])
     raise RuntimeError(f"{tree}: rc {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, List[List[float]]]:
+def run_tree(tree: str, data: str, unet: str, out: str) -> List[float]:
+    """The walls of one run of ``tree``'s package, in its own process."""
+    return run_worker(tree, _WORKER, [data, unet, out, str(WALLS), json.dumps(LOKI_SEGMENTATION)], "WALLS")
+
+
+def run_norms(tree: str, iters: int) -> Dict[str, List[float]]:
+    """The GroupNorm times of one run of ``tree``'s package (``--norms``)."""
+    return run_worker(tree, _NORMS_WORKER, [json.dumps(NORM_CASES), str(iters)], "TIMES")
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts of this repo, in the order they run")
     ap.add_argument("--workdir", default=None, help="inputs and outputs (default: a new temporary directory)")
+    ap.add_argument("--norms", action="store_true", help="time the GroupNorm kernels instead of the loki task")
+    ap.add_argument("--iters", type=int, default=50, help="--norms: timed calls a case (default 50)")
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: the walls are taken on the card")
+    if args.norms:
+        print(f"device={torch.cuda.get_device_name(0)}", flush=True)
+        times: Dict[str, List[Dict[str, List[float]]]] = {}
+        for tree in map(os.path.abspath, args.trees):
+            t = run_norms(tree, args.iters)
+            times.setdefault(tree, []).append(t)
+            print(f"{tree}: " + ", ".join(f"{k} {' / '.join(f'{v:.4f}' for v in vs)}" for k, vs in t.items()),
+                  flush=True)
+        print(json.dumps(times), flush=True)
+        return times
     work = args.workdir or tempfile.mkdtemp(prefix="ab_walls_")
     data = make_loki_tree(os.path.join(work, "data"), n_frames=24, objects_per_frame=20, frame_shape=(1024, 1280),
                           seed=8)

@@ -6,7 +6,9 @@ U-Net and classifier checkpoints.
 ``make_loki_tree`` writes the layout of ``tests/fixtures.py:make_loki_sample``
 and draws from the seed in the same order, so the same arguments give the
 same vignettes at the same positions (encoded by the port's ``encode_image``).
-``distill_batches`` makes ``tools/bench_e2e.py``'s distillation batches.
+``distill_batches`` makes ``tools/bench_e2e.py``'s distillation batches (the
+JAX haul driver's); ``vignette_batches`` makes ``chip_smoke.py`` phase 9's,
+tiles like the stitched frames the loki U-Net then segments.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ __all__ = [
     "make_crop_archive",
     "make_taxonomy_files",
     "distill_batches",
+    "vignette_batches",
     "write_classifier",
     "write_unet",
 ]
@@ -166,11 +169,36 @@ def distill_batches(n_out: int, size: int = 128, batch: int = 8, seed: int = 0,
                 cy, cx = rng.integers(10, size - 10, 2)
                 r = rng.integers(4, 14)
                 x[i][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = rng.integers(120, 250)
-        if n_out == 1:
-            y = (x[..., :1] > 100).astype(np.float32)
-        else:
-            y = np.stack([(x[..., 0] > 100), (x[..., 0] > 180)], axis=-1).astype(np.float32)
-        yield x / 255.0, y
+        yield x / 255.0, _threshold_targets(x, n_out)
+
+
+def vignette_batches(n_out: int, size: int = 128, batch: int = 8, seed: int = 0) -> Iterator[tuple]:
+    """Tiles of a stitched LOKI frame, as the loki U-Net sees them, with
+    ``distill_batches``' targets (``chip_smoke.py`` phase 9's distillation).
+    Each tile is black with one to three of ``make_loki_tree``'s 60×80
+    vignettes (``draw_blob``: noise below 20, an ellipse of radius 8-13)
+    pasted in turn, the last on top as ``Stitch`` pastes them, and cut where
+    they cross the tile's edge. The ellipses' intensities are drawn from
+    30-250, so that the tiles show both sides of the threshold."""
+    rng = np.random.default_rng(seed)
+    while True:
+        x = np.zeros((batch, size, size), np.float32)
+        for i in range(batch):
+            for _ in range(int(rng.integers(1, 4))):
+                v = draw_blob(rng, (60, 80), 8 + int(rng.integers(0, 6)), int(rng.integers(30, 251)))
+                oy, ox = int(rng.integers(-30, size - 30)), int(rng.integers(-40, size - 40))
+                y0, x0, y1, x1 = max(oy, 0), max(ox, 0), min(oy + 60, size), min(ox + 80, size)
+                x[i, y0:y1, x0:x1] = v[y0 - oy : y1 - oy, x0 - ox : x1 - ox]
+        x = np.repeat(x[..., None], 3, axis=-1)
+        yield x / 255.0, _threshold_targets(x, n_out)
+
+
+def _threshold_targets(x: np.ndarray, n_out: int) -> np.ndarray:
+    """The distillation's teacher: channel 0 of (B, H, W, 3) intensities
+    above 100 (a second channel: above 180)."""
+    if n_out == 1:
+        return (x[..., :1] > 100).astype(np.float32)
+    return np.stack([(x[..., 0] > 100), (x[..., 0] > 180)], axis=-1).astype(np.float32)
 
 
 def write_classifier(path: str, cfg: dict, dtype: str, seed: int) -> str:

@@ -118,7 +118,8 @@ TRAIN_WIDTHS = [((2, 64, 16, 16), 8), ((2, 128, 8, 8), 8), ((2, 256, 8, 8), 8)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,G", CASES + TRAIN_WIDTHS + [((4, 512, 9, 11), 8), ((8, 32, 64, 64), 8)])
+@pytest.mark.parametrize("shape,G", CASES + TRAIN_WIDTHS + [((4, 512, 9, 11), 8), ((8, 32, 64, 64), 8),
+                                                            ((8, 512, 8, 8), 8), ((8, 64, 64, 64), 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("channels_last", [False, True])
 def test_cuda_group_norm_matches_plain(shape, G, dtype, channels_last):

@@ -189,7 +189,8 @@ def _card():
 @pytest.mark.parametrize(
     "shape,G",
     CASES + [((2, 64, 16, 16), 8), ((2, 128, 8, 8), 8), ((2, 256, 8, 8), 8),  # the train step's widths
-             ((4, 512, 9, 11), 8), ((8, 32, 64, 64), 8), ((2, 24, 7, 5), 8)],
+             ((4, 512, 9, 11), 8), ((8, 32, 64, 64), 8), ((2, 24, 7, 5), 8),
+             ((8, 512, 8, 8), 8), ((8, 64, 64, 64), 8)],  # the distillation's widths
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("channels_last", [False, True])

@@ -12,7 +12,7 @@
   ``chip_smoke.make_loki_tree``, as its phases 6 and 8 do (U-Net, the
   host-blend task with merging and the full-frame archive, threshold
   segmentation), its ``predict`` Runner as phase 7 does, and ``fit`` with
-  checkpoints on ``chip_smoke.distill_batches`` as phase 9 does, at a small
+  checkpoints on ``chip_smoke.vignette_batches`` as phase 9 does, at a small
   size, and its ``.h5`` export (``save_raw_h5: true``, the port's own
   writer) with h5py blocked. ``optax`` and ``orbax`` are blocked too: the
   port's training carries JAX states and checkpoints without them.
@@ -110,7 +110,7 @@ print("h5 written", head == b"\x89HDF\r\n\x1a\n")
 
 from maze_image_processing_pipeline_tpu_torch.models import fit, save_model
 module = UNet(out_channels=1, base_features=4, depth=1, dtype="float32")
-batches = ((x[:, :32, :32], y[:, :32, :32]) for x, y in cs.distill_batches(1, size=32, batch=2))
+batches = ((x[:, :32, :32], y[:, :32, :32]) for x, y in cs.vignette_batches(1, size=32, batch=2))
 state = fit(module, batches, 2, input_shape=(2, 32, 32, 3), checkpoint_dir=os.path.join(work, "ckpt"),
             checkpoint_every=1, log_interval=1e9, device="cpu")
 save_model(os.path.join(work, "trained"), module, outputs={{"pred": {{"channel_names": ["foreground"]}}}})
