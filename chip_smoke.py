@@ -18,16 +18,23 @@ csrc`` and runs, one line of output per phase:
    directions; random labels and the raster ids ``label`` seeds),
    ``ccl_fixpoint`` (the same masks and seeds, both connectivities, labels
    and per-frame sweep counts; the serpentine capped at 1 and 3 sweeps),
-   K8
-   ``remove_small_objects`` (R = 256, min_area 30, ids beyond R,
-   all-background and one-region frames), all bit-exact at the loki path's
-   shape (8, 1024, 1280) and at edge shapes (W = 1, 37, 1000, 1277; H =
-   1), and K1, K2, K4 and the fixpoint at the fused measurement's shapes of
+   all bit-exact at the loki path's shape (8, 1024, 1280) and at edge
+   shapes (W = 1, 37, 1000, 1277; H = 1), and K1, K2, K4 and the
+   fixpoint at the fused measurement's shapes of
    phase 7 (``PREDICT_LABEL_SHAPES``: chunks of up to 32 canvases of
    64-512 × 128-512) on thresholded-blob and noisy masks; the fixpoint's
    time per ``label()`` fixpoint at (8, 1024, 1280) and (32, 256, 256)
    beside the old host loop of standalone K1 / K4 launches (the time to
    beat), its plain version and its bound;
+   K8 ``remove_small_objects`` (``relabel_cases``, min_area 0, 1 and 30
+   each): R = 256 on rectangle frames with ids beyond R at the path's and
+   the edge shapes, all-background frames, a region covering each frame,
+   R = 1, the largest R the plan takes (and the wrapper's raise one beyond
+   it), H·W not a multiple of 8 or of 4, rows not 16-B aligned, B = 1 and
+   the dense haul's (8, 2048, 2560) (the two-read route), bit-exact, the
+   same bits from two calls, each case's route and cluster size printed;
+   its times at (8, 1024, 1280), (8, 1024, 1024) and (8, 2048, 2560) with
+   the queue full, L2 cold (``l2_cold_inputs``) and warm, and host-paced;
    K3 ``region_histogram`` and K7 ``regionprops_fused``, one kernel
    (``csrc/region_measure.cu``): its partials (the perimeter units
    included) and histogram bit-exact against the plain versions and the
@@ -63,7 +70,9 @@ csrc`` and runs, one line of output per phase:
    K9 ``anchor`` bit-exact at (8, 1024, 1024) and (8, 2048, 2560) bool,
    (8, 1023, 1277) and (1, 1, 1), contiguous, transposed and sliced views,
    bool, uint8, int32 and float32, with ``Tensor.clone()``'s and the
-   transposed view's ``.contiguous()`` times beside it;
+   transposed view's ``.contiguous()`` times beside it, host-paced and with
+   the queue full (L2 warm and cold); one device operation a K8 call at its
+   three timed shapes (``tools/norm_ops.py --relabel``);
 3. the frame chain (morphology → CCL → region measurement (K7, K3) →
    filled area) on the card against the same chain on the CPU;
 4. the full-width U-Net (out_channels=1, base_features=32, depth=4) and
@@ -320,38 +329,64 @@ def region_labels(shape, R: int, seed: int) -> np.ndarray:
     return out
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` in ms from CUDA events (after warm-up)."""
+L2_BYTES = 50 * 2**20  # H100 SXM L2 cache
+
+
+def l2_cold_inputs(*tensors, factor: int = 2) -> list:
+    """Copies of ``tensors`` (a tuple each), enough of them that together
+    they exceed ``factor`` times the card's L2: a timing that rotates over
+    them finds each input evicted from L2 when it comes round again."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = max(2, -(-factor * L2_BYTES // max(nbytes, 1)))
+    return [tuple(t.clone() for t in tensors) for _ in range(copies)]
+
+
+def _caller(fn, inputs):
+    """``fn`` as a function of the call's index: ``fn()``, or with
+    ``inputs``, ``fn(*inputs[i % len(inputs)])``."""
+    if inputs is None:
+        return lambda i: fn()
+    return lambda i: fn(*inputs[i % len(inputs)])
+
+
+def cuda_ms(fn, iters: int = 20, inputs=None) -> float:
+    """Mean device time of ``fn`` in ms from CUDA events (after warm-up);
+    with ``inputs`` (``l2_cold_inputs``), each call takes the next of them."""
     import torch
 
-    for _ in range(3):
-        fn()
+    call = _caller(fn, inputs)
+    for i in range(3):
+        call(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        call(i)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def queued_ms(fn, iters: int = 20) -> float:
+def queued_ms(fn, iters: int = 20, inputs=None) -> float:
     """Mean device time of ``fn`` in ms with the stream's queue kept full:
     the card sleeps (``torch.cuda._sleep``, about 25 ms) while the host
     enqueues the events and the ``iters`` calls, so the calls run back to
-    back and the host's time per call (Python, ctypes) drops out."""
+    back and the host's time per call (Python, ctypes) drops out. With
+    ``inputs`` (``l2_cold_inputs``), each call takes the next of them, so
+    that its input comes from device memory, not from L2."""
     import torch
 
-    fn()
+    call = _caller(fn, inputs)
+    for i in range(len(inputs) if inputs else 1):
+        call(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(50_000_000)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        call(i)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -449,6 +484,103 @@ def fixpoint_timings(dev) -> dict:
     return out
 
 
+def relabel_cases(r_max: int, main=(8, 1024, 1280), edges=()) -> list:
+    """K8's cases: (where, labels, R, offset). R = 256 (loki's 4 *
+    max_regions) on rectangle frames (ids beyond R) at the path's shape and
+    ``edges``, all-background frames and a region covering each frame;
+    R = 1; ``r_max``, the largest R the plan takes on this card, at loki's
+    shape and a small one, with ids beyond it and negative; H*W not a
+    multiple of 8 or of 4 (frames not 16-B aligned); rows not 16-B aligned
+    (offset 1); B = 1; the dense haul's (8, 2048, 2560), which takes the
+    two-read route."""
+    rng = np.random.default_rng(6)
+    R = 4 * POSTPROCESS.max_regions
+    cases = [(f"{main} rectangles", region_labels(main, R, seed=2), R, 0),
+             (f"{main} background", np.zeros(main, np.int32), R, 0),
+             (f"{main} one region covering each frame", np.ones(main, np.int32), R, 0),
+             (f"{main} R = 1", region_labels(main, 1, seed=7), 1, 0)]
+    cases += [(f"{s} rectangles", region_labels(s, R, seed=3), R, 0) for s in edges]
+    for shape in ((2, 512, 640), main):
+        cases.append((f"{shape} R = {r_max} (the largest the plan takes), ids beyond R and negative",
+                      rng.integers(-3, r_max + 50, shape, dtype=np.int32), r_max, 0))
+    for s in ((3, 1001, 1277), (4, 33, 1276), (2, 3, 5)):
+        cases.append((f"{s} rectangles (H*W % 8 = {s[1] * s[2] % 8})", region_labels(s, R, seed=8), R, 0))
+    cases += [("(2, 96, 1280) rectangles, rows not 16-B aligned", region_labels((2, 96, 1280), R, seed=9), R, 1),
+              ("(1, 1024, 1280) rectangles, B = 1", region_labels((1, 1024, 1280), R, seed=10), R, 0),
+              ("(8, 2048, 2560) rectangles, the dense haul's frames", region_labels((8, 2048, 2560), R, seed=11), R, 0)]
+    return cases
+
+
+# K8's timed shapes: loki's frames, the perf lab's, the dense haul's.
+RELABEL_TIMED = ((8, 1024, 1280), (8, 1024, 1024), (8, 2048, 2560))
+
+
+def relabel_times(lab, R: int, min_area: int) -> dict:
+    """K8's times on ``lab``: CUDA events around host-paced calls (``ms``),
+    the device time with the queue full on one input (``queued_ms``, L2
+    warm) and rotating over copies that exceed the L2 (``queued_l2_cold_ms``),
+    the plain version's and the bound."""
+    from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+
+    def fn(x):
+        return tl.remove_small_objects(x, min_area, R)
+
+    cold = l2_cold_inputs(lab)
+    t = dict(ms=cuda_ms(lambda: fn(lab)), queued_ms=queued_ms(lambda: fn(lab), iters=50),
+             queued_l2_cold_ms=queued_ms(fn, iters=50, inputs=cold),
+             plain_ms=cuda_ms(lambda: tl.remove_small_objects_plain(lab, min_area, R), iters=5),
+             bound_ms=bound_ms("remove_small_objects", lab.numel()), library_ms=None)
+    del cold
+    return t
+
+
+def phase_relabel(dev, main, edges, record) -> dict:
+    """K8 against its plain version on the card at ``relabel_cases``, each
+    with min_area 0, 1 and 30: bit-exact, the same bits from two calls, the
+    plan's route and cluster size printed; the wrapper's raise one id beyond
+    the largest R. Times at ``RELABEL_TIMED``; returns those at ``main``
+    with the route."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+
+    min_area = POSTPROCESS.min_area
+    r_max = tl.relabel_max_segments(tl._relabel_capacity(dev)[0])
+    for where, lab_np, R, offset in relabel_cases(r_max, main, edges):
+        lab = on_card(lab_np, dev, offset)
+        plan = tl.remove_small_objects_plan(lab, R)
+        for m in (0, 1, min_area):
+            k_out, k_n = tl.remove_small_objects(lab, m, R)
+            again = tl.remove_small_objects(lab, m, R)
+            p_out, p_n = tl.remove_small_objects_plain(lab, m, R)
+            torch.cuda.synchronize()
+            record("remove_small_objects", max(max_err(k_out, p_out), max_err(k_n, p_n)), f"{where} min_area={m}")
+            check(torch.equal(k_out, again[0]) and torch.equal(k_n, again[1]),
+                  f"remove_small_objects differs between two calls at {where} min_area={m}")
+        say(f"  {where}: remove_small_objects bit-exact and the same twice at min_area 0, 1, {min_area} "
+            f"({plan.route}, clusters of {plan.cluster}; kept per frame at {min_area}: {sorted(set(k_n.tolist()))})")
+        del lab, k_out, k_n, again, p_out, p_n
+    try:
+        tl.remove_small_objects(torch.zeros((1, 8, 8), dtype=torch.int32, device=dev), min_area, r_max + 1)
+    except ValueError as e:
+        say(f"  remove_small_objects raises at R = {r_max + 1}: {e}")
+    else:
+        raise AssertionError(f"remove_small_objects took R = {r_max + 1}, beyond the plan's largest")
+    R = 4 * POSTPROCESS.max_regions
+    out = None
+    for shape in RELABEL_TIMED:
+        lab = torch.from_numpy(region_labels(shape, R, seed=2)).to(dev)
+        plan = tl.remove_small_objects_plan(lab, R)
+        t = relabel_times(lab, R, min_area)
+        say(f"  remove_small_objects at {shape}, R = {R} ({plan.route}, clusters of {plan.cluster}): queue full, "
+            f"L2 cold {t['queued_l2_cold_ms']:.4f} ms, L2 warm {t['queued_ms']:.4f} ms; host-paced {t['ms']:.4f} "
+            f"ms; plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms")
+        if out is None:
+            out = dict(t, plan_route=plan.route, cluster=plan.cluster)
+        del lab
+    return out
+
+
 def phase_kernels(dev, main=(8, 1024, 1280),
                   edges=((8, 1024, 1), (8, 1024, 1000), (8, 1, 1280), (4, 64, 37), (2, 96, 1277))) -> dict:
     """K1, K2, K4, ``ccl_fixpoint`` and K8 against their plain versions on
@@ -525,24 +657,7 @@ def phase_kernels(dev, main=(8, 1024, 1280),
             f"labels), ccl_fixpoint (4/8-connected, sweeps {sorted(set(sweeps))}) bit-exact, "
             f"fg {float(fg_np.mean()):.3f}")
 
-    R, min_area = 4 * POSTPROCESS.max_regions, POSTPROCESS.min_area
-    lab_cases = [(f"{main} rectangles", region_labels(main, R, seed=2)),
-                 (f"{main} background", np.zeros(main, np.int32)),
-                 (f"{main} one region", np.ones(main, np.int32))]
-    lab_cases += [(f"{s} rectangles", region_labels(s, R, seed=3)) for s in edges]
-    for where, lab_np in lab_cases:
-        lab = torch.from_numpy(lab_np).to(dev)
-        k_out, k_n = tl.remove_small_objects(lab, min_area, R)
-        p_out, p_n = tl.remove_small_objects_plain(lab, min_area, R)
-        torch.cuda.synchronize()
-        record("remove_small_objects", max(max_err(k_out, p_out), max_err(k_n, p_n)), where)
-        say(f"  {where}: remove_small_objects bit-exact (kept per frame {k_n.tolist()})")
-        if where == f"{main} rectangles":
-            out["remove_small_objects"] = dict(
-                ms=cuda_ms(lambda: tl.remove_small_objects(lab, min_area, R)),
-                plain_ms=cuda_ms(lambda: tl.remove_small_objects_plain(lab, min_area, R)),
-                bound_ms=bound_ms("remove_small_objects", lab.numel()), library_ms=None)
-
+    out["remove_small_objects"] = phase_relabel(dev, main, edges, record)
     out["ccl_fixpoint"] = fixpoint_timings(dev)
     for name, m in out.items():
         m.update(max_abs_err=err[name], bound_by="bytes")
@@ -884,21 +999,37 @@ def phase_group_norm(dev) -> dict:
     return {"group_norm": dict(main, max_abs_err=worst[torch.bfloat16], bound_by="bytes")}
 
 
+def norm_ops(*args: str) -> dict:
+    """``tools/norm_ops.py`` with ``args`` in a process of its own: its JSON
+    line, after printing the profiler sessions it discarded as blind."""
+    out = subprocess.run([sys.executable, "-m", "maze_image_processing_pipeline_tpu_torch.tools.norm_ops", *args],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"tools/norm_ops.py {' '.join(args)} failed: {out.stderr[-3000:]}")
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    say(f"  tools/norm_ops.py {' '.join(args)}: profiler sessions discarded as blind (no device activity, not even "
+        f"the control kernel): {result['blind_sessions']}")
+    return result
+
+
 def phase_norm_ops() -> None:
     """The device operations of one K5 and one K6 call at the path's, the
-    train step's and the distillation's shapes, both layouts
-    (``tools/norm_ops.py`` under ``torch.profiler``, in a process of its
-    own): each must be one kernel, with no memset or copy."""
-    out = subprocess.run([sys.executable, "-m", "maze_image_processing_pipeline_tpu_torch.tools.norm_ops"],
-                         cwd=REPO, capture_output=True, text=True, timeout=600)
-    check(out.returncode == 0, f"tools/norm_ops.py failed: {out.stderr[-3000:]}")
-    for case in json.loads(out.stdout.strip().splitlines()[-1])["cases"]:
+    train step's and the distillation's shapes, both layouts, and of one K8
+    call at ``RELABEL_TIMED`` (``tools/norm_ops.py`` under
+    ``torch.profiler``, in processes of their own): each must be one kernel,
+    with no memset or copy."""
+    for case in norm_ops()["cases"]:
         where = f"{tuple(case['shape'])} bfloat16 {case['layout']}"
         for kind, name in (("fwd", "gn_fwd_kernel"), ("bwd", "gn_bwd_kernel")):
             ops = case[kind]
             check(len(ops) == 1 and sum(ops.values()) == 1 and name in next(iter(ops)),
                   f"{name} at {where}: device operations {ops}")
         say(f"  {where}: one device operation a call, K5 ({case['mode_fwd']}) and K6 ({case['mode_bwd']})")
+    for case in norm_ops("--relabel")["relabel"]:
+        ops = case["ops"]
+        check(len(ops) == 1 and sum(ops.values()) == 1 and "relabel_cluster_kernel" in next(iter(ops)),
+              f"remove_small_objects at {tuple(case['shape'])}: device operations {ops}")
+        say(f"  {tuple(case['shape'])}: one device operation a remove_small_objects call ({case['route']}, "
+            f"clusters of {case['cluster']})")
 
 
 def within_f32(got, ref) -> bool:
@@ -1016,8 +1147,9 @@ def phase_anchor(dev) -> dict:
     (8, 1024, 1024) bool beside ``Tensor.clone()`` (the library call: a
     contiguous copy of a contiguous tensor) and ``.contiguous()`` of the
     transposed view, and both with the queue kept full (``queued_ms``: the
-    device's time without the host's per-call time); the bound is
-    2 · bytes / 3.35 TB/s."""
+    device's time without the host's per-call time), on one input (L2 warm)
+    and rotating over copies that exceed the L2 (``l2_cold_inputs``); the
+    bound is 2 · bytes / 3.35 TB/s."""
     import torch
 
     from maze_image_processing_pipeline_tpu_torch.ops.anchor import anchor, anchor_plain
@@ -1047,15 +1179,21 @@ def phase_anchor(dev) -> dict:
     for shape in ANCHOR_SHAPES[:2]:
         mask = torch.rand(shape, device=dev, generator=gen) < 0.3
         tview = mask.transpose(1, 2)
+        cold = l2_cold_inputs(mask)
         t = dict(ms=cuda_ms(lambda: anchor(mask)), plain_ms=cuda_ms(lambda: anchor_plain(mask)),
                  library_ms=cuda_ms(lambda: mask.clone()), bound_ms=bound_ms("anchor", mask.numel()),
-                 queued_ms=queued_ms(lambda: anchor(mask)), library_queued_ms=queued_ms(lambda: mask.clone()))
+                 queued_ms=queued_ms(lambda: anchor(mask)), library_queued_ms=queued_ms(lambda: mask.clone()),
+                 queued_l2_cold_ms=queued_ms(anchor, iters=50, inputs=cold),
+                 library_queued_l2_cold_ms=queued_ms(lambda m: m.clone(), iters=50, inputs=cold))
+        del cold
         t_view = cuda_ms(lambda: anchor(tview))
         t_cont = cuda_ms(lambda: tview.contiguous())
         say(f"  anchor at {shape} bool: {t['ms']:.4f} ms, plain (contiguous().clone()) {t['plain_ms']:.4f} ms, "
             f"Tensor.clone() {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (2 x {mask.numel() / 1e6:.1f} MB"
             f"{', below a launch latency' if t['bound_ms'] < 0.01 else ''}); with the queue full (device time "
-            f"back to back): anchor {t['queued_ms']:.4f} ms, Tensor.clone() {t['library_queued_ms']:.4f} ms; "
+            f"back to back): anchor {t['queued_ms']:.4f} ms, Tensor.clone() {t['library_queued_ms']:.4f} ms; with "
+            f"the queue full and L2 cold: anchor {t['queued_l2_cold_ms']:.4f} ms, Tensor.clone() "
+            f"{t['library_queued_l2_cold_ms']:.4f} ms; "
             f"transposed view: anchor {t_view:.4f} ms, .contiguous() {t_cont:.4f} ms")
         if shape == ANCHOR_SHAPES[0]:
             out["anchor"] = dict(t, max_abs_err=0, bound_by="bytes")

@@ -48,7 +48,8 @@ SIGNATURES = {
     "cumsum_rows_launch": [_vp, _vp, _ll, _i, _vp],
     "vertical_pass_launch": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     "ccl_fixpoint_launch": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
-    "remove_small_objects_launch": [_vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _vp],
+    "remove_small_objects_launch": [_vp, _vp, _vp, _i, _ll, _i, _i, _i, _ll, _ll, _vp],
+    "relabel_capacity": [_vp],
     "group_norm_capacity": [_i, _i, _i, _i, _vp],
     "group_norm_launch": [_vp] * 7 + [_i, _i, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _f, _vp],
     "group_norm_bwd_launch": [_vp] * 9 + [_i, _i, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _vp],

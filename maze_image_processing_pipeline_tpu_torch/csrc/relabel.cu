@@ -6,7 +6,7 @@
 // maze_image_processing_pipeline_tpu/ops/label.py). For each frame, with R
 // ids:
 //
-//   area[id]  = number of pixels with that id, for ids in [0, R);
+//   area[id]  = number of pixels with that id, for ids in (0, R);
 //   keep[id]  = area[id] >= min_area, and id 0 is never kept;
 //   new_ids   = cumsum(keep) * keep;
 //   out       = new_ids[label] for labels in [0, R), else 0;
@@ -14,160 +14,403 @@
 //
 // Bound: device-memory bandwidth. The function reads the labels (4 B/px)
 // and writes the result (4 B/px): 8 B/px, 84 MB at (8, 1024, 1280), 25 us
-// at 3.35 TB/s. This design reads the labels twice (12 B/px).
+// at 3.35 TB/s. A frame's relabel needs the areas of the whole frame, the
+// one dependency that splits the work in two.
 //
-// Design, three launches on one stream:
-// 1. area_hist_kernel: one block per (chunk of kChunk pixels, frame). R
-//    int32 bins in shared memory, shared atomics aggregated per warp
-//    (__match_any_sync: one atomic per distinct id in a warp, as plankton
-//    regions are runs of equal ids), then one global atomicAdd per non-zero
-//    bin into the (B, R) area table. Integer atomics make the sums exact and
-//    deterministic. Id 0 is not counted: it is never kept, whatever its area,
-//    and it is most of a frame.
-// 2. keep_table_kernel: one block per frame builds new_ids and n with a
-//    block-wide prefix sum over R.
-// 3. relabel_kernel: one block per (chunk, frame) copies the frame's (R,)
-//    table into shared memory; one gather per pixel.
-// Every pass reads coalesced; no pass allocates (the wrapper passes the
-// zeroed area table and the new_ids scratch).
+// Design: one launch a call, one thread-block cluster a frame (the TPU
+// kernel's two-phase grid over the same strips becomes two phases of one
+// cluster, with the frame held in the cluster's shared memory between
+// them).
+// 1. Each of the cluster's `cs` blocks takes a share of the frame's pixels
+//    (a multiple of 8), reads it once with 16-B loads (each warp issues its
+//    next four loads before it counts the current four, so that loads stay
+//    in flight: one 1024-thread block an SM), stages it into its shared
+//    memory as uint8 where R <= 256, else uint16 (ids outside [0, R)
+//    become 0, which is exact: they map to 0 and are not counted, and R's
+//    bins fit a block, so R is far below 65536), and counts it into R
+//    int32 bins of its own. Shared atomics are aggregated per warp
+//    (__match_any_sync over the ids that fill a thread's 4-pixel vector:
+//    plankton frames are runs of equal ids); id 0 is not counted (never
+//    kept, and most of a frame).
+// 2. cluster barrier; each block sums the cluster's `cs` bin arrays through
+//    distributed shared memory (no atomics to device memory: the sums are
+//    exact and deterministic) and builds the frame's new_ids table with its
+//    own block-wide prefix sum over R. Rank 0 writes n. Each block then
+//    arrives at a second cluster barrier, and waits on it only before it
+//    exits, so that no block's bins vanish while another still reads them.
+// 3. Each block relabels its staged share from shared memory and writes
+//    int32 with 16-B stores.
+// Where a share does not fit a block's shared memory (the dense haul's
+// (8, 2048, 2560) frames: 5.2 MB of uint8 against 16 x 227 KB), the block
+// stages the share's first `stage` pixels and reads the rest again from
+// device memory in step 3: 12 B/px for that rest, still one launch. The
+// plan (cluster size, staged pixels, shared bytes) is chosen in Python
+// (ops/label.py:relabel_plan) from the card's limits that
+// `relabel_capacity` reports: on an H100 SXM only 7 clusters of 16 blocks
+// fit at once, so loki's 8 frames of 1024 x 1280 (1.3 MB of uint8 each)
+// take clusters of 8, one wave of 64 SMs, each label read once. A cluster
+// waits only on itself: clusters that do not fit at once run later, with
+// no workspace, counter or co-residency across clusters. Rows that are not
+// 16-B aligned (H*W not a multiple of 4, or an offset view) take the same
+// steps one pixel at a time.
 //
-// The entry point returns the first non-zero cudaGetLastError() code of
-// its launches (0 = launched).
+// The entry points return a CUDA error code (0 = launched / answered).
 
+#include <cooperative_groups.h>
+
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kChunk = 16384;  // pixels per histogram / relabel block
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;  // 16-B loads a thread an iteration
 constexpr unsigned kFull = 0xffffffffu;
-constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kMaxDevices = 64;
+constexpr int kScratchInts = kWarps + 8;  // the scan's warp totals and carry
+constexpr int kClusterSizes[] = {1, 2, 4, 8, 16};
+constexpr int kNumSizes = 5;
 
-__global__ void area_hist_kernel(const int32_t* __restrict__ lab,
-                                 int32_t* __restrict__ areas, long long HW,
-                                 int R) {
-  extern __shared__ int32_t bins[];
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < R; i += blockDim.x) bins[i] = 0;
-  __syncthreads();
-  const long long start = static_cast<long long>(blockIdx.x) * kChunk;
-  const long long end = min(HW, start + kChunk);
-  const int32_t* l = lab + static_cast<long long>(b) * HW;
-  const int lane = threadIdx.x & 31;
-  for (long long i = start + threadIdx.x; i < end; i += blockDim.x) {
-    const int v = l[i];
-    const unsigned peers = __match_any_sync(__activemask(), v);
-    if (v > 0 && v < R && lane == __ffs(peers) - 1) {
-      atomicAdd(&bins[v], __popc(peers));
+__host__ __device__ inline size_t r16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Bytes a staged label takes: uint8 where R <= 256, else uint16.
+__host__ __device__ inline int stage_bytes(int R) { return R <= 256 ? 1 : 2; }
+
+// Byte offsets in a block's dynamic shared memory (mirrored by
+// ops/label.py:relabel_fixed_bytes): R int32 bins, R uint16 new ids, the
+// scan's scratch, then `stage` staged labels.
+struct Layout {
+  size_t table, scratch, stage, total;
+};
+
+__host__ __device__ inline Layout layout(int R, long long stage) {
+  Layout l;
+  l.table = r16(4 * static_cast<size_t>(R));
+  l.scratch = l.table + r16(2 * static_cast<size_t>(R));
+  l.stage = l.scratch + r16(4 * kScratchInts);
+  l.total = l.stage + r16(static_cast<size_t>(stage_bytes(R)) * stage);
+  return l;
+}
+
+struct Params {
+  const int32_t* lab;
+  int32_t* out;
+  int32_t* n;
+  long long HW;
+  long long share;  // pixels a block (a multiple of 8)
+  long long stage;  // pixels a block stages (a multiple of 8, <= share)
+  int R;
+  int min_area;
+  int cs;  // blocks a cluster
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ int in_range(int v, int R) { return (v > 0 && v < R) ? v : 0; }
+
+// Counts a thread's run of up to 4 pixels into `bins`. The warp's lanes
+// whose 4 pixels share one id add them with one atomic per distinct id
+// (`key` -1 marks a thread of mixed ids, which adds its own runs). Called
+// by all lanes of a warp together.
+__device__ __forceinline__ void count4(int32_t* bins, int a, int b, int c, int d) {
+  const int key = (a == b && b == c && c == d) ? a : -1;
+  if (!__any_sync(kFull, key != 0)) return;
+  const unsigned peers = __match_any_sync(kFull, key);
+  if (key > 0) {
+    if ((threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&bins[key], 4 * __popc(peers));
+  } else if (key < 0) {
+    int prev = a, run = 1;
+    const int rest[3] = {b, c, d};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (rest[k] == prev) {
+        ++run;
+      } else {
+        if (prev) atomicAdd(&bins[prev], run);
+        prev = rest[k];
+        run = 1;
+      }
     }
-  }
-  __syncthreads();
-  int32_t* a = areas + static_cast<long long>(b) * R;
-  for (int i = threadIdx.x; i < R; i += blockDim.x) {
-    if (bins[i]) atomicAdd(&a[i], bins[i]);
+    if (prev) atomicAdd(&bins[prev], run);
   }
 }
 
-__global__ void keep_table_kernel(const int32_t* __restrict__ areas,
-                                  int32_t* __restrict__ new_ids,
-                                  int32_t* __restrict__ n_out, int R,
-                                  int min_area) {
-  __shared__ int32_t warp_sums[32];
-  __shared__ int32_t carry_s;
-  const int b = blockIdx.x;
+// Inclusive prefix sum of x over the block, plus *carry; *carry becomes
+// the total so far.
+__device__ int block_scan(int x, int32_t* warp_sums, int32_t* carry) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int32_t* a = areas + static_cast<long long>(b) * R;
-  int32_t* t = new_ids + static_cast<long long>(b) * R;
-  if (threadIdx.x == 0) carry_s = 0;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
-  for (int base = 0; base < R; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int keep = (i > 0 && i < R && a[i] >= min_area) ? 1 : 0;
-    int x = keep;  // inclusive scan within the warp
+  if (warp == 0) {
+    int w = lane < kWarps ? warp_sums[lane] : 0;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, x, d);
-      if (lane >= d) x += y;
+      const int y = __shfl_up_sync(kFull, w, d);
+      if (lane >= d) w += y;
     }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {  // inclusive scan of the warp totals
-      int w = lane < n_warps ? warp_sums[lane] : 0;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(kFull, w, d);
-        if (lane >= d) w += y;
-      }
-      if (lane < n_warps) warp_sums[lane] = w;
-    }
-    __syncthreads();
-    const int incl = x + (warp > 0 ? warp_sums[warp - 1] : 0) + carry_s;
-    if (i < R) t[i] = keep ? incl : 0;
-    __syncthreads();  // carry_s and warp_sums are read before they change
-    if (threadIdx.x == blockDim.x - 1) carry_s = incl;
-    __syncthreads();
+    if (lane < kWarps) warp_sums[lane] = w;
   }
-  if (threadIdx.x == 0) n_out[b] = carry_s;
+  __syncthreads();
+  const int incl = x + (warp > 0 ? warp_sums[warp - 1] : 0) + *carry;
+  __syncthreads();  // carry and warp_sums are read before they change
+  if (threadIdx.x == kThreads - 1) *carry = incl;
+  __syncthreads();
+  return incl;
 }
 
-__global__ void relabel_kernel(const int32_t* __restrict__ lab,
-                               const int32_t* __restrict__ new_ids,
-                               int32_t* __restrict__ out, long long HW, int R) {
-  extern __shared__ int32_t table[];
-  const int b = blockIdx.y;
-  const int32_t* t = new_ids + static_cast<long long>(b) * R;
-  for (int i = threadIdx.x; i < R; i += blockDim.x) table[i] = t[i];
+// Four staged labels (ids already in [0, R)) as one store.
+__device__ __forceinline__ void stage4(uint8_t* p, int a, int b, int c, int d) {
+  *reinterpret_cast<uchar4*>(p) = make_uchar4(a, b, c, d);
+}
+__device__ __forceinline__ void stage4(uint16_t* p, int a, int b, int c, int d) {
+  *reinterpret_cast<ushort4*>(p) = make_ushort4(a, b, c, d);
+}
+__device__ __forceinline__ int4 relabel4(const uint8_t* p, const uint16_t* table) {
+  const uchar4 s = *reinterpret_cast<const uchar4*>(p);
+  return make_int4(table[s.x], table[s.y], table[s.z], table[s.w]);
+}
+__device__ __forceinline__ int4 relabel4(const uint16_t* p, const uint16_t* table) {
+  const ushort4 s = *reinterpret_cast<const ushort4*>(p);
+  return make_int4(table[s.x], table[s.y], table[s.z], table[s.w]);
+}
+
+// StageT: uint8_t where R <= 256, else uint16_t. kVec: the labels and the
+// output are 16-B aligned and H*W is a multiple of 4, so every share is
+// whole 4-pixel vectors.
+template <typename StageT, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1) relabel_cluster_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Layout L = layout(p.R, p.stage);
+  int32_t* bins = reinterpret_cast<int32_t*>(smem_raw);
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem_raw + L.table);
+  int32_t* scratch = reinterpret_cast<int32_t*>(smem_raw + L.scratch);
+  StageT* staged = reinterpret_cast<StageT*>(smem_raw + L.stage);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long frame = blockIdx.x / p.cs;
+  const int R = p.R;
+  const int32_t* lab = p.lab + frame * p.HW;
+  int32_t* out = p.out + frame * p.HW;
+  const long long lo = min(p.HW, rank * p.share);
+  const long long hi = min(p.HW, lo + p.share);
+  const long long mid = min(hi, lo + p.stage);  // [lo, mid) staged, [mid, hi) read again in step 3
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  for (int i = threadIdx.x; i < R; i += kThreads) bins[i] = 0;
+  if (threadIdx.x == 0) scratch[kWarps] = 0;
   __syncthreads();
-  const long long start = static_cast<long long>(blockIdx.x) * kChunk;
-  const long long end = min(HW, start + kChunk);
-  const int32_t* l = lab + static_cast<long long>(b) * HW;
-  int32_t* o = out + static_cast<long long>(b) * HW;
-  for (long long i = start + threadIdx.x; i < end; i += blockDim.x) {
-    const int v = l[i];
-    o[i] = (v >= 0 && v < R) ? table[v] : 0;
+
+  // 1. Read the share once; stage [lo, mid); count. A warp takes 32 *
+  // kUnroll consecutive vectors an iteration (a warp-uniform trip count:
+  // its lanes call count4 together) and loads the next iteration's before
+  // it counts these.
+  if (kVec) {
+    const int4* lab4 = reinterpret_cast<const int4*>(lab);
+    const long long v0 = lo >> 2, v1 = hi >> 2, vmid = mid >> 2;
+    constexpr long long kStride = kThreads * kUnroll;
+    long long c = v0 + warp * 32 * kUnroll;
+    int4 next[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = c + u * 32 + lane;
+      next[u] = j < v1 ? __ldg(lab4 + j) : make_int4(0, 0, 0, 0);
+    }
+    for (; c < v1; c += kStride) {
+      int4 q[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        q[u] = next[u];
+        const long long j = c + kStride + u * 32 + lane;
+        next[u] = j < v1 ? __ldg(lab4 + j) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long j = c + u * 32 + lane;
+        const int a = in_range(q[u].x, R), b = in_range(q[u].y, R);
+        const int e = in_range(q[u].z, R), d = in_range(q[u].w, R);
+        if (j < vmid) stage4(staged + 4 * (j - v0), a, b, e, d);
+        count4(bins, a, b, e, d);
+      }
+    }
+  } else {
+    for (long long w = lo + warp * 32; w < hi; w += kThreads) {
+      const long long i = w + lane;
+      const int v = i < hi ? in_range(lab[i], R) : 0;
+      if (i < mid) staged[i - lo] = static_cast<StageT>(v);
+      if (__any_sync(kFull, v != 0)) {
+        const unsigned peers = __match_any_sync(kFull, v);
+        if (v > 0 && lane == __ffs(peers) - 1) atomicAdd(&bins[v], __popc(peers));
+      }
+    }
   }
+  cluster.sync();
+
+  // 2. The frame's areas from the cluster's bins, the keep table, n.
+  int32_t* carry = scratch + kWarps;
+  for (int base = 0; base < R; base += kThreads) {
+    const int i = base + threadIdx.x;
+    int area = 0;
+    if (i < R) {
+#pragma unroll 4
+      for (int r = 0; r < p.cs; ++r) area += cluster.map_shared_rank(bins, r)[i];
+    }
+    const int keep = (i > 0 && i < R && area >= p.min_area) ? 1 : 0;
+    const int incl = block_scan(keep, scratch, carry);
+    if (i < R) table[i] = static_cast<uint16_t>(keep ? incl : 0);
+  }
+  cluster_arrive();  // this block has read the cluster's bins
+  if (rank == 0 && threadIdx.x == 0) p.n[frame] = *carry;
+  __syncthreads();  // the table is whole
+
+  // 3. Relabel: the staged part from shared memory, the rest read again.
+  if (kVec) {
+    int4* out4 = reinterpret_cast<int4*>(out);
+    const int4* lab4 = reinterpret_cast<const int4*>(lab);
+    const long long v0 = lo >> 2, v1 = hi >> 2, vmid = mid >> 2;
+    for (long long j = v0 + threadIdx.x; j < vmid; j += kThreads) out4[j] = relabel4(staged + 4 * (j - v0), table);
+    for (long long j = vmid + threadIdx.x; j < v1; j += kThreads) {
+      const int4 q = __ldg(lab4 + j);
+      out4[j] = make_int4(table[in_range(q.x, R)], table[in_range(q.y, R)], table[in_range(q.z, R)],
+                          table[in_range(q.w, R)]);
+    }
+  } else {
+    for (long long i = lo + threadIdx.x; i < mid; i += kThreads) out[i] = table[staged[i - lo]];
+    for (long long i = mid + threadIdx.x; i < hi; i += kThreads) out[i] = table[in_range(lab[i], R)];
+  }
+  cluster_wait();  // no block leaves while another reads its bins
+}
+
+struct Info {
+  int smem;  // dynamic shared bytes a block can take
+  int sms;
+  int active[kNumSizes];  // clusters of each kClusterSizes size co-resident at `smem` bytes a block
+};
+
+// The card's limits, asked once per device; sets both kernels' attributes
+// (the largest dynamic shared memory, cluster sizes beyond 8).
+int info(Info* out) {
+  static std::mutex mu;
+  static Info cache[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  std::lock_guard<std::mutex> lock(mu);
+  Info& c = cache[dev];
+  if (c.smem == 0) {
+    int optin = 0, sms = 0;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    Info in{optin / 16 * 16, sms, {}};
+    const void* kernels[] = {reinterpret_cast<const void*>(relabel_cluster_kernel<uint8_t, true>),
+                             reinterpret_cast<const void*>(relabel_cluster_kernel<uint8_t, false>),
+                             reinterpret_cast<const void*>(relabel_cluster_kernel<uint16_t, true>),
+                             reinterpret_cast<const void*>(relabel_cluster_kernel<uint16_t, false>)};
+    for (const void* k : kernels) {
+      e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
+      if (e == cudaSuccess) e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    for (int s = 0; s < kNumSizes; ++s) {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = kClusterSizes[s];
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.gridDim = dim3(kClusterSizes[s]);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = in.smem;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      int n = 0;
+      e = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(relabel_cluster_kernel<uint16_t, true>),
+                                         &cfg);
+      if (e != cudaSuccess) {
+        cudaGetLastError();  // a size the card refuses: no clusters of it
+        n = 0;
+      }
+      in.active[s] = n;
+    }
+    c = in;
+  }
+  *out = c;
+  return 0;
 }
 
 }  // namespace
 
-// lab, out: (B, H*W) int32; areas: (B, R) int32, zeroed by the caller;
-// new_ids: (B, R) int32 scratch; n: (B,) int32. All contiguous.
-extern "C" int remove_small_objects_launch(const void* lab, void* out,
-                                           void* areas, void* new_ids, void* n,
-                                           int B, long long HW, int R,
-                                           int min_area, void* stream) {
+// out[0]: dynamic shared bytes a block can take; out[1]: SMs; out[2 + s]:
+// clusters of 1, 2, 4, 8, 16 blocks of that many bytes co-resident.
+extern "C" int relabel_capacity(int* out) {
+  Info in{};
+  if (const int err = info(&in)) return err;
+  out[0] = in.smem;
+  out[1] = in.sms;
+  for (int s = 0; s < kNumSizes; ++s) out[2 + s] = in.active[s];
+  return 0;
+}
+
+// lab, out: (B, H*W) int32, contiguous; n: (B,) int32. The plan
+// (ops/label.py:relabel_plan): clusters of `cs` blocks, `share` pixels a
+// block (a multiple of 8, cs * share >= H*W), the first `stage` of them
+// staged (a multiple of 8; stage == share: each label read once), as uint8
+// where R <= 256, else uint16.
+extern "C" int remove_small_objects_launch(const void* lab, void* out, void* n, int B, long long HW, int R,
+                                           int min_area, int cs, long long share, long long stage,
+                                           void* stream) {
   if (B <= 0) return 0;
-  if (R <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(R) * sizeof(int32_t);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        area_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(relabel_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    }
-    if (e != cudaSuccess) return static_cast<int>(e);
+  Info in{};
+  if (const int err = info(&in)) return err;
+  const Layout L = layout(R, stage);
+  const bool size_ok = std::find(kClusterSizes, kClusterSizes + kNumSizes, cs) != kClusterSizes + kNumSizes;
+  if (R < 1 || R > 65536 || HW < 0 || !size_ok || share < 0 || share % 8 || stage < 0 || stage % 8 ||
+      stage > share || share * cs < HW || L.total > static_cast<size_t>(in.smem) ||
+      static_cast<long long>(B) * cs > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{static_cast<const int32_t*>(lab), static_cast<int32_t*>(out), static_cast<int32_t*>(n), HW, share,
+           stage, R, min_area, cs};
+  const bool vec = HW % 4 == 0 && reinterpret_cast<uintptr_t>(lab) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(static_cast<unsigned>(B * cs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e;
+  if (stage_bytes(R) == 1) {
+    e = vec ? cudaLaunchKernelEx(&cfg, relabel_cluster_kernel<uint8_t, true>, p)
+            : cudaLaunchKernelEx(&cfg, relabel_cluster_kernel<uint8_t, false>, p);
+  } else {
+    e = vec ? cudaLaunchKernelEx(&cfg, relabel_cluster_kernel<uint16_t, true>, p)
+            : cudaLaunchKernelEx(&cfg, relabel_cluster_kernel<uint16_t, false>, p);
   }
-  const auto* l = static_cast<const int32_t*>(lab);
-  auto* a = static_cast<int32_t*>(areas);
-  auto* t = static_cast<int32_t*>(new_ids);
-  const dim3 grid(static_cast<unsigned>((HW + kChunk - 1) / kChunk), B);
-  if (HW > 0) {
-    area_hist_kernel<<<grid, kThreads, smem, s>>>(l, a, HW, R);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  keep_table_kernel<<<B, kThreads, 0, s>>>(a, t, static_cast<int32_t*>(n), R,
-                                           min_area);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || HW <= 0) return static_cast<int>(e);
-  relabel_kernel<<<grid, kThreads, smem, s>>>(l, t, static_cast<int32_t*>(out),
-                                              HW, R);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

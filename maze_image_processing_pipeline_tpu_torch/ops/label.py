@@ -24,7 +24,10 @@ stays a device tensor.
 
 Region tables (areas, border contact, the id remap) use ``bincount`` and
 ``gather`` over the region axis instead of one-hot compares.
-:func:`remove_small_objects` is one CUDA kernel on the card (K8).
+:func:`remove_small_objects` is one CUDA launch on the card (K8,
+``csrc/relabel.cu``: one thread-block cluster a frame, each label read once
+wherever the frame fits the cluster's shared memory; :func:`relabel_plan`
+chooses the cluster size and the staged pixels).
 
 Each kernel's wrapper takes the plain PyTorch version (``*_plain``, in this
 module or :mod:`.row_scan`) for a tensor on the CPU; a CUDA tensor always
@@ -35,8 +38,11 @@ or does not launch. ``_fixpoint.launches``, ``vertical_pass.launches`` and
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 
@@ -49,6 +55,9 @@ __all__ = [
     "fixpoint_plain",
     "remove_small_objects",
     "remove_small_objects_plain",
+    "remove_small_objects_plan",
+    "relabel_plan",
+    "RelabelPlan",
     "clear_border",
     "region_areas",
 ]
@@ -283,6 +292,132 @@ def remove_small_objects_plain(
     return _relabel_keep(labels, keep), keep.sum(-1).to(torch.int32)
 
 
+# K8's cluster sizes (blocks a frame) and a block's shared scratch beyond
+# its R int32 bins and R uint16 new ids (csrc/relabel.cu: `layout`).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+_RELABEL_SCRATCH = 160
+# What a wave of clusters costs beyond its bytes (the launch, the barrier's
+# wait for the slowest block of a cluster, the table), counted as the bytes
+# a block moves meanwhile: about 4 us at about 30 GB/s an SM, the K8 block's
+# rate on an H100.
+_RELABEL_WAVE_BYTES = 131072
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def relabel_fixed_bytes(R: int) -> int:
+    """Shared bytes a K8 block needs beside its staged labels: R int32
+    bins, R uint16 new ids and the scan's scratch."""
+    return _r16(4 * R) + _r16(2 * R) + _RELABEL_SCRATCH
+
+
+def relabel_stage_bytes(R: int) -> int:
+    """Bytes of a staged label: uint8 where the ids fit (R <= 256), else
+    uint16."""
+    return 1 if R <= 256 else 2
+
+
+def relabel_max_segments(smem_block: int) -> int:
+    """The largest R whose bins and table fit a block of ``smem_block``
+    bytes of shared memory."""
+    R = (smem_block - _RELABEL_SCRATCH) // 6
+    while relabel_fixed_bytes(R + 1) <= smem_block:
+        R += 1
+    while R > 0 and relabel_fixed_bytes(R) > smem_block:
+        R -= 1
+    return R
+
+
+@dataclass(frozen=True)
+class RelabelPlan:
+    """How K8 runs a call: ``cluster`` blocks a frame, ``share`` pixels a
+    block, the first ``stage`` of them staged in its ``smem`` bytes of shared
+    memory."""
+
+    cluster: int
+    share: int
+    stage: int
+    smem: int
+
+    @property
+    def one_read(self) -> bool:
+        """Every share is staged: each label is read once from device
+        memory; else the unstaged rest of a share is read twice."""
+        return self.stage == self.share
+
+    @property
+    def route(self) -> str:
+        return "one read" if self.one_read else "two reads"
+
+
+@functools.lru_cache(maxsize=1024)
+def relabel_plan(B: int, HW: int, R: int, smem_block: int, active: Tuple[int, ...]) -> RelabelPlan:
+    """The one place K8 chooses its cluster size, staged pixels and shared
+    bytes, for B frames of HW pixels and R ids on a card whose blocks take
+    ``smem_block`` bytes of shared memory and that holds ``active[k]``
+    clusters of ``CLUSTER_SIZES[k]`` such blocks at once (``relabel_capacity``
+    of csrc/relabel.cu).
+
+    Each size's cost is the bytes a block moves (8 a pixel, 4 more for each
+    pixel read twice), the cluster's bins it sums (4 B an id a block) and a
+    wave's overhead (``_RELABEL_WAVE_BYTES``), times the waves of clusters
+    the frames need; the cheapest size wins, the smaller on a tie. A share
+    fits its block where it is at most what the block stages (uint8 labels
+    where R <= 256, else uint16): then each label is read once.
+    """
+    fixed = relabel_fixed_bytes(R)
+    if fixed > smem_block:
+        raise ValueError(
+            f"remove_small_objects: R = {R} ids need {fixed} bytes of shared memory a block (bins and table), "
+            f"the card gives {smem_block}"
+        )
+    per_px = relabel_stage_bytes(R)
+    cap = (smem_block - fixed) // per_px // 8 * 8  # pixels a block can stage
+    best = None
+    for cs, clusters in zip(CLUSTER_SIZES, active):
+        if clusters < 1:
+            continue
+        share = -(-HW // (8 * cs)) * 8  # pixels a block, a multiple of 8
+        stage = min(share, cap)
+        waves = -(-B // clusters)
+        cost = waves * (8 * share + 4 * (share - stage) + 4 * cs * R + _RELABEL_WAVE_BYTES)
+        if best is None or cost < best[0]:
+            best = (cost, RelabelPlan(cs, share, stage, fixed + _r16(per_px * stage)))
+    if best is None:
+        raise ValueError(f"remove_small_objects: the card runs no cluster of {CLUSTER_SIZES} blocks")
+    return best[1]
+
+
+_RELABEL_CAPACITY: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+
+
+def _relabel_capacity(device: torch.device) -> Tuple[int, Tuple[int, ...]]:
+    """(shared bytes a block, co-resident clusters of each size) of K8 on
+    ``device``: asked of the card once."""
+    cap = _RELABEL_CAPACITY.get(device.index)
+    if cap is None:
+        from .._build import kernels
+
+        out = (ctypes.c_int * (2 + len(CLUSTER_SIZES)))()
+        with torch.cuda.device(device):
+            err = kernels().relabel_capacity(ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"remove_small_objects: the kernel's occupancy query failed with CUDA error {err}")
+        cap = _RELABEL_CAPACITY[device.index] = (out[0], tuple(out[2:]))
+    return cap
+
+
+def remove_small_objects_plan(labels: torch.Tensor, num_segments: int) -> RelabelPlan:
+    """The plan K8 runs for ``labels`` (..., H, W) on the card."""
+    if labels.device.type != "cuda":
+        raise ValueError(f"remove_small_objects_plan: labels must lie on a CUDA device, got {labels.device}")
+    H, W = labels.shape[-2:]
+    smem_block, active = _relabel_capacity(labels.device)
+    return relabel_plan(math.prod(labels.shape[:-2]), H * W, num_segments, smem_block, active)
+
+
 def remove_small_objects(
     labels: torch.Tensor, min_area: int, num_segments: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -290,12 +425,15 @@ def remove_small_objects(
 
     Args:
         labels: int32 label frames (..., H, W).
-        min_area: smallest area kept; id 0 is never kept.
+        min_area: smallest area kept; id 0 is never kept (with ``min_area``
+            <= 0 every other id is kept, present or not).
         num_segments: R, the id range measured; ids outside [0, R) map to 0.
 
     Returns:
         (labels, n): int32 (..., H, W) with kept ids renumbered 1..n in id
-        order, and int32 (...,) the number kept.
+        order, and int32 (...,) the number kept. On the card one launch
+        (:func:`remove_small_objects_plan` shows its plan); it raises where
+        R's bins and table do not fit a block's shared memory.
     """
     if labels.dtype != torch.int32:
         raise TypeError(f"remove_small_objects: labels must be int32, got {labels.dtype}")
@@ -310,18 +448,17 @@ def remove_small_objects(
     batch_shape = labels.shape[:-2]
     B = math.prod(batch_shape)
     out = torch.empty_like(labels)
-    areas = torch.zeros((B, num_segments), dtype=torch.int32, device=labels.device)
-    new_ids = torch.empty_like(areas)
     n = torch.empty((B,), dtype=torch.int32, device=labels.device)
     if B == 0:
         return out, n.reshape(batch_shape)
+    plan = remove_small_objects_plan(labels, num_segments)
     from .._build import kernels
 
     with torch.cuda.device(labels.device):
         stream = torch.cuda.current_stream(labels.device).cuda_stream
         err = kernels().remove_small_objects_launch(
-            labels.data_ptr(), out.data_ptr(), areas.data_ptr(), new_ids.data_ptr(), n.data_ptr(),
-            B, H * W, num_segments, int(min_area), stream,
+            labels.data_ptr(), out.data_ptr(), n.data_ptr(), B, H * W, num_segments, int(min_area),
+            plan.cluster, plan.share, plan.stage, stream,
         )
     _raise_on("remove_small_objects", err)
     remove_small_objects.launches += 1

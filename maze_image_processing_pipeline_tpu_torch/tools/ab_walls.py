@@ -1,9 +1,10 @@
 """A/B walls of checkouts: the ``maze-ipp loki`` Runner's wall (or, with
-``--norms``, the GroupNorm kernels' times) for two or more checkouts of
-this repo, in turns, on one set of inputs::
+``--norms``, the GroupNorm kernels' times; with ``--relabel``, K8's) for two
+or more checkouts of this repo, in turns, on one set of inputs::
 
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] [--workdir DIR]
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --norms [--iters N]
+    python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --relabel [--iters N]
 
 The task is ``chip_smoke.py``'s phase 6: the standard haul's loki task
 (24 frames of 1024×1280, 20 vignettes a frame, a ``UNet(1, 32, 4)`` bf16 of
@@ -26,6 +27,19 @@ warm-up; beside it the time by CUDA events around calls paced by the host.
 Then the full-width train step of the checkout's
 ``chip_smoke.full_width_step`` (``UNet(2, 32, 4)`` bf16, batch 8 of 512²):
 ms a step over ten steps after three warm-ups.
+
+``--relabel`` times instead, in each TREE's process, K8
+(``remove_small_objects``, R = 256, min_area 30) on ``chip_smoke``'s
+rectangle label frames at ``RELABEL_SHAPES``: loki's frames (8, 1024,
+1280), the perf lab's (8, 1024, 1024) and the dense haul's (8, 2048,
+2560). Three times a shape, each the mean of ``--iters`` calls: queue full
+with L2 cold (the calls rotate over copies of the labels that together
+exceed twice the L2, ``chip_smoke.l2_cold_inputs``), queue full on one
+input (L2 warm), and CUDA events around calls paced by the host; each
+output is checked bit for bit against the plain version first. Every TREE
+is timed by the clock of the checkout that runs this tool (its
+``chip_smoke.py``, loaded by path), so that the trees differ only in their
+kernels; a tree whose wrapper shows its plan reports its route.
 """
 
 from __future__ import annotations
@@ -48,6 +62,11 @@ PATH = ((16, 32, 1024, 1024), (64, 32, 256, 256), (256, 32, 128, 128))
 TRAIN = ((8, 32, 512, 512), (8, 64, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64), (8, 512, 32, 32))
 DISTILL = ((8, 32, 128, 128), (8, 64, 64, 64), (8, 128, 32, 32), (8, 256, 16, 16), (8, 512, 8, 8))
 NORM_CASES = [("fwd", s) for s in PATH + TRAIN + DISTILL] + [("bwd", s) for s in TRAIN + DISTILL]
+
+# --relabel: K8's (B, H, W) on loki's path, in the perf lab and in the dense haul.
+RELABEL_SHAPES = ((8, 1024, 1280), (8, 1024, 1024), (8, 2048, 2560))
+RELABEL_R, RELABEL_MIN_AREA = 256, 30
+SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "chip_smoke.py")
 
 # Runs in the checkout's process: argv = data, model, output root, walls, segmentation.
 _WORKER = """
@@ -105,6 +124,30 @@ print("TIMES " + json.dumps(out), flush=True)
 """
 
 
+# --relabel, in the checkout's process: argv = chip_smoke.py to time by, shapes, R, min_area, iters.
+_RELABEL_WORKER = """
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location("smoke_clock", sys.argv[1])
+clock = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(clock)
+from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+shapes, R, min_area, iters = json.loads(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])
+dev = torch.device("cuda", 0)
+out = {}
+for shape in shapes:
+    lab = torch.from_numpy(clock.region_labels(tuple(shape), R, seed=2)).to(dev)
+    fn = lambda x: tl.remove_small_objects(x, min_area, R)
+    got, ref = fn(lab), tl.remove_small_objects_plain(lab, min_area, R)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), f"K8 differs from its plain version at {shape}"
+    cold = clock.l2_cold_inputs(lab)
+    plan = getattr(tl, "remove_small_objects_plan", None)
+    out[str(tuple(shape))] = [clock.queued_ms(fn, iters, cold), clock.queued_ms(lambda: fn(lab), iters),
+                              clock.cuda_ms(lambda: fn(lab), iters), plan(lab, R).route if plan else "three launches"]
+    del lab, cold, got, ref
+print("TIMES " + json.dumps(out), flush=True)
+"""
+
+
 def run_worker(tree: str, worker: str, argv: List[str], marker: str):
     """Runs ``worker`` (Python source) with ``argv`` in a process of its own
     that imports ``tree``'s package; returns the JSON of its line that
@@ -127,25 +170,32 @@ def run_norms(tree: str, iters: int) -> Dict[str, List[float]]:
     return run_worker(tree, _NORMS_WORKER, [json.dumps(NORM_CASES), str(iters)], "TIMES")
 
 
+def run_relabel(tree: str, iters: int) -> Dict[str, list]:
+    """K8's times of one run of ``tree``'s package (``--relabel``)."""
+    argv = [SMOKE, json.dumps(RELABEL_SHAPES), str(RELABEL_R), str(RELABEL_MIN_AREA), str(iters)]
+    return run_worker(tree, _RELABEL_WORKER, argv, "TIMES")
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts of this repo, in the order they run")
     ap.add_argument("--workdir", default=None, help="inputs and outputs (default: a new temporary directory)")
     ap.add_argument("--norms", action="store_true", help="time the GroupNorm kernels instead of the loki task")
-    ap.add_argument("--iters", type=int, default=50, help="--norms: timed calls a case (default 50)")
+    ap.add_argument("--relabel", action="store_true", help="time K8 (small-object removal) instead")
+    ap.add_argument("--iters", type=int, default=50, help="--norms, --relabel: timed calls a case (default 50)")
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: the walls are taken on the card")
-    if args.norms:
+    if args.norms or args.relabel:
         print(f"device={torch.cuda.get_device_name(0)}", flush=True)
-        times: Dict[str, List[Dict[str, List[float]]]] = {}
+        times: Dict[str, List[Dict[str, list]]] = {}
         for tree in map(os.path.abspath, args.trees):
-            t = run_norms(tree, args.iters)
+            t = run_relabel(tree, args.iters) if args.relabel else run_norms(tree, args.iters)
             times.setdefault(tree, []).append(t)
-            print(f"{tree}: " + ", ".join(f"{k} {' / '.join(f'{v:.4f}' for v in vs)}" for k, vs in t.items()),
-                  flush=True)
+            print(f"{tree}: " + ", ".join(f"{k} {' / '.join(v if isinstance(v, str) else f'{v:.4f}' for v in vs)}"
+                                          for k, vs in t.items()), flush=True)
         print(json.dumps(times), flush=True)
         return times
     work = args.workdir or tempfile.mkdtemp(prefix="ab_walls_")

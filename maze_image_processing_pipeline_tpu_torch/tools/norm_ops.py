@@ -1,22 +1,26 @@
 """The device operations one call of K5 (``group_norm``) and of K6
-(``group_norm_bwd``) makes on the card, counted by ``torch.profiler``.
+(``group_norm_bwd``), or with ``--relabel`` of K8 (``remove_small_objects``),
+makes on the card, counted by ``torch.profiler``.
 
     python -m maze_image_processing_pipeline_tpu_torch.tools.norm_ops [--shape B,C,H,W ...]
+    python -m maze_image_processing_pipeline_tpu_torch.tools.norm_ops --relabel [--shape B,H,W ...]
 
 For each shape (default: the norms of the haul's path, of the full-width
 train step and of the distillation's U-Net), in NCHW and channels_last,
 bfloat16, G = 8: one warm-up call of each kernel (the build, the occupancy
-query, the counters' buffer), then one call under ``torch.profiler``. The
-profiler is warmed once a process (a first session, discarded), and each
-session synchronises and pauses 2 ms before and after the call, so that
-the call's device activity lies inside the session's window (one session
-on the card that launched the kernel once reported no device activity at
-all; a kernel that starts at the edge of the window is the suspect, not
-confirmed). Prints one JSON line, ``{"cases": [{"shape", "layout",
-"mode_fwd", "mode_bwd", "fwd": {activity: count}, "bwd": {...}}, ...]}``:
-every kernel, memset and copy on the device during the call. Ends with
-``os._exit(0)``: a process that ran ``torch.profiler`` on the card may not
-exit by itself.
+query, the counters' buffer), then one call under ``torch.profiler``, in a
+session that runs a control kernel first and counts only where it saw
+the control (``device_activities``); the session synchronises and pauses
+2 ms before and after the call. Prints one JSON line,
+``{"cases": [{"shape", "layout", "mode_fwd", "mode_bwd", "fwd": {activity:
+count}, "bwd": {...}}, ...], "blind_sessions": n}``: every kernel, memset
+and copy on the device during the call, and the sessions discarded. With
+``--relabel``, for each shape (default ``RELABEL_SHAPES``: loki's frames,
+the perf lab's and the dense haul's) int32 labels with ids in [-2, R + 44),
+R = 256, min_area 30: one warm-up call, then one under the profiler;
+prints ``{"relabel": [{"shape", "route", "cluster", "ops": {activity:
+count}}, ...], "blind_sessions": n}``. Ends with ``os._exit(0)``: a
+process that ran ``torch.profiler`` on the card may not exit by itself.
 """
 
 from __future__ import annotations
@@ -34,23 +38,45 @@ SHAPES = (
 )
 
 
+RELABEL_SHAPES = ((8, 1024, 1280), (8, 1024, 1024), (8, 2048, 2560))
+RELABEL_R, RELABEL_MIN_AREA = 256, 30
+
 PAUSE_S = 0.002  # idle time in a session before and after the profiled call
+BLIND_WAIT_S, BLIND_SESSIONS = 5.0, 60  # a session that saw no device activity: wait, run it again
+CONTROL = "spin_kernel"  # the kernel of torch.cuda._sleep, each session's control
 
 
 def device_activities(fn) -> dict:
     """{name: count} of the device activities while ``fn()`` runs, in one
-    profiler session."""
+    profiler session that also runs a control kernel (``torch.cuda._sleep``)
+    before the call. A session whose trace lacks the control recorded
+    nothing on the device (the profiler was blind: on the card whole
+    minutes of sessions came back empty, in every checkout alike, then
+    none); it is discarded and run again after ``BLIND_WAIT_S``, up to
+    ``BLIND_SESSIONS`` times. The control is left out of the counts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(PAUSE_S)
-        fn()
+    for _ in range(BLIND_SESSIONS):
         torch.cuda.synchronize()
-        time.sleep(PAUSE_S)
-    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(PAUSE_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PAUSE_S)
+        found = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+        if any(CONTROL in k for k in found):
+            return {k: n for k, n in found.items() if CONTROL not in k}
+        device_activities.blind += 1
+        time.sleep(BLIND_WAIT_S)
+    raise RuntimeError(f"torch.profiler recorded no device activity in {BLIND_SESSIONS} sessions")
+
+
+device_activities.blind = 0  # sessions discarded as blind in this process
 
 
 def count(shapes) -> list:
@@ -60,8 +86,6 @@ def count(shapes) -> list:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    warm = torch.zeros(1, device=dev)
-    device_activities(lambda: warm.add_(1))  # the process's first session, discarded
     cases = []
     for shape in shapes:
         C, G = shape[1], 8
@@ -84,12 +108,35 @@ def count(shapes) -> list:
     return cases
 
 
+def count_relabel(shapes) -> list:
+    import torch
+
+    from ..ops import label as tl
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    for shape in shapes:
+        lab = torch.randint(-2, RELABEL_R + 44, shape, device=dev, generator=gen, dtype=torch.int32)
+        tl.remove_small_objects(lab, RELABEL_MIN_AREA, RELABEL_R)
+        plan = tl.remove_small_objects_plan(lab, RELABEL_R)
+        ops = device_activities(lambda: tl.remove_small_objects(lab, RELABEL_MIN_AREA, RELABEL_R))
+        cases.append({"shape": list(shape), "route": plan.route, "cluster": plan.cluster, "ops": ops})
+        del lab
+    return cases
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--shape", action="append", default=None, help="B,C,H,W (repeatable)")
+    ap.add_argument("--shape", action="append", default=None, help="B,C,H,W, or B,H,W with --relabel (repeatable)")
+    ap.add_argument("--relabel", action="store_true", help="count K8's device operations instead")
     args = ap.parse_args(argv)
-    shapes = [tuple(int(v) for v in s.split(",")) for s in args.shape] if args.shape else SHAPES
-    print(json.dumps({"cases": count(shapes)}), flush=True)
+    shapes = [tuple(int(v) for v in s.split(",")) for s in args.shape] if args.shape else None
+    if args.relabel:
+        out = {"relabel": count_relabel(shapes or RELABEL_SHAPES)}
+    else:
+        out = {"cases": count(shapes or SHAPES)}
+    print(json.dumps(dict(out, blind_sessions=device_activities.blind)), flush=True)
     sys.stderr.flush()
     os._exit(0)
 

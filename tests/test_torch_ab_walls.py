@@ -35,3 +35,25 @@ def test_walls_need_a_card(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         ab_walls.main([REPO, "--workdir", str(tmp_path / "w")])
     assert not os.path.exists(tmp_path / "w")
+
+
+def test_relabel_mode_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ab_walls.main([REPO, "--relabel"])
+
+
+def test_l2_cold_inputs_exceed_twice_the_l2():
+    """--relabel's clock: the copies it rotates over hold distinct storage
+    and together exceed twice the L2, and each call takes the next one."""
+    import chip_smoke
+
+    lab = torch.zeros((2, 1024, 1280), dtype=torch.int32)
+    copies = chip_smoke.l2_cold_inputs(lab)
+    assert len(copies) * lab.numel() * 4 >= 2 * chip_smoke.L2_BYTES > (len(copies) - 1) * lab.numel() * 4
+    assert len({c[0].data_ptr() for c in copies}) == len(copies) and all(torch.equal(c[0], lab) for c in copies)
+    seen = []
+    call = chip_smoke._caller(lambda x: seen.append(x.data_ptr()), copies)
+    for i in range(len(copies) + 1):
+        call(i)
+    assert seen == [c[0].data_ptr() for c in copies] + [copies[0][0].data_ptr()]

@@ -7,8 +7,16 @@ kernels in interpret mode (``attic/pallas_label.py``,
 seeded numpy inputs; the results are integers, so equality is exact. The
 wrappers take the plain versions for CPU tensors. The CUDA kernels run only
 on the card (tests marked ``cuda``; ``python3 chip_smoke.py`` covers the
-main path's shapes).
+main path's shapes): K8 also on both of its routes (one read, two reads),
+both staged widths and unaligned frames, one device operation a call, and
+its raise beyond the largest R; K8's plan is tested on the CPU in
+``test_torch_relabel_plan.py``.
 """
+
+import json
+import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -58,7 +66,7 @@ def test_vertical_pass_plain_matches_pallas_and_jax(connectivity, reverse, densi
     np.testing.assert_array_equal(wrapped.numpy(), ours)
 
 
-@pytest.mark.parametrize("min_area", [1, 3, 5])
+@pytest.mark.parametrize("min_area", [0, 1, 3, 5])  # 0: absent ids are kept too
 def test_remove_small_objects_plain_matches_pallas_and_jax(min_area):
     R = 32
     labels = np.abs(_labels((2, 19, 40), R, seed=min_area))
@@ -74,6 +82,31 @@ def test_remove_small_objects_plain_matches_pallas_and_jax(min_area):
     assert (labels >= R).any() and int(n.min()) > 0
     if min_area > 1:
         assert int(n.max()) < R - 1  # some regions were dropped
+    w_out, w_n = tl.remove_small_objects(torch.from_numpy(labels), min_area, num_segments=R)
+    assert torch.equal(w_out, out) and torch.equal(w_n, n)
+
+
+@pytest.mark.parametrize(
+    "case,R,min_area", [("R = 1", 1, 3), ("R = 1", 1, 0), ("one region covering each frame", 32, 5)]
+)
+def test_remove_small_objects_edge_cases_match_pallas_and_jax(case, R, min_area):
+    """R = 1 (nothing can be kept) and a region covering each frame: the
+    plain version bit-exact against the TPU kernel in interpret mode and the
+    JAX function, and the wrapper on the CPU."""
+    shape = (2, 19, 40)
+    if case == "R = 1":
+        labels = np.abs(_labels(shape, 6, seed=12))  # ids 0..25, every one but 0 beyond the table
+    else:
+        labels = np.full(shape, 7, np.int32)
+    out, n = tl.remove_small_objects_plain(torch.from_numpy(labels), min_area, num_segments=R)
+    k_out, k_n = remove_small_objects_pallas(
+        jnp.asarray(labels), min_area, num_segments=R, tile_rows=8, interpret=True
+    )
+    j_out, j_n = jl.remove_small_objects(jnp.asarray(labels), min_area, R)
+    for ref_out, ref_n in ((k_out, k_n), (j_out, j_n)):
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref_out))
+        np.testing.assert_array_equal(n.numpy(), np.asarray(ref_n))
+    assert n.tolist() == [0 if R == 1 else 1] * 2
     w_out, w_n = tl.remove_small_objects(torch.from_numpy(labels), min_area, num_segments=R)
     assert torch.equal(w_out, out) and torch.equal(w_n, n)
 
@@ -138,3 +171,71 @@ def test_cuda_remove_small_objects_matches_plain(shape):
         assert tl.remove_small_objects.launches == n0 + 1
         ref, n_ref = tl.remove_small_objects_plain(labels, min_area, R)
         assert torch.equal(out, ref) and torch.equal(n, n_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,R,offset",
+    [
+        ((8, 2048, 2560), 256, 0),  # the dense haul's frames: the two-read route
+        ((8, 1024, 1280), 4096, 0),  # uint16 staging, two reads
+        ((3, 1001, 1277), 256, 0),  # H*W odd: frames not 16-B aligned
+        ((2, 96, 1280), 256, 1),  # rows not 16-B aligned
+        ((1, 1024, 1280), 1, 0),  # B = 1, R = 1
+    ],
+)
+def test_cuda_remove_small_objects_routes_match_plain(shape, R, offset):
+    """Both routes (one read, two reads), both staged widths and the
+    unaligned path, bit-exact against the plain version and the same bits
+    from two calls, with min_area 0, 1 and 30."""
+    dev = _card()
+    labels = torch.from_numpy(_labels(shape, R, seed=5))
+    lab = torch.empty(labels.numel() + offset, dtype=torch.int32, device=dev)[offset:].view(shape).copy_(labels)
+    for min_area in (0, 1, 30):
+        out, n = tl.remove_small_objects(lab, min_area, R)
+        again = tl.remove_small_objects(lab, min_area, R)
+        ref, n_ref = tl.remove_small_objects_plain(lab, min_area, R)
+        assert torch.equal(out, ref) and torch.equal(n, n_ref)
+        assert torch.equal(out, again[0]) and torch.equal(n, again[1])
+    plan = tl.remove_small_objects_plan(lab, R)
+    assert plan.one_read == (shape[1] * shape[2] <= 1310720 and R <= 256), plan
+
+
+@pytest.mark.cuda
+def test_cuda_remove_small_objects_raises_beyond_the_largest_r():
+    dev = _card()
+    lab = torch.zeros((1, 8, 8), dtype=torch.int32, device=dev)
+    r_max = tl.relabel_max_segments(tl._relabel_capacity(lab.device)[0])
+    out, n = tl.remove_small_objects(lab, 0, r_max)
+    assert int(n) == r_max - 1 and int(out.abs().max()) == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        tl.remove_small_objects(lab, 0, r_max + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_remove_small_objects_is_one_device_operation():
+    """Each K8 call is one kernel, with no memset and no copy, at loki's,
+    the perf lab's and the dense haul's shapes (counted by torch.profiler in
+    a process of its own, ``tools/norm_ops.py --relabel``), and makes no
+    host synchronisation."""
+    dev = _card()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "maze_image_processing_pipeline_tpu_torch.tools.norm_ops", "--relabel"],
+        cwd=repo, capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    cases = json.loads(out.stdout.strip().splitlines()[-1])["relabel"]
+    assert [c["shape"] for c in cases] == [[8, 1024, 1280], [8, 1024, 1024], [8, 2048, 2560]]
+    for case in cases:
+        ops = case["ops"]
+        assert len(ops) == 1 and sum(ops.values()) == 1 and "relabel_cluster_kernel" in next(iter(ops)), case
+    assert {c["route"] for c in cases} == {"one read", "two reads"}
+    lab = torch.from_numpy(_labels((8, 1024, 1280), 256, seed=6)).to(dev)
+    tl.remove_small_objects(lab, 30, 256)  # warm: build, occupancy query
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tl.remove_small_objects(lab, 30, 256)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

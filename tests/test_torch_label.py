@@ -83,12 +83,22 @@ def test_region_areas_matches_jax(labels, num_segments):
     np.testing.assert_array_equal(ours.numpy(), ref)
 
 
-@pytest.mark.parametrize("num_segments,min_area", [(64, 12), (16, 5)])
+@pytest.mark.parametrize("num_segments,min_area", [(64, 12), (16, 5), (64, 0), (1, 12), (1, 0)])
 def test_remove_small_objects_matches_jax(labels, num_segments, min_area):
     ref, n_ref = jl.remove_small_objects(labels, min_area, num_segments=num_segments)
     ours, n = tl.remove_small_objects(torch.from_numpy(labels), min_area, num_segments)
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(n.numpy(), np.asarray(n_ref))
+
+
+@pytest.mark.parametrize("num_segments,min_area", [(64, 12), (16, 0)])
+def test_remove_small_objects_one_region_covering_each_frame_matches_jax(labels, num_segments, min_area):
+    lab = np.full_like(labels, 3)
+    ref, n_ref = jl.remove_small_objects(lab, min_area, num_segments=num_segments)
+    ours, n = tl.remove_small_objects(torch.from_numpy(lab), min_area, num_segments)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(n_ref))
+    assert n.tolist() == [num_segments - 1 if min_area == 0 else 1] * labels.shape[0]  # 0: absent ids kept too
 
 
 @pytest.mark.parametrize("num_segments", [64, 16])
