@@ -25,7 +25,16 @@ csrc`` and runs, one line of output per phase:
    64-512 × 128-512) on thresholded-blob and noisy masks; the fixpoint's
    time per ``label()`` fixpoint at (8, 1024, 1280) and (32, 256, 256)
    beside the old host loop of standalone K1 / K4 launches (the time to
-   beat), its plain version and its bound;
+   beat), its plain version and its bound; every one of these shapes
+   prints its route (``ccl_route``: one block a frame); the banded route
+   (``phase_wide_ccl``) at ``WIDE_CCL_SHAPES`` (rows of 8193 and 12000):
+   the fixpoint (raster and random seeds, both connectivities, serpentines
+   capped at 1 and 3 sweeps, labels and sweep counts), K4 alone and
+   ``label()`` against ``label()`` through the plain versions on the card,
+   bit-exact, each case's route and bands printed, K1's wide route at
+   (2, 64, 50000), and the banded
+   fixpoint's time at (2, 1024, 12000), both connectivities, beside the
+   one-block route's time a pixel;
    K8 ``remove_small_objects`` (``relabel_cases``, min_area 0, 1 and 30
    each): R = 256 on rectangle frames with ids beyond R at the path's and
    the edge shapes, all-background frames, a region covering each frame,
@@ -68,11 +77,14 @@ csrc`` and runs, one line of output per phase:
    step's and the distillation's shapes (``tools/norm_ops.py`` under
    ``torch.profiler``, in a process of its own);
    K9 ``anchor`` bit-exact at (8, 1024, 1024) and (8, 2048, 2560) bool,
-   (8, 1023, 1277) and (1, 1, 1), contiguous, transposed and sliced views,
-   bool, uint8, int32 and float32, with ``Tensor.clone()``'s and the
-   transposed view's ``.contiguous()`` times beside it, host-paced and with
-   the queue full (L2 warm and cold); one device operation a K8 call at its
-   three timed shapes (``tools/norm_ops.py --relabel``);
+   (8, 1023, 1277), (3, 37, 1001) and (1, 1, 1), contiguous, transposed
+   (the tiled transpose) and sliced views, bool, uint8, int32 and float32,
+   with ``Tensor.clone()``'s and, for the transposed view, ``.contiguous()``'s
+   times beside it, host-paced and with the queue full (L2 warm and cold),
+   at both bool shapes; one device operation a K8 call at its three timed
+   shapes (``tools/norm_ops.py --relabel``) and a K9 call, contiguous and
+   transposed, at both bool shapes, with what its library calls launch
+   (``--anchor``: ``Tensor.clone()`` is a driver device-to-device copy);
 3. the frame chain (morphology → CCL → region measurement (K7, K3) →
    filled area) on the card against the same chain on the CPU;
 4. the full-width U-Net (out_channels=1, base_features=32, depth=4) and
@@ -452,7 +464,7 @@ def fixpoint_timings(dev) -> dict:
     CUDA events: beside the old host loop of standalone launches on the same
     input (its labels must agree), the plain version and the bound; and K1
     and K4 alone on the same input. Returns the numbers at the first shape,
-    8-connected."""
+    8-connected, and (``one_block_ms``) its fixpoint's ms by connectivity."""
     import torch
 
     from maze_image_processing_pipeline_tpu_torch.ops import label as tl
@@ -480,7 +492,119 @@ def fixpoint_timings(dev) -> dict:
                 f"fixpoint, sweeps per frame {sorted(set(sweeps.tolist()))}; the old host loop of K1/K4 launches "
                 f"{m['host_loop_ms']:.4f} ms; plain {m['plain_ms']:.4f} ms; bound {m['bound_ms']:.4f} ms")
             if out is None:
-                out = m
+                out = dict(m, one_block_ms={})
+            if shape == FIXPOINT_SHAPES[0]:
+                out["one_block_ms"][conn] = m["ms"]
+    return out
+
+
+# The banded route (rows wider than one block walks): the fixpoint and the
+# 8-connected pass alone at one column past a block's 8192 and well beyond;
+# K1 alone past what a block stages (46000); the wide route's time at
+# (2, 1024, 12000).
+WIDE_CCL_SHAPES = ((2, 512, 8193), (2, 512, 12000))
+WIDE_HPASS_SHAPE = (2, 64, 50000)
+WIDE_TIMED = (2, 1024, 12000)
+
+
+def wide_masks(shape, seed: int) -> np.ndarray:
+    """Blob canvases with 30 % noise and one row of foreground across every
+    band: runs and components cross the bands' edges."""
+    rng = np.random.default_rng(seed)
+    fg = blob_masks(shape, seed=seed) | (rng.random(shape) < 0.3)
+    fg[:, shape[1] // 2, :] = True
+    return fg
+
+
+def plain_label(mask, connectivity: int):
+    """``label()`` through the plain versions of its kernels (the fixpoint,
+    K2), on the tensor's device: the card's reference for ``label()`` where
+    the CPU would take minutes."""
+    from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+    from maze_image_processing_pipeline_tpu_torch.ops import row_scan
+
+    saved = tl._fixpoint, tl.cumsum_rows
+    tl._fixpoint, tl.cumsum_rows = tl.fixpoint_plain, row_scan.cumsum_rows_plain
+    try:
+        return tl.label(mask, connectivity=connectivity)
+    finally:
+        tl._fixpoint, tl.cumsum_rows = saved
+
+
+def phase_wide_ccl(dev, record, one_block: dict) -> dict:
+    """The banded route against the plain versions, bit-exact: the
+    fixpoint's labels and per-frame sweep counts (raster and random seeds,
+    both connectivities, serpentines capped at 1 and 3 sweeps), the passes
+    alone and ``label()`` (against ``plain_label``), each case's route
+    printed; K1's wide route. Times a ``label()`` fixpoint at ``WIDE_TIMED``,
+    both connectivities, beside the one-block route's time a pixel
+    (``one_block``: ``fixpoint_timings`` at loki's shape). Returns the
+    times."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+    from maze_image_processing_pipeline_tpu_torch.ops import row_scan
+
+    rng = np.random.default_rng(4)
+    for shape in WIDE_CCL_SHAPES:
+        B, H, W = shape
+        fg_np = wide_masks(shape, seed=W)
+        fg = torch.from_numpy(fg_np).to(dev)
+        route = tl.ccl_route_of(fg, 2)
+        check(route.route == "banded", f"{shape} takes the {route.route} route")
+        lin = torch.arange(1, H * W + 1, dtype=torch.int32, device=dev).reshape(H, W)
+        seeds = (torch.where(fg, lin, 2**30), torch.from_numpy(rng.integers(1, 2**30, shape, dtype=np.int32)).to(dev))
+        serp = torch.from_numpy(serpentine(*shape)).to(dev)
+        sweeps = set()
+        for conn in (1, 2):
+            for lab0 in seeds:
+                lab, sw = tl._fixpoint(lab0, fg, conn, 256)
+                ref, ref_sw = tl.fixpoint_plain(lab0, fg, conn, 256)
+                record("ccl_fixpoint", max(max_err(lab, ref), max_err(sw, ref_sw)), f"{shape} connectivity={conn}")
+                sweeps |= set(sw.tolist())
+                for rev in (False, True):
+                    e = max_err(tl.vertical_pass(lab0, fg, conn, rev), tl.vertical_pass_plain(lab0, fg, conn, rev))
+                    record("vertical_pass", e, f"{shape} connectivity={conn} reverse={rev}")
+            for cap in (1, 3):
+                lab0 = torch.where(serp, lin, 2**30)
+                lab, sw = tl._fixpoint(lab0, serp, conn, cap)
+                ref, ref_sw = tl.fixpoint_plain(lab0, serp, conn, cap)
+                record("ccl_fixpoint", max(max_err(lab, ref), max_err(sw, ref_sw)),
+                       f"{shape} serpentine connectivity={conn} max_iters={cap}")
+            labels, n = tl.label(fg, connectivity=conn)
+            ref, n_ref = plain_label(fg, conn)
+            check(torch.equal(labels, ref) and torch.equal(n, n_ref),
+                  f"label() differs from label() through the plain versions at {shape} connectivity={conn}")
+        say(f"  {shape}: route {route.route}, {route.bands} bands of {route.band} columns; ccl_fixpoint (4/8-"
+            f"connected, raster and random seeds, sweeps {sorted(sweeps)}; serpentines capped at 1 and 3), "
+            f"vertical_pass (4/8-connected, down/up) and label() (against label() through the plain versions) "
+            f"bit-exact")
+    lab = torch.from_numpy(rng.integers(1, 2**30, WIDE_HPASS_SHAPE, dtype=np.int32)).to(dev)
+    for p in (0.5, 0.999, 1.0):
+        fg = torch.from_numpy(rng.random(WIDE_HPASS_SHAPE) < p).to(dev)
+        record("hpass", max_err(row_scan.hpass(lab, fg), row_scan.hpass_plain(lab, fg)), f"{WIDE_HPASS_SHAPE} fg={p}")
+    out = dict(wide_hpass_ms=cuda_ms(lambda: row_scan.hpass(lab, fg)), wide_hpass_bound_ms=bound_ms("hpass", lab.numel()))
+    say(f"  {WIDE_HPASS_SHAPE}: hpass (the wide route: a block a row, chunks of {row_scan.WIDE_CHUNK}) bit-exact at "
+        f"fg 0.5, 0.999, 1.0; {out['wide_hpass_ms']:.4f} ms (bound {out['wide_hpass_bound_ms']:.4f} ms)")
+
+    B, H, W = WIDE_TIMED
+    fg = torch.from_numpy(make_frames(B, H, W, 20 * W // 1280, seed=11) > 50).to(dev)
+    route = tl.ccl_route_of(fg, 2)
+    lin = torch.arange(1, H * W + 1, dtype=torch.int32, device=dev).reshape(H, W)
+    lab0 = torch.where(fg, lin, 2**30)
+    out["wide_vertical_pass_ms"] = cuda_ms(lambda: tl.vertical_pass(lab0, fg, 2, False))
+    say(f"  vertical_pass at {WIDE_TIMED} 8-connected, {route.bands} bands of {route.band}: "
+        f"{out['wide_vertical_pass_ms']:.4f} ms (bound {bound_ms('vertical_pass', lab0.numel()):.4f} ms)")
+    for conn in (2, 1):
+        _, sw = tl._fixpoint(lab0, fg, conn, 256)
+        ms = cuda_ms(lambda: tl._fixpoint(lab0, fg, conn, 256), iters=10)
+        per_px = ms * 1e6 / lab0.numel()
+        base = one_block[conn]
+        say(f"  ccl_fixpoint at {WIDE_TIMED} {4 * conn}-connected, {route.bands} bands of {route.band}: {ms:.4f} ms a "
+            f"fixpoint, sweeps per frame {sorted(set(sw.tolist()))}, {per_px:.3f} ns a pixel; the one-block route at "
+            f"{FIXPOINT_SHAPES[0]}: {base * 1e6 / math.prod(FIXPOINT_SHAPES[0]):.3f} ns a pixel")
+        out[f"wide_ms_{4 * conn}"] = ms
+        out[f"wide_ns_per_px_{4 * conn}"] = per_px
     return out
 
 
@@ -653,12 +777,15 @@ def phase_kernels(dev, main=(8, 1024, 1280),
                                         bound_ms=bound_ms("vertical_pass", px), library_ms=None)
             say(f"  {where}: 8-connected vertical_pass {out['vertical_pass']['ms']:.4f} ms, "
                 f"4-connected {vp4:.4f} ms")
+        route = tl.ccl_route_of(fg, 2).route
+        check(route == "one_block", f"the path's shape {shape} takes the {route} route")
         say(f"  {where}: hpass, cumsum_rows, vertical_pass (4/8-connected, down/up; random and raster "
             f"labels), ccl_fixpoint (4/8-connected, sweeps {sorted(set(sweeps))}) bit-exact, "
-            f"fg {float(fg_np.mean()):.3f}")
+            f"fg {float(fg_np.mean()):.3f}, route {route}")
 
     out["remove_small_objects"] = phase_relabel(dev, main, edges, record)
     out["ccl_fixpoint"] = fixpoint_timings(dev)
+    out["ccl_fixpoint"].update(phase_wide_ccl(dev, record, out["ccl_fixpoint"].pop("one_block_ms")))
     for name, m in out.items():
         m.update(max_abs_err=err[name], bound_by="bytes")
         say(f"  {name} at {main}: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms"
@@ -1013,10 +1140,12 @@ def norm_ops(*args: str) -> dict:
 
 def phase_norm_ops() -> None:
     """The device operations of one K5 and one K6 call at the path's, the
-    train step's and the distillation's shapes, both layouts, and of one K8
-    call at ``RELABEL_TIMED`` (``tools/norm_ops.py`` under
-    ``torch.profiler``, in processes of their own): each must be one kernel,
-    with no memset or copy."""
+    train step's and the distillation's shapes, both layouts, of one K8
+    call at ``RELABEL_TIMED``, and of one K9 call on the perf lab's and the
+    dense haul's masks, contiguous and transposed (``tools/norm_ops.py``
+    under ``torch.profiler``, in processes of their own): each must be one
+    kernel, with no memset or copy. K9's library calls' operations are
+    printed (what ``Tensor.clone()`` launches)."""
     for case in norm_ops()["cases"]:
         where = f"{tuple(case['shape'])} bfloat16 {case['layout']}"
         for kind, name in (("fwd", "gn_fwd_kernel"), ("bwd", "gn_bwd_kernel")):
@@ -1030,6 +1159,14 @@ def phase_norm_ops() -> None:
               f"remove_small_objects at {tuple(case['shape'])}: device operations {ops}")
         say(f"  {tuple(case['shape'])}: one device operation a remove_small_objects call ({case['route']}, "
             f"clusters of {case['cluster']})")
+    for case in norm_ops("--anchor")["anchor"]:
+        ops, kernel = case["anchor"], "copy_vec_kernel" if case["view"] == "contiguous" else "transpose_bytes_kernel"
+        where = f"{tuple(case['shape'])} bool {case['view']}"
+        check(len(ops) == 1 and sum(ops.values()) == 1 and kernel in next(iter(ops)),
+              f"anchor at {where}: device operations {ops}")
+        library = "; ".join(f"{n} x {k[:100]}" for k, n in case["library"].items())
+        say(f"  {where}: one device operation an anchor call ({kernel}); its library call "
+            f"({'Tensor.clone()' if case['view'] == 'contiguous' else '.contiguous()'}) launches: {library}")
 
 
 def within_f32(got, ref) -> bool:
@@ -1136,20 +1273,21 @@ def phase_group_norm_bwd(dev) -> dict:
     return {"group_norm_bwd": dict(main, max_abs_err=worst, bound_by="bytes")}
 
 
-ANCHOR_SHAPES = ((8, 1024, 1024), (8, 2048, 2560), (8, 1023, 1277), (1, 1, 1))
+ANCHOR_SHAPES = ((8, 1024, 1024), (8, 2048, 2560), (8, 1023, 1277), (3, 37, 1001), (1, 1, 1))
 
 
 def phase_anchor(dev) -> dict:
     """K9 against its plain version on the card, bit-exact: bool masks at
     the perf lab's shapes ((8, 1024, 1024) and the dense haul's (8, 2048,
-    2560)), a tail that is not a multiple of 16 B, (1, 1, 1), a transposed
-    and a sliced view, and uint8, int32 and float32. CUDA-event times at
-    (8, 1024, 1024) bool beside ``Tensor.clone()`` (the library call: a
-    contiguous copy of a contiguous tensor) and ``.contiguous()`` of the
-    transposed view, and both with the queue kept full (``queued_ms``: the
-    device's time without the host's per-call time), on one input (L2 warm)
-    and rotating over copies that exceed the L2 (``l2_cold_inputs``); the
-    bound is 2 · bytes / 3.35 TB/s."""
+    2560)), a tail that is not a multiple of 16 B, odd shapes ((3, 37,
+    1001), (1, 1, 1)), a transposed view (the tiled transpose) and a
+    sliced one, and uint8, int32 and float32. At (8, 1024, 1024) and (8,
+    2048, 2560) bool: CUDA-event times beside ``Tensor.clone()`` (the
+    library call: a contiguous copy of a contiguous tensor), and the
+    transposed view's beside ``.contiguous()``, each also with the queue
+    kept full (``queued_ms``: the device's time without the host's per-call
+    time), on one input (L2 warm) and rotating over copies that exceed the
+    L2 (``l2_cold_inputs``); the bound is 2 · bytes / 3.35 TB/s."""
     import torch
 
     from maze_image_processing_pipeline_tpu_torch.ops.anchor import anchor, anchor_plain
@@ -1185,16 +1323,24 @@ def phase_anchor(dev) -> dict:
                  queued_ms=queued_ms(lambda: anchor(mask)), library_queued_ms=queued_ms(lambda: mask.clone()),
                  queued_l2_cold_ms=queued_ms(anchor, iters=50, inputs=cold),
                  library_queued_l2_cold_ms=queued_ms(lambda m: m.clone(), iters=50, inputs=cold))
-        del cold
-        t_view = cuda_ms(lambda: anchor(tview))
-        t_cont = cuda_ms(lambda: tview.contiguous())
+        cold_t = [(c[0].transpose(1, 2),) for c in cold]
+        t.update(transposed_ms=cuda_ms(lambda: anchor(tview)),
+                 transposed_library_ms=cuda_ms(lambda: tview.contiguous()),
+                 transposed_queued_ms=queued_ms(lambda: anchor(tview)),
+                 transposed_library_queued_ms=queued_ms(lambda: tview.contiguous()),
+                 transposed_queued_l2_cold_ms=queued_ms(anchor, iters=50, inputs=cold_t),
+                 transposed_library_queued_l2_cold_ms=queued_ms(lambda m: m.contiguous(), iters=50, inputs=cold_t))
+        del cold, cold_t
         say(f"  anchor at {shape} bool: {t['ms']:.4f} ms, plain (contiguous().clone()) {t['plain_ms']:.4f} ms, "
             f"Tensor.clone() {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (2 x {mask.numel() / 1e6:.1f} MB"
             f"{', below a launch latency' if t['bound_ms'] < 0.01 else ''}); with the queue full (device time "
             f"back to back): anchor {t['queued_ms']:.4f} ms, Tensor.clone() {t['library_queued_ms']:.4f} ms; with "
             f"the queue full and L2 cold: anchor {t['queued_l2_cold_ms']:.4f} ms, Tensor.clone() "
             f"{t['library_queued_l2_cold_ms']:.4f} ms; "
-            f"transposed view: anchor {t_view:.4f} ms, .contiguous() {t_cont:.4f} ms")
+            f"transposed view: anchor {t['transposed_ms']:.4f} ms, .contiguous() {t['transposed_library_ms']:.4f} "
+            f"ms; queue full: {t['transposed_queued_ms']:.4f} / {t['transposed_library_queued_ms']:.4f} ms; queue "
+            f"full, L2 cold: {t['transposed_queued_l2_cold_ms']:.4f} / "
+            f"{t['transposed_library_queued_l2_cold_ms']:.4f} ms")
         if shape == ANCHOR_SHAPES[0]:
             out["anchor"] = dict(t, max_abs_err=0, bound_by="bytes")
         del mask, tview

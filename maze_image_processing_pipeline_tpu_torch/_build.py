@@ -39,15 +39,18 @@ NVCC_FLAGS = [
     "-fPIC",
 ]
 
-_vp, _ll, _i, _f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+_vp, _ll, _i, _u, _f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # The C entry points: argument types (every pointer and the stream as
 # c_void_p, or ctypes would cut them to 32 bits); each returns a CUDA error
 # code as int.
 SIGNATURES = {
     "hpass_launch": [_vp, _vp, _vp, _ll, _i, _vp],
+    "hpass_wide_launch": [_vp, _vp, _vp, _vp, _ll, _i, _vp],
     "cumsum_rows_launch": [_vp, _vp, _ll, _i, _vp],
     "vertical_pass_launch": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    "vertical_pass_banded_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _u, _vp],
     "ccl_fixpoint_launch": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    "ccl_fixpoint_banded_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _u, _vp],
     "remove_small_objects_launch": [_vp, _vp, _vp, _i, _ll, _i, _i, _i, _ll, _ll, _vp],
     "relabel_capacity": [_vp],
     "group_norm_capacity": [_i, _i, _i, _i, _vp],

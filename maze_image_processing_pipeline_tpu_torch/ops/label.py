@@ -8,7 +8,10 @@ same results:
    pass up, horizontal pass, to a fixpoint capped at ``max_iters`` sweeps
    (:func:`_fixpoint`). On the card the whole fixpoint is one CUDA launch
    (``csrc/ccl.cu``: one block per frame loops the sweeps itself and stops
-   when a sweep changes nothing, with no host synchronisation); its plain
+   when a sweep changes nothing, with no host synchronisation; rows wider
+   than 8192 take the banded route, ``csrc/ccl_banded.cu``: bands of a frame
+   in co-resident blocks that exchange their edges through device memory,
+   :func:`ccl_route`); its plain
    version :func:`fixpoint_plain` runs the sweeps of the horizontal pass
    (:func:`.row_scan.hpass_plain`, K1) and :func:`vertical_pass_plain` (K4).
    Both passes also stand alone on the card (:func:`.row_scan.hpass`,
@@ -58,13 +61,96 @@ __all__ = [
     "remove_small_objects_plan",
     "relabel_plan",
     "RelabelPlan",
+    "ccl_route",
+    "ccl_route_of",
+    "CclRoute",
     "clear_border",
     "region_areas",
 ]
 
-# Widest row the 8-connected pass and the fixpoint take: a block walks whole
-# rows, 16 columns a thread at most (the 4-connected pass alone takes bands).
-_MAX_W8 = 8192
+# Widest band one block of the fixpoint or of the 8-connected pass walks
+# (csrc/ccl_rows.cuh: `plan`, 512 walker threads of 16 columns), a multiple
+# of 32; wider rows take the banded route.
+CCL_BAND = 8192
+# The banded route's narrowest band: a band's rows cost more a column the
+# wider it is (16 columns a walker thread and fewer ring stages past 4096),
+# so wide rows take bands of 512 columns while the card holds them all.
+CCL_BAND_MIN = 512
+# cudaErrorCooperativeLaunchTooLarge: the card cannot hold a frame's bands.
+_TOO_MANY_BANDS = 720
+
+
+@dataclass(frozen=True)
+class CclRoute:
+    """How the CCL fixpoint (and the 8-connected pass alone) runs on the
+    card: ``"one_block"``, a block a frame, or ``"banded"``, ``bands`` bands
+    of ``band`` columns a frame (the last one narrower), a block each, which
+    exchange through a workspace of ``slots`` 16-byte slots."""
+
+    route: str
+    band: int
+    bands: int
+    slots: int
+
+
+def ccl_route(B: int, H: int, W: int, connectivity: int, sms: int) -> CclRoute:
+    """The one place the fixpoint's route is chosen, for B frames of H × W,
+    ``connectivity`` (1 or 2) and a card of ``sms`` multiprocessors (one
+    block of the walk each). Rows of at most ``CCL_BAND`` columns take one
+    block a frame. Wider rows take bands of ``CCL_BAND_MIN`` columns, or as
+    many more as keep a frame's bands within ``sms`` blocks, at most
+    ``CCL_BAND``; then bands of equal width rounded up to a multiple of 32.
+    The workspace holds, for each frame and band, K1's row summaries of both
+    passes and two stop flags, and 8-connected K4's edge carries of both
+    passes and both sides (``unit_slots`` of csrc/ccl_banded.cu)."""
+    if W <= CCL_BAND:
+        return CclRoute("one_block", W, 1, 0)
+    band = min(CCL_BAND, max(CCL_BAND_MIN, -(-W // sms)))
+    even = -(-W // -(-W // band))
+    band = -(-even // 32) * 32
+    bands = -(-W // band)
+    unit = 2 * H + 2 + (4 * H if connectivity == 2 else 0)
+    return CclRoute("banded", band, bands, B * bands * unit)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ccl_route_of(t: torch.Tensor, connectivity: int) -> CclRoute:
+    """:func:`ccl_route` for the (..., H, W) tensor ``t`` on its card."""
+    H, W = t.shape[-2:]
+    return ccl_route(math.prod(t.shape[:-2]), H, W, connectivity, _sms(t.device.index))
+
+
+# The banded route's workspace for each (device, stream): [int64 tensor of
+# 16-byte slots, zeroed when made; the epoch of the last call].
+_EXCHANGE: Dict[Tuple[int, int], list] = {}
+
+
+def _exchange(device: torch.device, stream: int, slots: int) -> Tuple[torch.Tensor, int]:
+    """The workspace of the banded route for ``device`` and ``stream``, of at
+    least ``slots`` slots, and this call's epoch (1, 2, ...). Every slot
+    carries the epoch of the call that wrote it, so nothing is zeroed
+    between calls: only when the workspace is made, grown, or its epochs
+    would pass 32 bits."""
+    key = (device.index, stream)
+    entry = _EXCHANGE.get(key)
+    if entry is None or entry[0].numel() < 2 * slots:
+        entry = _EXCHANGE[key] = [torch.zeros(max(2 * slots, 1 << 16), dtype=torch.int64, device=device), 0]
+    entry[1] += 1
+    if entry[1] >= 2**32:
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], entry[1]
+
+
+def _raise_on_banded(name: str, err: int, W: int, route: CclRoute) -> None:
+    if err == _TOO_MANY_BANDS:
+        raise ValueError(f"{name}: rows of {W} need {route.bands} bands of {route.band} columns resident at once; "
+                         "the card holds fewer")
+    _raise_on(name, err)
 
 
 def vertical_pass_plain(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, reverse: bool):
@@ -112,20 +198,28 @@ def vertical_pass(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, revers
         return vertical_pass_plain(lab, fg, connectivity, reverse)
     _check_cuda("vertical_pass", lab, fg)
     H, W = lab.shape[-2:]
-    if connectivity == 2 and W > _MAX_W8:
-        raise ValueError(f"vertical_pass: 8-connected rows wider than {_MAX_W8} are not supported, got {W}")
+    B = math.prod(lab.shape[:-2])
     out = torch.empty_like(lab)
     if out.numel() == 0:
         return out
     from .._build import kernels
 
+    # 4-connected columns are independent (bands of 256 columns); 8-connected
+    # rows wider than a block walks take the banded route.
+    route = ccl_route_of(lab, 2) if connectivity == 2 else CclRoute("one_block", W, 1, 0)
     with torch.cuda.device(lab.device):
         stream = torch.cuda.current_stream(lab.device).cuda_stream
-        err = kernels().vertical_pass_launch(
-            lab.data_ptr(), fg.data_ptr(), out.data_ptr(), math.prod(lab.shape[:-2]), H, W,
-            connectivity, int(reverse), stream,
-        )
-    _raise_on("vertical_pass", err)
+        if route.route == "one_block":
+            err = kernels().vertical_pass_launch(
+                lab.data_ptr(), fg.data_ptr(), out.data_ptr(), B, H, W, connectivity, int(reverse), stream,
+            )
+        else:
+            ws, epoch = _exchange(lab.device, stream, route.slots)
+            err = kernels().vertical_pass_banded_launch(
+                lab.data_ptr(), fg.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, W, route.band, int(reverse),
+                epoch, stream,
+            )
+    _raise_on_banded("vertical_pass", err, W, route)
     vertical_pass.launches += 1
     return out
 
@@ -172,8 +266,9 @@ def _fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters
 
     Returns:
         (labels, sweeps): int32 (B, H, W), and int32 (B,) the sweeps each
-        frame ran. On the card one launch (``csrc/ccl.cu``), updating a copy
-        of ``lab0`` in place; nothing is read back.
+        frame ran. On the card one launch (``csrc/ccl.cu``, or
+        ``csrc/ccl_banded.cu`` on the banded route; :func:`ccl_route` picks),
+        updating a copy of ``lab0`` in place; nothing is read back.
     """
     if lab0.dtype != torch.int32:
         raise TypeError(f"_fixpoint: labels must be int32, got {lab0.dtype}")
@@ -187,20 +282,26 @@ def _fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters
         return fixpoint_plain(lab0, fg, connectivity, max_iters)
     _check_cuda("_fixpoint", lab0, fg)
     B, H, W = lab0.shape
-    if W > _MAX_W8:
-        raise ValueError(f"_fixpoint: rows wider than {_MAX_W8} are not supported, got {W}")
     lab = lab0.clone()
     if lab.numel() == 0:
         return lab, torch.ones((B,), dtype=torch.int32, device=lab.device)
     sweeps = torch.empty((B,), dtype=torch.int32, device=lab.device)
+    route = ccl_route_of(lab, connectivity)
     from .._build import kernels
 
     with torch.cuda.device(lab.device):
         stream = torch.cuda.current_stream(lab.device).cuda_stream
-        err = kernels().ccl_fixpoint_launch(
-            lab.data_ptr(), fg.data_ptr(), sweeps.data_ptr(), B, H, W, connectivity, int(max_iters), stream
-        )
-    _raise_on("_fixpoint", err)
+        if route.route == "one_block":
+            err = kernels().ccl_fixpoint_launch(
+                lab.data_ptr(), fg.data_ptr(), sweeps.data_ptr(), B, H, W, connectivity, int(max_iters), stream
+            )
+        else:
+            ws, epoch = _exchange(lab.device, stream, route.slots)
+            err = kernels().ccl_fixpoint_banded_launch(
+                lab.data_ptr(), fg.data_ptr(), sweeps.data_ptr(), ws.data_ptr(), B, H, W, route.band, connectivity,
+                int(max_iters), epoch, stream,
+            )
+    _raise_on_banded("_fixpoint", err, W, route)
     _fixpoint.launches += 1
     return lab, sweeps
 

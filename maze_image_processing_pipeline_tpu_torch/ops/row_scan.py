@@ -3,7 +3,9 @@
 * :func:`hpass` — the horizontal pass of the connected-component labelling:
   every foreground pixel receives the minimum label of its horizontal run,
   background receives ``2**30`` (K1, ``csrc/ccl.cu:hpass_kernel``, over
-  the row function that :func:`.label._fixpoint`'s kernel runs too).
+  the row function that :func:`.label._fixpoint`'s kernel runs too; rows
+  wider than 46000 take ``csrc/ccl_banded.cu:hpass_wide_kernel``, a block a
+  row in chunks whose edge runs are chained afterwards).
 * :func:`cumsum_rows` — the inclusive int32 prefix sum along each row, which
   ranks component roots in raster order (K2,
   ``csrc/row_scan.cu:cumsum_rows_kernel``).
@@ -22,7 +24,9 @@ import torch
 __all__ = ["hpass", "hpass_plain", "cumsum_rows", "cumsum_rows_plain", "INF"]
 
 INF = 2**30  # background label of the CCL
-_MAX_W1 = 46000  # widest row K1 takes: the row is staged in one block's shared memory
+_MAX_W1 = 46000  # widest row K1 stages in one block's shared memory; wider rows take the wide route
+WIDE_CHUNK = 4096  # csrc/ccl_banded.cu: kWideChunk
+_CHUNK_SUM_INTS = 8  # csrc/ccl_banded.cu: ChunkSum
 
 
 def _shift(v: torch.Tensor, d: int, fill, reverse: bool) -> torch.Tensor:
@@ -106,17 +110,19 @@ def hpass(lab: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
     _check_cuda("hpass", lab, fg)
     out = torch.empty_like(lab)
     rows, W = _rows(lab)
-    if W > _MAX_W1:
-        raise ValueError(f"hpass: rows wider than {_MAX_W1} are not supported, got {W}")
     if rows == 0:
         return out
     from .._build import kernels
 
     with torch.cuda.device(lab.device):
         stream = torch.cuda.current_stream(lab.device).cuda_stream
-        err = kernels().hpass_launch(
-            lab.data_ptr(), fg.data_ptr(), out.data_ptr(), rows, W, stream
-        )
+        if W <= _MAX_W1:
+            err = kernels().hpass_launch(lab.data_ptr(), fg.data_ptr(), out.data_ptr(), rows, W, stream)
+        else:
+            sums = torch.empty((rows * -(-W // WIDE_CHUNK), _CHUNK_SUM_INTS), dtype=torch.int32, device=lab.device)
+            err = kernels().hpass_wide_launch(
+                lab.data_ptr(), fg.data_ptr(), out.data_ptr(), sums.data_ptr(), rows, W, stream
+            )
     _raise_on("hpass", err)
     hpass.launches += 1
     return out

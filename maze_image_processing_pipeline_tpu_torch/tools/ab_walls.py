@@ -1,10 +1,13 @@
 """A/B walls of checkouts: the ``maze-ipp loki`` Runner's wall (or, with
-``--norms``, the GroupNorm kernels' times; with ``--relabel``, K8's) for two
-or more checkouts of this repo, in turns, on one set of inputs::
+``--norms``, the GroupNorm kernels' times; with ``--relabel``, K8's; with
+``--anchor``, K9's; with ``--fixpoint``, the CCL fixpoint's) for two or more
+checkouts of this repo, in turns, on one set of inputs::
 
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] [--workdir DIR]
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --norms [--iters N]
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --relabel [--iters N]
+    python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --anchor [--iters N]
+    python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --fixpoint [--iters N]
 
 The task is ``chip_smoke.py``'s phase 6: the standard haul's loki task
 (24 frames of 1024×1280, 20 vignettes a frame, a ``UNet(1, 32, 4)`` bf16 of
@@ -40,6 +43,22 @@ output is checked bit for bit against the plain version first. Every TREE
 is timed by the clock of the checkout that runs this tool (its
 ``chip_smoke.py``, loaded by path), so that the trees differ only in their
 kernels; a tree whose wrapper shows its plan reports its route.
+
+``--anchor`` times instead, in each TREE's process, K9 (``anchor``) on bool
+masks at ``ANCHOR_SHAPES``: the perf lab's (8, 1024, 1024) and the dense
+haul's (8, 2048, 2560), each contiguous and as the transposed view, and
+beside each, in the same process, its library call (``Tensor.clone()`` of
+the contiguous mask, ``.contiguous()`` of the transposed view). Three times
+each, the mean of ``--iters`` calls: queue full with L2 cold, queue full on
+one input (L2 warm) and host-paced, timed by the running checkout's
+``chip_smoke.py`` as ``--relabel``; each output checked bit for bit first.
+
+``--fixpoint`` times instead, in each TREE's process, one ``label()``
+fixpoint (``_fixpoint`` on the raster seed) at ``chip_smoke.FIXPOINT_SHAPES``
+on that script's masks (loki-like frames, blob canvases), both
+connectivities, by CUDA events around ``--iters`` calls (a call lasts
+milliseconds), timed by the running checkout's ``chip_smoke.py``; each
+tree's labels and sweep counts are printed as a checksum.
 """
 
 from __future__ import annotations
@@ -66,6 +85,8 @@ NORM_CASES = [("fwd", s) for s in PATH + TRAIN + DISTILL] + [("bwd", s) for s in
 # --relabel: K8's (B, H, W) on loki's path, in the perf lab and in the dense haul.
 RELABEL_SHAPES = ((8, 1024, 1280), (8, 1024, 1024), (8, 2048, 2560))
 RELABEL_R, RELABEL_MIN_AREA = 256, 30
+# --anchor: K9's (B, H, W) bool masks in the perf lab and in the dense haul.
+ANCHOR_SHAPES = ((8, 1024, 1024), (8, 2048, 2560))
 SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "chip_smoke.py")
 
 # Runs in the checkout's process: argv = data, model, output root, walls, segmentation.
@@ -147,6 +168,54 @@ for shape in shapes:
 print("TIMES " + json.dumps(out), flush=True)
 """
 
+# --anchor, in the checkout's process: argv = chip_smoke.py to time by, shapes, iters.
+_ANCHOR_WORKER = """
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location("smoke_clock", sys.argv[1])
+clock = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(clock)
+from maze_image_processing_pipeline_tpu_torch.ops.anchor import anchor
+shapes, iters = json.loads(sys.argv[2]), int(sys.argv[3])
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(13)
+out = {}
+for shape in shapes:
+    mask = torch.rand(tuple(shape), device=dev, generator=gen) < 0.3
+    cold = clock.l2_cold_inputs(mask)
+    for view, lib, pick in (("contiguous", lambda m: m.clone(), lambda m: m),
+                            ("transposed", lambda m: m.contiguous(), lambda m: m.transpose(1, 2))):
+        x, xs = pick(mask), [(pick(c[0]),) for c in cold]
+        assert torch.equal(anchor(x), x.contiguous()), f"K9 differs from its plain version at {shape} {view}"
+        for name, fn in (("anchor", anchor), ("library", lib)):
+            out[f"{tuple(shape)} {view} {name}"] = [clock.queued_ms(fn, iters, xs), clock.queued_ms(lambda: fn(x), iters),
+                                                   clock.cuda_ms(lambda: fn(x), iters)]
+    del mask, cold
+print("TIMES " + json.dumps(out), flush=True)
+"""
+
+# --fixpoint, in the checkout's process: argv = chip_smoke.py to time by, iters.
+_FIXPOINT_WORKER = """
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location("smoke_clock", sys.argv[1])
+clock = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(clock)
+from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+iters = int(sys.argv[2])
+dev = torch.device("cuda", 0)
+out = {}
+for shape in clock.FIXPOINT_SHAPES:
+    B, H, W = shape
+    fg_np = clock.make_frames(B, H, W, 20, seed=11) > 50 if shape == clock.FIXPOINT_SHAPES[0] else clock.blob_masks(shape, seed=12)
+    fg = torch.from_numpy(fg_np).to(dev)
+    lin = torch.arange(1, H * W + 1, dtype=torch.int32, device=dev).reshape(H, W)
+    lab0 = torch.where(fg, lin, 2**30)
+    for conn in (2, 1):
+        lab, sweeps = tl._fixpoint(lab0, fg, conn, 256)
+        out[f"{tuple(shape)} {4 * conn}-connected"] = [clock.cuda_ms(lambda: tl._fixpoint(lab0, fg, conn, 256), iters),
+                                                     f"labels {int(lab.sum())} sweeps {sweeps.tolist()}"]
+print("TIMES " + json.dumps(out), flush=True)
+"""
+
 
 def run_worker(tree: str, worker: str, argv: List[str], marker: str):
     """Runs ``worker`` (Python source) with ``argv`` in a process of its own
@@ -176,23 +245,37 @@ def run_relabel(tree: str, iters: int) -> Dict[str, list]:
     return run_worker(tree, _RELABEL_WORKER, argv, "TIMES")
 
 
+def run_anchor(tree: str, iters: int) -> Dict[str, list]:
+    """K9's times of one run of ``tree``'s package (``--anchor``)."""
+    return run_worker(tree, _ANCHOR_WORKER, [SMOKE, json.dumps(ANCHOR_SHAPES), str(iters)], "TIMES")
+
+
+def run_fixpoint(tree: str, iters: int) -> Dict[str, list]:
+    """The CCL fixpoint's times of one run of ``tree``'s package (``--fixpoint``)."""
+    return run_worker(tree, _FIXPOINT_WORKER, [SMOKE, str(iters)], "TIMES")
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts of this repo, in the order they run")
     ap.add_argument("--workdir", default=None, help="inputs and outputs (default: a new temporary directory)")
     ap.add_argument("--norms", action="store_true", help="time the GroupNorm kernels instead of the loki task")
     ap.add_argument("--relabel", action="store_true", help="time K8 (small-object removal) instead")
-    ap.add_argument("--iters", type=int, default=50, help="--norms, --relabel: timed calls a case (default 50)")
+    ap.add_argument("--anchor", action="store_true", help="time K9 (the layout anchor) instead")
+    ap.add_argument("--fixpoint", action="store_true", help="time the CCL fixpoint instead")
+    ap.add_argument("--iters", type=int, default=50, help="--norms, --relabel, --anchor, --fixpoint: timed calls a case")
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: the walls are taken on the card")
-    if args.norms or args.relabel:
+    if args.norms or args.relabel or args.anchor or args.fixpoint:
         print(f"device={torch.cuda.get_device_name(0)}", flush=True)
         times: Dict[str, List[Dict[str, list]]] = {}
+        run = (run_fixpoint if args.fixpoint else run_anchor if args.anchor else run_relabel if args.relabel
+               else run_norms)
         for tree in map(os.path.abspath, args.trees):
-            t = run_relabel(tree, args.iters) if args.relabel else run_norms(tree, args.iters)
+            t = run(tree, args.iters)
             times.setdefault(tree, []).append(t)
             print(f"{tree}: " + ", ".join(f"{k} {' / '.join(v if isinstance(v, str) else f'{v:.4f}' for v in vs)}"
                                           for k, vs in t.items()), flush=True)

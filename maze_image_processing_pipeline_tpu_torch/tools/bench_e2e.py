@@ -20,9 +20,12 @@ with 0-3 objects of 16..64 px. The inputs are made by
 :mod:`.synth` (the layout and seeds of ``tests/fixtures.py:make_loki_sample``).
 
 Models: the segmentation U-Nets are distilled for ``--distill-steps`` steps
-by the port's ``fit`` on the card, on ``tools/bench_e2e.py``'s batches (one
-generator, seed 0, the loki U-Net's batches first), to emit
-brightness-threshold masks; the classifier has seeded random weights. Each
+by the port's ``fit`` on the card to emit brightness-threshold masks: the
+loki U-Net on ``synth.vignette_batches`` (tiles of stitched LOKI frames,
+black canvas, as ``chip_smoke.py`` phase 9 distils it), the semseg U-Net on
+``tools/bench_e2e.py``'s batches (one generator, seed 0, drawn after the
+loki U-Net's batches of that driver, which are dropped); the classifier has
+seeded random weights. Each
 is cached under ``--model-dir`` (``loki-unet``, ``semseg-unet``,
 ``polytaxo-cnn``) through ``model_io.save_model`` and reused when present.
 
@@ -49,7 +52,7 @@ import torch
 
 from ..dataio import Archive, read_tsv
 from ..models.inference import resolve_device
-from .synth import distill_batches, make_loki_tree, make_taxonomy_files, write_classifier
+from .synth import distill_batches, make_loki_tree, make_taxonomy_files, vignette_batches, write_classifier
 
 HAULS = {
     # frames, objects per frame, frame shape, crop size range
@@ -93,13 +96,18 @@ def ensure_models(model_dir: str, distill_steps: int, device) -> tuple:
     loki_unet = os.path.join(model_dir, "loki-unet")
     semseg_unet = os.path.join(model_dir, "semseg-unet")
     clf_dir = os.path.join(model_dir, "polytaxo-cnn")
+    # The semseg U-Net's batches come from one generator after the loki
+    # U-Net's batches of tools/bench_e2e.py: those are drawn and dropped, so
+    # the semseg weights do not depend on what the loki U-Net distils on.
     rng = np.random.default_rng(0)
-    for path, cfg, channels in ((loki_unet, LOKI_UNET, ["foreground"]),
-                                (semseg_unet, SEMSEG_UNET, ["Prosoma", "Oilsack"])):
-        batches = distill_batches(cfg["out_channels"], rng=rng)
-        if os.path.isdir(path):  # keep the shared generator where distillation leaves it
-            for _ in range(distill_steps):
-                next(batches)
+    dropped = distill_batches(LOKI_UNET["out_channels"], rng=rng)
+    for _ in range(distill_steps):
+        next(dropped)
+    for path, cfg, channels, batches in (
+        (loki_unet, LOKI_UNET, ["foreground"], vignette_batches(LOKI_UNET["out_channels"])),
+        (semseg_unet, SEMSEG_UNET, ["Prosoma", "Oilsack"], distill_batches(SEMSEG_UNET["out_channels"], rng=rng)),
+    ):
+        if os.path.isdir(path):
             continue
         module = UNet(**cfg, dtype="bfloat16")
         fit(module, batches, distill_steps, input_shape=DISTILL_SHAPE, log_interval=1e9, device=device)

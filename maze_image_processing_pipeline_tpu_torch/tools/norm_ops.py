@@ -1,9 +1,11 @@
 """The device operations one call of K5 (``group_norm``) and of K6
-(``group_norm_bwd``), or with ``--relabel`` of K8 (``remove_small_objects``),
-makes on the card, counted by ``torch.profiler``.
+(``group_norm_bwd``), with ``--relabel`` of K8 (``remove_small_objects``),
+or with ``--anchor`` of K9 (``anchor``) and its library calls, makes on the
+card, counted by ``torch.profiler``.
 
     python -m maze_image_processing_pipeline_tpu_torch.tools.norm_ops [--shape B,C,H,W ...]
     python -m maze_image_processing_pipeline_tpu_torch.tools.norm_ops --relabel [--shape B,H,W ...]
+    python -m maze_image_processing_pipeline_tpu_torch.tools.norm_ops --anchor [--shape B,H,W ...]
 
 For each shape (default: the norms of the haul's path, of the full-width
 train step and of the distillation's U-Net), in NCHW and channels_last,
@@ -19,7 +21,13 @@ and copy on the device during the call, and the sessions discarded. With
 the perf lab's and the dense haul's) int32 labels with ids in [-2, R + 44),
 R = 256, min_area 30: one warm-up call, then one under the profiler;
 prints ``{"relabel": [{"shape", "route", "cluster", "ops": {activity:
-count}}, ...], "blind_sessions": n}``. Ends with ``os._exit(0)``: a
+count}}, ...], "blind_sessions": n}``. With ``--anchor``, for each shape
+(default ``ANCHOR_SHAPES``: the perf lab's and the dense haul's) a bool mask,
+contiguous and as its transposed view: one call of K9 and one of the
+library call that computes the same (``Tensor.clone()``, ``.contiguous()``)
+under the profiler; prints ``{"anchor": [{"shape", "view", "anchor":
+{activity: count}, "library": {...}}, ...], "blind_sessions": n}``. Ends
+with ``os._exit(0)``: a
 process that ran ``torch.profiler`` on the card may not exit by itself.
 """
 
@@ -40,6 +48,7 @@ SHAPES = (
 
 RELABEL_SHAPES = ((8, 1024, 1280), (8, 1024, 1024), (8, 2048, 2560))
 RELABEL_R, RELABEL_MIN_AREA = 256, 30
+ANCHOR_SHAPES = ((8, 1024, 1024), (8, 2048, 2560))
 
 PAUSE_S = 0.002  # idle time in a session before and after the profiled call
 BLIND_WAIT_S, BLIND_SESSIONS = 5.0, 60  # a session that saw no device activity: wait, run it again
@@ -126,13 +135,37 @@ def count_relabel(shapes) -> list:
     return cases
 
 
+def count_anchor(shapes) -> list:
+    import torch
+
+    from ..ops.anchor import anchor
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    for shape in shapes:
+        mask = torch.rand(shape, device=dev, generator=gen) < 0.3
+        for view, x, library in (("contiguous", mask, mask.clone), ("transposed", mask.transpose(1, 2),
+                                                                      mask.transpose(1, 2).contiguous)):
+            anchor(x)
+            library()
+            cases.append({"shape": list(shape), "view": view, "anchor": device_activities(lambda: anchor(x)),
+                          "library": device_activities(library)})
+        del mask
+    return cases
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--shape", action="append", default=None, help="B,C,H,W, or B,H,W with --relabel (repeatable)")
+    ap.add_argument("--shape", action="append", default=None,
+                    help="B,C,H,W, or B,H,W with --relabel or --anchor (repeatable)")
     ap.add_argument("--relabel", action="store_true", help="count K8's device operations instead")
+    ap.add_argument("--anchor", action="store_true", help="count K9's and its library calls' device operations")
     args = ap.parse_args(argv)
     shapes = [tuple(int(v) for v in s.split(",")) for s in args.shape] if args.shape else None
-    if args.relabel:
+    if args.anchor:
+        out = {"anchor": count_anchor(shapes or ANCHOR_SHAPES)}
+    elif args.relabel:
         out = {"relabel": count_relabel(shapes or RELABEL_SHAPES)}
     else:
         out = {"cases": count(shapes or SHAPES)}

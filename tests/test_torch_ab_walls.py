@@ -43,6 +43,15 @@ def test_relabel_mode_needs_a_card(monkeypatch):
         ab_walls.main([REPO, "--relabel"])
 
 
+@pytest.mark.parametrize("mode", ["--anchor", "--fixpoint"])
+def test_anchor_and_fixpoint_modes_need_a_card(monkeypatch, mode):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ab_walls.main([REPO, mode])
+    assert ab_walls.ANCHOR_SHAPES == ((8, 1024, 1024), (8, 2048, 2560))
+    assert "anchor" in ab_walls._ANCHOR_WORKER and "transpose(1, 2)" in ab_walls._ANCHOR_WORKER
+
+
 def test_l2_cold_inputs_exceed_twice_the_l2():
     """--relabel's clock: the copies it rotates over hold distinct storage
     and together exceed twice the L2, and each call takes the next one."""

@@ -14,7 +14,9 @@
 * The lab's ``main`` at ``--shape 64x80 --device cpu``.
 * On the card only (``cuda``): K9 against ``anchor_plain``, bit-exact, at
   the lab's shapes, a tail that is not a multiple of 16 bytes, (1, 1, 1),
-  transposed and sliced views and every element size.
+  transposed and sliced views and every element size; the tiled transpose
+  at odd shapes.
+* ``tools/anchor_variants.py`` (K9's tried designs) needs a card.
 """
 
 import jax
@@ -134,6 +136,21 @@ def test_lab_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
         perf_lab.main(["morph", "--shape", "64x80"])
 
 
+def test_anchor_variants_need_a_card_and_list_every_design(monkeypatch):
+    """``tools/anchor_variants.py`` times K9's tried designs on the card
+    only; its source has a launch for each of its ``VARIANTS`` designs."""
+    import re
+
+    from maze_image_processing_pipeline_tpu_torch.tools import anchor_variants
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        anchor_variants.main(["--rounds", "1"])
+    with open(anchor_variants.SOURCE) as f:
+        cases = sorted(int(c) for c in re.findall(r"case (\d+):", f.read()))
+    assert cases == list(range(anchor_variants.VARIANTS))
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -154,4 +171,22 @@ def test_cuda_anchor_matches_plain(shape, dtype):
         out = anchor(view)
         assert anchor.launches == n + 1
         assert out.is_contiguous() and out.shape == view.shape and out.dtype == dtype
+        assert torch.equal(out, anchor_plain(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 37, 1001), (2, 129, 33), (1, 5, 3), (4, 1000, 1024), (2, 1, 7)])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8, torch.int16, torch.int32, torch.int64])
+def test_cuda_anchor_tiled_transpose_matches_plain(shape, dtype):
+    """The transposed view (stride-1 axis h) takes the shared-memory tile:
+    ragged tiles at both edges, words and single bytes, a base offset that
+    breaks 4-byte alignment."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    base = (torch.rand((shape[0], shape[2] + 1, shape[1]), device=dev, generator=gen) * 1000).to(dtype)
+    for view in (base[:, :-1].transpose(1, 2), base[:, 1:].transpose(1, 2)):
+        n = anchor.launches
+        out = anchor(view)
+        assert anchor.launches == n + 1
+        assert out.is_contiguous() and out.shape == view.shape
         assert torch.equal(out, anchor_plain(view))

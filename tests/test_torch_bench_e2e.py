@@ -97,3 +97,36 @@ def test_haul_driver_full_width_on_the_cpu(tmp_path, capsys):
                              "--model-dir", str(tmp_path / "models"), "--workdir", str(tmp_path / "work")])
     assert set(result) == KEYS and result["objects"] > 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == result
+
+
+def test_loki_unet_distils_on_vignette_tiles_and_semseg_batches_stay(tmp_path, monkeypatch):
+    """``ensure_models`` distils the loki U-Net on ``synth.vignette_batches``
+    and the semseg U-Net on the batches it had before: ``distill_batches``
+    of one generator (seed 0) after ``distill_steps`` loki batches of
+    ``tools/bench_e2e.py``."""
+    from maze_image_processing_pipeline_tpu_torch.models import train_loop
+
+    seen = {}
+
+    def record(module, batches, n_steps, **kw):
+        seen[module.out_channels] = [next(batches) for _ in range(2)]
+
+    monkeypatch.setattr(train_loop, "fit", record)
+    monkeypatch.setattr(bench_e2e, "LOKI_UNET", dict(out_channels=1, base_features=4, depth=1))
+    monkeypatch.setattr(bench_e2e, "SEMSEG_UNET", dict(out_channels=2, base_features=4, depth=1))
+    monkeypatch.setattr(bench_e2e, "CLASSIFIER", dict(n_outputs=8, features=[4, 8]))
+    bench_e2e.ensure_models(str(tmp_path / "m"), 3, torch.device("cpu"))
+    assert sorted(seen) == [1, 2]
+    vignettes = synth.vignette_batches(1)
+    for got in seen[1]:
+        for g, w in zip(got, next(vignettes)):
+            np.testing.assert_array_equal(g, w)
+    rng = np.random.default_rng(0)
+    old_loki = synth.distill_batches(1, rng=rng)
+    for _ in range(3):
+        next(old_loki)
+    semseg = synth.distill_batches(2, rng=rng)
+    for got in seen[2]:
+        for g, w in zip(got, next(semseg)):
+            np.testing.assert_array_equal(g, w)
+    assert float(seen[1][0][0].min()) == 0.0  # the black canvas of stitched frames

@@ -2,13 +2,21 @@
 
 On the card the whole fixpoint (sweeps of K1, K4 down, K4 up, K1 until no
 pixel of a frame changes) is one launch of ``csrc/ccl.cu``, one block per
-frame, each frame stopping on its own. Its plain version
+frame, each frame stopping on its own; rows wider than 8192 take the banded
+route (``ccl_route``: ``csrc/ccl_banded.cu``, bands of 512 to 8192
+columns, a block each, their edges exchanged through device memory). Its
+plain version
 ``fixpoint_plain`` is held here on seeded numpy masks: its labels against
 the batch-wide host loop of the standalone passes (the loop ``label`` ran
 before the fixpoint became a kernel) and, through ``label``, against the JAX
 package's ``label``; its per-frame sweep counts against the same loop run
 on each frame alone. Labels are integers, so every comparison is exact.
-The kernel runs only on the card (tests marked ``cuda``).
+Here too: the port's CPU ``label`` against the JAX package's on rows wider
+than one block walks; ``ccl_route`` at the path's shapes and above them;
+and the banded route's K1 (each band's own scan, its row summary, the
+look-back over the neighbours' summaries, the lowering of its edge runs)
+replayed in torch against the plain K1 of whole rows. The kernel runs
+only on the card (tests marked ``cuda``).
 
 This file imports nothing that the card's machine lacks (no flax, optax or
 h5py), so it collects there too.
@@ -18,7 +26,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import PREDICT_LABEL_SHAPES, blob_masks, host_loop_fixpoint, serpentine
+from chip_smoke import (
+    FIXPOINT_SHAPES,
+    PREDICT_LABEL_SHAPES,
+    RELABEL_TIMED,
+    blob_masks,
+    host_loop_fixpoint,
+    serpentine,
+)
 from maze_image_processing_pipeline_tpu.ops import label as jl
 from maze_image_processing_pipeline_tpu_torch.ops import label as tl
 from maze_image_processing_pipeline_tpu_torch.ops import row_scan
@@ -107,6 +122,115 @@ def test_fixpoint_rejects_what_the_kernel_does_not_take():
         tl._fixpoint(lab, fg, 0, 8)
 
 
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("shape", [(1, 24, 8193), (1, 8, 20000)])
+def test_label_on_wide_rows_matches_jax(shape, connectivity):
+    rng = np.random.default_rng(shape[2] + connectivity)
+    m = rng.random(shape) < 0.3
+    m[0, shape[1] // 2, :] = True  # a row of foreground across every band: one run over 8192 and 46000
+    ref, n_ref = jl.label(m, connectivity=connectivity)
+    ours, n = tl.label(torch.from_numpy(m), connectivity=connectivity)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(n_ref))
+
+
+# The shapes the port's paths label: loki's and the perf lab's frames, the
+# dense haul's, the fused measurement's chunks, phase 2's edge shapes.
+PATH_SHAPES = (
+    (8, 1024, 1280), (8, 1024, 1024), (8, 2048, 2560), (8, 1024, 1), (8, 1024, 1000), (8, 1, 1280), (4, 64, 37),
+    (2, 96, 1277),
+) + PREDICT_LABEL_SHAPES + FIXPOINT_SHAPES + RELABEL_TIMED
+
+
+H100_SMS = 132  # an H100 SXM's multiprocessors: one block of the walk each
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("shape", sorted(set(PATH_SHAPES)) + [(1, 7, 8192)])
+def test_ccl_route_is_one_block_at_the_path_shapes(shape, connectivity):
+    assert tl.ccl_route(*shape, connectivity, H100_SMS) == tl.CclRoute("one_block", shape[2], 1, 0)
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("W", [8193, 12000, 16384, 20000, 50000, 67584, 67585, 1_000_000, 1_081_344, 1_081_345])
+def test_ccl_route_bands_wider_rows(W, connectivity):
+    """Bands of 512 columns (equal, rounded up to 32) while a frame's bands
+    fit the card's blocks, wider ones (at most 8192) where they would not;
+    beyond 132 bands of 8192 the card cannot hold a frame (the wrapper
+    raises)."""
+    B, H = 3, 512
+    r = tl.ccl_route(B, H, W, connectivity, H100_SMS)
+    assert r.route == "banded" and r.band <= tl.CCL_BAND and r.band % 32 == 0
+    assert (r.bands - 1) * r.band < W <= r.bands * r.band
+    if W <= H100_SMS * tl.CCL_BAND_MIN:
+        assert r.band <= tl.CCL_BAND_MIN
+    assert (r.bands <= H100_SMS) == (W <= H100_SMS * tl.CCL_BAND)
+    assert r.slots == B * r.bands * (2 * H + 2 + (4 * H if connectivity == 2 else 0))
+
+
+@pytest.mark.parametrize("limit, W, band, bands", [(32, 100, 32, 4), (32, 33, 32, 2), (64, 300, 64, 5), (96, 97, 64, 2)])
+def test_ccl_route_follows_the_band_limit(monkeypatch, limit, W, band, bands):
+    """The card tests lower ``CCL_BAND`` to run the banded route on narrow
+    frames: the fewest bands of at most the limit, of equal width rounded
+    up to a multiple of 32."""
+    monkeypatch.setattr(tl, "CCL_BAND", limit)
+    assert tl.CCL_BAND_MIN >= limit
+    r = tl.ccl_route(2, 8, W, 2, H100_SMS)
+    assert (r.route, r.band, r.bands) == ("banded", band, bands)
+    assert tl.ccl_route(2, 8, limit, 2, H100_SMS).route == "one_block"
+
+
+def _banded_k1(lab: torch.Tensor, fg: torch.Tensor, band: int) -> torch.Tensor:
+    """csrc/ccl_banded.cu's K1 across bands, replayed on (rows, W): each band's own
+    K1; its summary (the run at its left edge, at its right edge, kInf where
+    the edge pixel is background; all foreground or not); the look-back over
+    the neighbours' summaries as far as they are all foreground; the band's
+    first run lowered to what crosses in from the left, its last run to what
+    crosses in from the right (a band all foreground: to both)."""
+    W = lab.shape[-1]
+    cuts = [(c0, min(W, c0 + band)) for c0 in range(0, W, band)]
+    local = [row_scan.hpass_plain(lab[:, a:b], fg[:, a:b]) for a, b in cuts]
+    masks = [fg[:, a:b].bool() for a, b in cuts]
+    head = [torch.where(m[:, 0], v[:, 0], INF) for v, m in zip(local, masks)]
+    tail = [torch.where(m[:, -1], v[:, -1], INF) for v, m in zip(local, masks)]
+    full = [m.all(1) for m in masks]
+    out = []
+    for j, (v, m) in enumerate(zip(local, masks)):
+        left = torch.full_like(head[j], INF)
+        going = m[:, 0].clone()
+        for k in range(j - 1, -1, -1):
+            left = torch.where(going, torch.minimum(left, tail[k]), left)
+            going &= full[k]
+        right = torch.full_like(head[j], INF)
+        going = m[:, -1].clone()
+        for k in range(j + 1, len(cuts)):
+            right = torch.where(going, torch.minimum(right, head[k]), right)
+            going &= full[k]
+        cols = torch.arange(v.shape[1])
+        bg = ~m
+        first_bg = torch.where(bg.any(1), bg.int().argmax(1), v.shape[1])
+        last_bg = torch.where(bg.any(1), v.shape[1] - 1 - bg.flip(1).int().argmax(1), -1)
+        in_head = cols[None] < first_bg[:, None]
+        in_tail = cols[None] > last_bg[:, None]
+        cross = torch.where(in_head, left[:, None], INF)
+        cross = torch.minimum(cross, torch.where(in_tail, right[:, None], INF))
+        out.append(torch.where(m, torch.minimum(v, cross), v))
+    return torch.cat(out, 1)
+
+
+@pytest.mark.parametrize("band", [1, 5, 32, 37, 64])
+@pytest.mark.parametrize("density", [0.5, 0.9, 1.0])
+def test_banded_k1_replay_matches_the_plain_k1(band, density):
+    rng = np.random.default_rng(band)
+    rows, W = 40, 301
+    fg = torch.from_numpy(rng.random((rows, W)) < density)
+    fg[3] = True
+    fg[4] = False
+    fg[5, ::band] = False  # background on every band's first column
+    lab = torch.from_numpy(rng.integers(1, INF, (rows, W), dtype=np.int32))
+    assert torch.equal(_banded_k1(lab, fg, band), row_scan.hpass_plain(lab, fg))
+
+
 # -- on the card ----------------------------------------------------------------
 
 # Loki's frames, the fused measurement's chunks, and ragged rows and frames.
@@ -183,3 +307,168 @@ def test_cuda_label_makes_no_host_synchronisation():
     assert n.device.type == "cuda"
     ref, n_ref = tl.label(m.cpu(), connectivity=2)
     assert torch.equal(labels.cpu(), ref) and torch.equal(n.cpu(), n_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 512, 4097), (2, 256, 6000), (1, 128, 8192)])
+def test_cuda_fixpoint_one_block_on_rows_wider_than_4096(shape):
+    """Rows of 4097 to 8192 columns give the one-block route fewer than 16
+    ring stages, and it hung, or with an odd number of stages gave wrong
+    labels: a scanner (more of them than stages), or a loader (a slot taken
+    by both loaders in turn), met a slot two mbarrier phases early
+    (csrc/ccl_rows.cuh: `plan` now keeps the stages even and the scanners at
+    most the stages). Serpentines capped at 3 sweeps showed the loaders'
+    case."""
+    dev = _card()
+    assert tl.ccl_route(*shape, 2, H100_SMS).route == "one_block"
+    fg, seeds = _wide_inputs(shape, dev, seed=shape[2])
+    serp = torch.from_numpy(serpentine(*shape)).to(dev)
+    lin = torch.arange(1, shape[1] * shape[2] + 1, dtype=torch.int32, device=dev).reshape(shape[1:])
+    for connectivity in (1, 2):
+        for lab0, mask, max_iters in ((seeds[0], fg, 256), (seeds[1], fg, 256), (torch.where(serp, lin, INF), serp, 3)):
+            lab, sweeps = tl._fixpoint(lab0, mask, connectivity, max_iters)
+            ref, ref_sweeps = tl.fixpoint_plain(lab0, mask, connectivity, max_iters)
+            assert torch.equal(lab, ref) and torch.equal(sweeps, ref_sweeps)
+
+
+# The banded route: rows one past a block's 8192 columns, and well beyond.
+WIDE_SHAPES = ((2, 512, 8193), (2, 512, 12000))
+
+
+def _wide_inputs(shape, dev, seed):
+    rng = np.random.default_rng(seed)
+    B, h, w = shape
+    lin = torch.arange(1, h * w + 1, dtype=torch.int32, device=dev).reshape(1, h, w)
+    fg_np = blob_masks(shape, seed=seed) | (rng.random(shape) < 0.3)
+    fg_np[:, h // 2, :] = True  # a run across every band
+    fg = torch.from_numpy(fg_np).to(dev)
+    random_lab = torch.from_numpy(rng.integers(1, INF, shape, dtype=np.int32)).to(dev)
+    return fg, (torch.where(fg, lin, INF), random_lab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_cuda_fixpoint_banded_matches_plain(shape):
+    dev = _card()
+    assert tl.ccl_route(*shape, 2, H100_SMS).route == "banded"
+    fg, seeds = _wide_inputs(shape, dev, seed=shape[2])
+    for lab0 in seeds:
+        for connectivity in (1, 2):
+            n = tl._fixpoint.launches
+            lab, sweeps = tl._fixpoint(lab0, fg, connectivity, 256)
+            assert tl._fixpoint.launches == n + 1
+            ref, ref_sweeps = tl.fixpoint_plain(lab0, fg, connectivity, 256)
+            assert torch.equal(lab, ref) and torch.equal(sweeps, ref_sweeps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_cuda_fixpoint_banded_matches_plain_on_capped_serpentines(shape):
+    dev = _card()
+    fg = torch.from_numpy(serpentine(*shape)).to(dev)
+    lin = torch.arange(1, shape[1] * shape[2] + 1, dtype=torch.int32, device=dev).reshape(shape[1:])
+    lab0 = torch.where(fg, lin, INF)
+    for connectivity in (1, 2):
+        for max_iters in (1, 3):
+            lab, sweeps = tl._fixpoint(lab0, fg, connectivity, max_iters)
+            ref, ref_sweeps = tl.fixpoint_plain(lab0, fg, connectivity, max_iters)
+            assert torch.equal(lab, ref) and torch.equal(sweeps, ref_sweeps)
+            assert int(sweeps.min()) == max_iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [32, 64, 96])
+@pytest.mark.parametrize("shape", [(5, 61, 300), (3, 1, 200), (40, 16, 97)])
+def test_cuda_fixpoint_forced_bands_match_plain(monkeypatch, shape, band):
+    """The banded route at narrow bands (``CCL_BAND`` lowered: up to 10 bands
+    a frame, ragged last bands of 1 to 44 columns, more frames than the card
+    holds at once: 40 frames of 4 bands), both seeds, both connectivities,
+    and serpentines capped at 1 and 3 sweeps."""
+    dev = _card()
+    monkeypatch.setattr(tl, "CCL_BAND", band)
+    assert tl.ccl_route(*shape, 2, H100_SMS).route == "banded"
+    rng = np.random.default_rng(band + shape[2])
+    B, h, w = shape
+    lin = torch.arange(1, h * w + 1, dtype=torch.int32, device=dev).reshape(1, h, w)
+    for fg_np in (rng.random(shape) < 0.6, serpentine(*shape) if h > 4 else np.ones(shape, bool)):
+        fg = torch.from_numpy(fg_np).to(dev)
+        random_lab = torch.from_numpy(rng.integers(1, INF, shape, dtype=np.int32)).to(dev)
+        for lab0 in (torch.where(fg, lin, INF), random_lab):
+            for connectivity in (1, 2):
+                for max_iters in (1, 3, 256):
+                    lab, sweeps = tl._fixpoint(lab0, fg, connectivity, max_iters)
+                    ref, ref_sweeps = tl.fixpoint_plain(lab0, fg, connectivity, max_iters)
+                    assert torch.equal(lab, ref) and torch.equal(sweeps, ref_sweeps), (connectivity, max_iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 8193), (2, 256, 12000)])
+def test_cuda_vertical_pass_banded_matches_plain(shape):
+    dev = _card()
+    fg, seeds = _wide_inputs(shape, dev, seed=7)
+    for lab in seeds:
+        for connectivity in (1, 2):
+            for reverse in (False, True):
+                n = tl.vertical_pass.launches
+                out = tl.vertical_pass(lab, fg, connectivity, reverse)
+                assert tl.vertical_pass.launches == n + 1
+                assert torch.equal(out, tl.vertical_pass_plain(lab, fg, connectivity, reverse))
+
+
+@pytest.mark.cuda
+def test_cuda_hpass_wide_rows_match_plain():
+    dev = _card()
+    shape = (2, 64, 50000)
+    rng = np.random.default_rng(5)
+    lab = torch.from_numpy(rng.integers(1, INF, shape, dtype=np.int32)).to(dev)
+    for density in (0.5, 0.999, 1.0):
+        fg_np = rng.random(shape) < density
+        fg_np[0, 3, 4096:8192] = True  # a chunk foreground throughout, inside a longer run
+        fg = torch.from_numpy(fg_np).to(dev)
+        n = row_scan.hpass.launches
+        out = row_scan.hpass(lab, fg)
+        assert row_scan.hpass.launches == n + 1
+        assert torch.equal(out, row_scan.hpass_plain(lab, fg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 8193), (2, 128, 12000)])
+def test_cuda_label_on_wide_rows_is_one_launch_a_fixpoint_without_host_sync(shape):
+    """At WIDE_SHAPES' widths, 128 rows: the CPU's label() is the slow part."""
+    dev = _card()
+    fg, _ = _wide_inputs(shape, dev, seed=11)
+    tl.label(fg, connectivity=2)  # builds the kernels and the workspace outside the check
+    torch.cuda.synchronize()
+    for connectivity in (1, 2):
+        before = (tl._fixpoint.launches, row_scan.hpass.launches, tl.vertical_pass.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            labels, n = tl.label(fg, connectivity=connectivity)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert (tl._fixpoint.launches, row_scan.hpass.launches, tl.vertical_pass.launches) == (
+            before[0] + 2, before[1], before[2])
+        ref, n_ref = tl.label(fg.cpu(), connectivity=connectivity)
+        assert torch.equal(labels.cpu(), ref) and torch.equal(n.cpu(), n_ref)
+
+
+@pytest.mark.cuda
+def test_cuda_label_raises_where_the_card_cannot_hold_a_frames_bands():
+    dev = _card()
+    fg = torch.ones((1, 1, 4_000_000), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="bands of"):
+        tl.label(fg)
+
+
+def test_plain_label_is_label_through_the_plain_versions():
+    """``chip_smoke.plain_label``, the card's reference for ``label()`` on
+    wide rows, is ``label()`` itself on the CPU, and leaves the module as it
+    was."""
+    from chip_smoke import plain_label
+
+    m = torch.from_numpy(_batch())
+    for connectivity in (1, 2):
+        ref, n_ref = tl.label(m, connectivity=connectivity)
+        ours, n = plain_label(m, connectivity)
+        assert torch.equal(ours, ref) and torch.equal(n, n_ref)
+    assert tl._fixpoint.__name__ == "_fixpoint" and tl.cumsum_rows is row_scan.cumsum_rows
