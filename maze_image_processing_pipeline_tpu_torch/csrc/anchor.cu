@@ -60,9 +60,9 @@ __device__ __forceinline__ void store_stream(uint4* p, uint4 v) {
                : "memory");
 }
 
-// kTail: the bytes past the last whole vector, one a thread (without them
-// the kernel is tools/anchor_variants.cu's design 2, which timed ~1 % faster
-// than with the tail's code at (8, 2048, 2560)).
+// kTail: the bytes past the last whole vector, one a thread (compiled only
+// into the tail's instantiation: with the tail's code the kernel timed ~1 %
+// slower at (8, 2048, 2560)).
 template <bool kTail>
 __global__ void copy_vec_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, long long n_vec,
                                 const uint8_t* __restrict__ in_tail, uint8_t* __restrict__ out_tail, int n_tail) {

@@ -255,8 +255,11 @@ __device__ __forceinline__ unsigned long long global_ns() {
 // fixpoint several times its time) until the slot holds `tag`, then reads
 // its values. A wait that outlasts kWaitLimitNs (a fault, never a slow
 // neighbour; the clock is read once every 1024 polls), or kWaitLimitPolls
-// where the clock stands still, traps, so the launch fails instead of
-// holding the card.
+// where the clock stands still, traps instead of holding the card. A trap is
+// a sticky error: it ends the process's CUDA context, so this launch and
+// every later CUDA call of the process fail, and only a new process uses
+// the card again. (Raising from a device flag instead would cost the
+// wrapper a host synchronisation a call.)
 __device__ __forceinline__ int2 await(const Slot* s, unsigned long long tag) {
   unsigned long long since = 0;
   for (unsigned polls = 1;; ++polls) {

@@ -11,7 +11,8 @@ same results:
    when a sweep changes nothing, with no host synchronisation; rows wider
    than 8192 take the banded route, ``csrc/ccl_banded.cu``: bands of a frame
    in co-resident blocks that exchange their edges through device memory,
-   :func:`ccl_route`); its plain
+   :func:`ccl_route`; a frame whose bands the card cannot hold at once
+   raises); its plain
    version :func:`fixpoint_plain` runs the sweeps of the horizontal pass
    (:func:`.row_scan.hpass_plain`, K1) and :func:`vertical_pass_plain` (K4).
    Both passes also stand alone on the card (:func:`.row_scan.hpass`,
@@ -44,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -125,25 +127,31 @@ def ccl_route_of(t: torch.Tensor, connectivity: int) -> CclRoute:
 
 
 # The banded route's workspace for each (device, stream): [int64 tensor of
-# 16-byte slots, zeroed when made; the epoch of the last call].
+# 16-byte slots, zeroed when made; the epoch of the last call]. Host threads
+# that launch on the same stream share it, so the lock hands each call an
+# epoch of its own: two calls with one epoch would read each other's slots.
 _EXCHANGE: Dict[Tuple[int, int], list] = {}
+_EXCHANGE_LOCK = threading.Lock()
 
 
 def _exchange(device: torch.device, stream: int, slots: int) -> Tuple[torch.Tensor, int]:
     """The workspace of the banded route for ``device`` and ``stream``, of at
-    least ``slots`` slots, and this call's epoch (1, 2, ...). Every slot
-    carries the epoch of the call that wrote it, so nothing is zeroed
-    between calls: only when the workspace is made, grown, or its epochs
-    would pass 32 bits."""
+    least ``slots`` slots, and this call's epoch (1, 2, ...), distinct from
+    every other call's on that stream since the workspace was last zeroed.
+    Every slot carries the epoch of the call that wrote it, so nothing is
+    zeroed between calls: only when the workspace is made, grown, or its
+    epochs would pass 32 bits (on ``stream``, behind the calls before)."""
     key = (device.index, stream)
-    entry = _EXCHANGE.get(key)
-    if entry is None or entry[0].numel() < 2 * slots:
-        entry = _EXCHANGE[key] = [torch.zeros(max(2 * slots, 1 << 16), dtype=torch.int64, device=device), 0]
-    entry[1] += 1
-    if entry[1] >= 2**32:
-        entry[0].zero_()
-        entry[1] = 1
-    return entry[0], entry[1]
+    with _EXCHANGE_LOCK:
+        entry = _EXCHANGE.get(key)
+        if entry is None or entry[0].numel() < 2 * slots:
+            entry = _EXCHANGE[key] = [torch.zeros(max(2 * slots, 1 << 16), dtype=torch.int64, device=device), 0]
+        epoch = entry[1] + 1
+        if epoch >= 2**32:
+            entry[0].zero_()
+            epoch = 1
+        entry[1] = epoch
+        return entry[0], epoch
 
 
 def _raise_on_banded(name: str, err: int, W: int, route: CclRoute) -> None:

@@ -16,7 +16,6 @@
   the lab's shapes, a tail that is not a multiple of 16 bytes, (1, 1, 1),
   transposed and sliced views and every element size; the tiled transpose
   at odd shapes.
-* ``tools/anchor_variants.py`` (K9's tried designs) needs a card.
 """
 
 import jax
@@ -134,21 +133,6 @@ def test_lab_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         perf_lab.main(["morph", "--shape", "64x80"])
-
-
-def test_anchor_variants_need_a_card_and_list_every_design(monkeypatch):
-    """``tools/anchor_variants.py`` times K9's tried designs on the card
-    only; its source has a launch for each of its ``VARIANTS`` designs."""
-    import re
-
-    from maze_image_processing_pipeline_tpu_torch.tools import anchor_variants
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA card"):
-        anchor_variants.main(["--rounds", "1"])
-    with open(anchor_variants.SOURCE) as f:
-        cases = sorted(int(c) for c in re.findall(r"case (\d+):", f.read()))
-    assert cases == list(range(anchor_variants.VARIANTS))
 
 
 def _card():

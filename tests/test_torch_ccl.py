@@ -15,12 +15,16 @@ Here too: the port's CPU ``label`` against the JAX package's on rows wider
 than one block walks; ``ccl_route`` at the path's shapes and above them;
 and the banded route's K1 (each band's own scan, its row summary, the
 look-back over the neighbours' summaries, the lowering of its edge runs)
-replayed in torch against the plain K1 of whole rows. The kernel runs
+replayed in torch against the plain K1 of whole rows; the banded route's
+workspace handing each call its own epoch across host threads. The kernel runs
 only on the card (tests marked ``cuda``).
 
 This file imports nothing that the card's machine lacks (no flax, optax or
 h5py), so it collects there too.
 """
+
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -178,6 +182,59 @@ def test_ccl_route_follows_the_band_limit(monkeypatch, limit, W, band, bands):
     r = tl.ccl_route(2, 8, W, 2, H100_SMS)
     assert (r.route, r.band, r.bands) == ("banded", band, bands)
     assert tl.ccl_route(2, 8, limit, 2, H100_SMS).route == "one_block"
+
+
+
+class _YieldingInt(int):
+    """An epoch counter whose addition lets other threads run, so that a
+    read-increment-write of the counter that is not under a lock
+    interleaves with other threads'."""
+
+    def __add__(self, other):
+        time.sleep(0.0005)
+        return _YieldingInt(int(self) + other)
+
+
+def test_exchange_gives_every_call_its_own_epoch_across_threads():
+    """Host threads that launch on one stream share its workspace; every
+    call of the banded route must get an epoch of its own, else two launches
+    read each other's slots as their neighbours'."""
+    key = (None, -7001)
+    n_threads, calls = 8, 25
+    tl._EXCHANGE[key] = [torch.zeros(1 << 16, dtype=torch.int64), _YieldingInt(0)]
+    start = threading.Barrier(n_threads)
+    got = [[] for _ in range(n_threads)]
+
+    def worker(i):
+        start.wait()
+        for _ in range(calls):
+            ws, epoch = tl._exchange(torch.device("cpu"), key[1], 64)
+            got[i].append(int(epoch))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n_threads)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        tl._EXCHANGE.pop(key, None)
+    assert sorted(e for g in got for e in g) == list(range(1, n_threads * calls + 1))
+
+
+def test_exchange_zeroes_its_workspace_before_the_epochs_wrap():
+    key_stream = -7002
+    try:
+        ws, epoch = tl._exchange(torch.device("cpu"), key_stream, 8)
+        assert epoch == 1 and not ws.any()
+        ws.fill_(5)
+        tl._EXCHANGE[(None, key_stream)][1] = 2**32 - 2
+        ws2, epoch = tl._exchange(torch.device("cpu"), key_stream, 8)
+        assert ws2 is ws and epoch == 2**32 - 1 and bool((ws == 5).all())
+        ws3, epoch = tl._exchange(torch.device("cpu"), key_stream, 8)
+        assert ws3 is ws and epoch == 1 and not ws.any()
+    finally:
+        tl._EXCHANGE.pop((None, key_stream), None)
 
 
 def _banded_k1(lab: torch.Tensor, fg: torch.Tensor, band: int) -> torch.Tensor:
@@ -454,6 +511,11 @@ def test_cuda_label_on_wide_rows_is_one_launch_a_fixpoint_without_host_sync(shap
 
 @pytest.mark.cuda
 def test_cuda_label_raises_where_the_card_cannot_hold_a_frames_bands():
+    """Pins C4, an open fault (ROADMAP queue C): the JAX ``label`` labels
+    this frame, the card raises, because a frame's bands must all be
+    resident at once (on an H100 rows above 132 × 8192 columns). Until C4
+    is repaired the raise is its documented behaviour; the repair turns
+    this test into an equality with the plain labels."""
     dev = _card()
     fg = torch.ones((1, 1, 4_000_000), dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="bands of"):
