@@ -5,6 +5,8 @@
     python3 chip_smoke.py --stages   # phases 6, 7, 8 and 9's train step only,
                                      # with stage breakdowns and the device's
                                      # idle share
+    python3 chip_smoke.py --mesh     # phase 12 alone (a machine of several
+                                     # cards)
 
 Builds the port's CUDA kernels from ``maze_image_processing_pipeline_tpu_torch/
 csrc`` and runs, one line of output per phase:
@@ -34,7 +36,15 @@ csrc`` and runs, one line of output per phase:
    bit-exact, each case's route and bands printed, K1's wide route at
    (2, 64, 50000), and the banded
    fixpoint's time at (2, 1024, 12000), both connectivities, beside the
-   one-block route's time a pixel;
+   one-block route's time a pixel; the grid route (``phase_grid_ccl``, C4:
+   frames whose bands the card cannot hold) at ``GRID_CCL_SHAPES``, a row
+   of 4,000,000 columns and 8 rows of 1,200,000, and at
+   ``GRID_FORCED``'s narrow frames with ``CCL_BAND`` lowered: the fixpoint
+   (raster and random seeds, both connectivities, serpentines capped at 1
+   and 3 sweeps, labels and sweep counts), the 8-connected pass alone and
+   ``label()`` against the plain versions on the card, bit-exact, each
+   case's route printed, the fixpoint's time a pixel beside the banded
+   route's;
    K8 ``remove_small_objects`` (``relabel_cases``, min_area 0, 1 and 30
    each): R = 256 on rectangle frames with ids beyond R at the path's and
    the edge shapes, all-background frames, a region covering each frame,
@@ -102,7 +112,10 @@ csrc`` and runs, one line of output per phase:
    seeded random weights written by the port's ``save_model``; one warm-up,
    then the timed run. Then a smaller task (2 frames, ``UNet(1, 8, 2)``
    float32, TF32 off) on the card and on the CPU: the two archives must
-   agree; and the same small task with ``device_blend: false``,
+   agree; the standard haul's task once more through the command line in
+   a process of its own with ``MAZE_IPP_PROFILE_DIR`` (the Runner's
+   ``torch.profiler`` trace: its size and the share of the run spent in
+   ``Memcpy HtoD``); and the same small task with ``device_blend: false``,
    ``merge_segments_distance: 20`` and ``full_frame_archive_fn`` (tiles →
    ``TorchInference`` → host blend → ``DeviceFramePostprocess`` → merging
    on the host), card against CPU, the full-frame archive too;
@@ -153,11 +166,20 @@ csrc`` and runs, one line of output per phase:
     CPU) within tolerance;
 11. the port's haul driver (``tools/bench_e2e.py`` of the port),
     ``--haul standard --repeat 1`` with phase 9's distilled loki U-Net:
-    its JSON line, at least 432 of the 480 planted objects found.
+    its JSON line, at least 432 of the 480 planted objects found;
+12. the mesh of every card the machine has (``parallel.make_mesh()``):
+    phase 6's loki task (frame groups of 4, round-robin over the cards) and
+    phase 7's semseg and polytaxo tasks (batches split over the cards) with
+    ``parallel: true`` give the archives of the same tasks on one card; the
+    mesh train step (``UNet(1, 8, 2)`` float32, 4 tiles a card) the one-card
+    step's loss and gradients within phase 9's tolerance;
+    ``parallel.dryrun.dryrun_multichip`` on the card count; every kernel of
+    each path launches on every card (``launches_by_device``).
 
 Kernel launches are counted per phase (counts set to 0 just before each
 timed run, read just after): every kernel but K6, K9 and the CCL passes
-alone (K1, K4) must launch in phases 5 and 6; ``ccl_fixpoint``, K2 and K5
+alone (K1, K4) must launch in phases 5, 6 and 12 (its loki run, on every
+card); ``ccl_fixpoint``, K2 and K5
 in phase 7, and not K3 or K7; ``ccl_fixpoint``, K2, K3 and K7 in phase 8;
 K5 and K6, and no other, in phase 9; K1, K4 (the lab's probes of them),
 ``ccl_fixpoint``, K2, K8, K3, K7 and K9, and not K5 or K6, in phase 10; all
@@ -608,6 +630,88 @@ def phase_wide_ccl(dev, record, one_block: dict) -> dict:
     return out
 
 
+# The grid route (frames whose bands the card cannot hold at once, C4): a row
+# of 4,000,000 columns, and 8 rows of 1,200,000 with runs and components
+# across every band; then narrow frames with CCL_BAND lowered so that they
+# need more bands than the card has SMs.
+GRID_CCL_SHAPES = ((1, 1, 4_000_000), (1, 8, 1_200_000))
+GRID_FORCED = ((32, (3, 61, 4300)), (32, (2, 1, 9000)), (64, (5, 16, 8449)))
+
+
+def phase_grid_ccl(dev, record, banded_ns: dict) -> dict:
+    """The grid route against the plain versions on the card, bit-exact:
+    the fixpoint's labels and per-frame sweep counts (raster and random
+    seeds, both connectivities, serpentines capped at 1 and 3 sweeps), the
+    8-connected pass alone and ``label()`` (against ``plain_label``) at
+    ``GRID_CCL_SHAPES``, the same at ``GRID_FORCED``'s narrow frames with
+    ``CCL_BAND`` lowered; each case's route and time printed, the fixpoint's
+    time a pixel beside the banded route's (``banded_ns``: 4/8-connected
+    ns a pixel at ``WIDE_TIMED``). Returns the times."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+
+    rng = np.random.default_rng(12)
+    out = {}
+
+    def cases(shape, fg_np, timed: bool):
+        B, H, W = shape
+        fg = torch.from_numpy(fg_np).to(dev)
+        route = tl.ccl_route_of(fg, 2)
+        check(route.route == "grid", f"{shape} takes the {route.route} route")
+        lin = torch.arange(1, H * W + 1, dtype=torch.int32, device=dev).reshape(H, W)
+        seeds = (torch.where(fg, lin, 2**30), torch.from_numpy(rng.integers(1, 2**30, shape, dtype=np.int32)).to(dev))
+        serp = torch.from_numpy(serpentine(*shape) if H > 4 else np.ones(shape, bool)).to(dev)
+        sweeps, times = set(), []
+        for conn in (1, 2):
+            for lab0 in seeds:
+                lab, sw = tl._fixpoint(lab0, fg, conn, 256)
+                ref, ref_sw = tl.fixpoint_plain(lab0, fg, conn, 256)
+                record("ccl_fixpoint", max(max_err(lab, ref), max_err(sw, ref_sw)), f"{shape} grid connectivity={conn}")
+                sweeps |= set(sw.tolist())
+            for cap in (1, 3):
+                lab0 = torch.where(serp, lin, 2**30)
+                lab, sw = tl._fixpoint(lab0, serp, conn, cap)
+                ref, ref_sw = tl.fixpoint_plain(lab0, serp, conn, cap)
+                record("ccl_fixpoint", max(max_err(lab, ref), max_err(sw, ref_sw)),
+                       f"{shape} grid serpentine connectivity={conn} max_iters={cap}")
+            labels, n = tl.label(fg, connectivity=conn)
+            ref, n_ref = plain_label(fg, conn)
+            check(torch.equal(labels, ref) and torch.equal(n, n_ref),
+                  f"label() differs from label() through the plain versions at {shape} connectivity={conn}")
+            if timed:
+                ms = cuda_ms(lambda: tl._fixpoint(seeds[0], fg, conn, 256), iters=3)
+                times.append(ms)
+                out[f"grid_ms_{4 * conn}_{W}"] = ms
+                out[f"grid_ns_per_px_{4 * conn}_{W}"] = ms * 1e6 / fg.numel()
+        for rev in (False, True):
+            e = max_err(tl.vertical_pass(seeds[0], fg, 2, rev), tl.vertical_pass_plain(seeds[0], fg, 2, rev))
+            record("vertical_pass", e, f"{shape} grid connectivity=2 reverse={rev}")
+        msg = (f"route grid ({route.bands} chunks of {route.band} columns); ccl_fixpoint (4/8-connected, raster and "
+               f"random seeds, sweeps {sorted(sweeps)}; serpentines capped at 1 and 3), vertical_pass (8-connected, "
+               f"down/up) and label() bit-exact")
+        if timed:
+            msg += (f"; a fixpoint of raster seeds 4-connected {times[0]:.4f} ms ({times[0] * 1e6 / fg.numel():.3f} "
+                    f"ns a pixel), 8-connected {times[1]:.4f} ms ({times[1] * 1e6 / fg.numel():.3f} ns a pixel); the "
+                    f"banded route at {WIDE_TIMED}: {banded_ns[4]:.3f} / {banded_ns[8]:.3f} ns a pixel")
+        return msg
+
+    for shape in GRID_CCL_SHAPES:
+        fg_np = wide_masks(shape, seed=shape[2] % 1000)
+        t0 = time.perf_counter()
+        msg = cases(shape, fg_np, timed=True)
+        say(f"  {shape}: {msg} ({time.perf_counter() - t0:.1f} s)")
+    saved = tl.CCL_BAND
+    try:
+        for band, shape in GRID_FORCED:
+            tl.CCL_BAND = band
+            msg = cases(shape, rng.random(shape) < 0.6, timed=False)
+            say(f"  {shape} with CCL_BAND = {band}: {msg}")
+    finally:
+        tl.CCL_BAND = saved
+    return out
+
+
 def relabel_cases(r_max: int, main=(8, 1024, 1280), edges=()) -> list:
     """K8's cases: (where, labels, R, offset). R = 256 (loki's 4 *
     max_regions) on rectangle frames (ids beyond R) at the path's shape and
@@ -786,6 +890,8 @@ def phase_kernels(dev, main=(8, 1024, 1280),
     out["remove_small_objects"] = phase_relabel(dev, main, edges, record)
     out["ccl_fixpoint"] = fixpoint_timings(dev)
     out["ccl_fixpoint"].update(phase_wide_ccl(dev, record, out["ccl_fixpoint"].pop("one_block_ms")))
+    banded = {c: out["ccl_fixpoint"][f"wide_ns_per_px_{c}"] for c in (4, 8)}
+    out["ccl_fixpoint"].update(phase_grid_ccl(dev, record, banded))
     for name, m in out.items():
         m.update(max_abs_err=err[name], bound_by="bytes")
         say(f"  {name} at {main}: {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms"
@@ -1494,6 +1600,19 @@ def _counted():
 def reset_launches() -> None:
     for fn in _counted().values():
         fn.launches = 0
+        fn.launches_by_device = {}
+
+
+def read_launches_by_card(where: str, expected, cards: int) -> dict:
+    """The launches since :func:`reset_launches` on each card (by index);
+    every kernel in ``expected`` must have launched on each of the first
+    ``cards`` cards."""
+    by_card = {name: dict(getattr(fn, "launches_by_device", {})) for name, fn in _counted().items()}
+    for name in expected:
+        for i in range(cards):
+            if by_card[name].get(i, 0) <= 0:
+                raise AssertionError(f"kernel {name} did not launch on card {i} in {where}: {by_card[name]}")
+    return {name: v for name, v in by_card.items() if v}
 
 
 def read_launches(where: str, expected=INFERENCE_KERNELS, absent=("group_norm_bwd", "anchor") + CCL_PASSES) -> dict:
@@ -1698,6 +1817,7 @@ def phase_loki(limit: str, work: str) -> dict:
     rows, members = check_archive(os.path.join(work, "out", archive))
     say(f"  standard haul: 24 frames, {rows} objects ({members} images and masks), wall {wall:.3f} s, "
         f"{24 / wall:.3f} frames/s, {rows / wall:.3f} objects/s, launches {launches} [{limit}]")
+    traced_loki(work, limit, wall)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1724,6 +1844,62 @@ def phase_loki(limit: str, work: str) -> dict:
     say(f"  small task with device_blend: false, merge_segments_distance: 20 and full_frame_archive_fn: card and "
         f"CPU archives agree ({n} objects), full-frame archives agree ({m} frames; score images within one level)")
     return launches
+
+
+TRACE_ATTEMPTS, TRACE_WAIT_S = 4, 30
+
+
+def traced_loki(work: str, limit: str, warm_wall: float) -> dict:
+    """Phase 6's standard-haul task once more through the command line
+    (``maze-ipp-torch loki task.yaml``, its own process) with
+    ``MAZE_IPP_PROFILE_DIR`` set: the Runner writes a ``torch.profiler``
+    Chrome trace. Prints the trace's size and the share of the traced run's
+    wall (the trace's span) spent in ``Memcpy HtoD`` device activities, and
+    the same time over phase 6's warm wall. Returns the numbers."""
+    import yaml
+
+    task_dir = os.path.join(work, "traced")
+    os.makedirs(task_dir, exist_ok=True)
+    task_fn = os.path.join(task_dir, "loki.yaml")
+    with open(task_fn, "w") as f:
+        yaml.safe_dump(loki_task(os.path.join(work, "data"), os.path.join(work, "unet"),
+                                 os.path.join(task_dir, "out")), f)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    # The profiler has come back blind (no device activity) for minutes on a
+    # fresh card (tools/norm_ops.py): a trace without kernels is taken again.
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        prof = os.path.join(work, f"prof{attempt}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "maze_image_processing_pipeline_tpu_torch.cli", "loki", task_fn],
+                              cwd=REPO, env={**env, "MAZE_IPP_PROFILE_DIR": prof}, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the traced loki run failed ({proc.returncode}): {proc.stderr[-3000:]}")
+        traces = sorted(f for f in os.listdir(prof) if f.endswith(".pt.trace.json"))
+        check(len(traces) == 1, f"the traced run wrote {traces}")
+        path = os.path.join(prof, traces[0])
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        check(len(events) > 0, "the trace holds no event")
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        if kernels > 0:
+            break
+        say(f"  traced run {attempt}: the trace holds no kernel (the profiler was blind); again in {TRACE_WAIT_S} s")
+        time.sleep(TRACE_WAIT_S)
+    check(kernels > 0, f"the trace holds no kernel on the card in {TRACE_ATTEMPTS} runs")
+    span_us = max(e["ts"] + e.get("dur", 0) for e in events) - min(e["ts"] for e in events)
+    copies = {d: [e for e in events if e.get("cat") == "gpu_memcpy" and d in e.get("name", "")]
+              for d in ("HtoD", "DtoH", "DtoD")}
+    ms = {d: sum(e.get("dur", 0) for e in v) / 1e3 for d, v in copies.items()}
+    out = dict(trace_bytes=os.path.getsize(path), span_s=span_us / 1e6, process_s=wall, htod_ms=ms["HtoD"],
+               htod_copies=len(copies["HtoD"]), htod_share=ms["HtoD"] / (span_us / 1e3),
+               htod_share_warm=ms["HtoD"] / (warm_wall * 1e3), dtoh_ms=ms["DtoH"])
+    say(f"  traced run (MAZE_IPP_PROFILE_DIR, its own process, {wall:.1f} s): trace {out['trace_bytes']} bytes, "
+        f"{len(events)} events ({kernels} kernels), span {out['span_s']:.3f} s; Memcpy HtoD {ms['HtoD']:.3f} ms in "
+        f"{out['htod_copies']} copies = {100 * out['htod_share']:.3f} % of the traced span, "
+        f"{100 * out['htod_share_warm']:.3f} % of phase 6's warm wall {warm_wall:.3f} s; Memcpy DtoH "
+        f"{ms['DtoH']:.3f} ms, DtoD {ms['DtoD']:.3f} ms [{limit}]")
+    return out
 
 
 def threshold_task(data: str, target_dir: str, **threshold) -> dict:
@@ -2334,7 +2510,8 @@ def stage_breakdown(dev, limit: str, work: str) -> None:
         (device_seg, "remove_small_objects", "remove_small_objects (K8)"),
         (device_seg, "regionprops_fused", "regionprops_fused (K7, K3, the props from their partials)"),
         (device_seg, "region_filled_extra", "region_filled_extra (all)"),
-        (node, "_run_group", "segmentation node, all"),
+        (node, "_dispatch_group", "segmentation node: dispatch (upload, tiles, forward, blend, chain)"),
+        (node, "_finish_group", "segmentation node: fetch (stats, crops, RegionInfo assembly)"),
     ]
     timed_wall, totals = timed_stages(patches, lambda: run_loki(loki_task(data, unet, os.path.join(work, "timed"))))
     say(f"stage breakdown of phase 6 (one run with a synchronize around each stage; wall {timed_wall:.3f} s, "
@@ -2426,6 +2603,106 @@ def phase_haul(limit: str, work: str) -> dict:
     return launches
 
 
+# -- phase 12: several cards ---------------------------------------------------
+
+MESH_FRAME_BATCH = 4  # 6 frame groups of the 24 frames: every card of up to 6 takes one
+
+
+def mesh_train_step(dev, cards: int) -> str:
+    """``UNet(1, 8, 2)`` float32 (TF32 off), a batch of 4 of 128² per card:
+    the first step's loss and gradients on a mesh of every card against the
+    one-card step on the whole batch, within phase 9's card-against-CPU
+    tolerance (the loss within rtol 1e-5, every gradient within 1e-3 of its
+    tensor's norm plus 1e-5 of the whole gradient's); K5 and K6 launch on
+    every card."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models import train as tt
+    from maze_image_processing_pipeline_tpu_torch.models.unet import UNet
+    from maze_image_processing_pipeline_tpu_torch.parallel import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = next(distill_batches(1, size=128, batch=4 * cards, seed=21))
+    out = {}
+    for name, mesh in (("one", None), ("mesh", make_mesh())):
+        module = UNet(**SMALL_UNET, dtype="float32")
+        state, opt = tt.create_train_state(module, x.shape, device=dev, seed=3, mesh=mesh)
+        step = tt.make_train_step(module, opt, mesh=mesh)
+        reset_launches()
+        state, m = step(state, x, y)
+        torch.cuda.synchronize()
+        if mesh is not None:
+            by_card = read_launches_by_card("the mesh train step", ("group_norm", "group_norm_bwd"), cards)
+        out[name] = (float(m["loss"]), {k: p.grad.cpu().double() for k, p in module.named_parameters()})
+    (loss_m, grads_m), (loss_1, grads_1) = out["mesh"], out["one"]
+    check(math.isfinite(loss_m) and abs(loss_m - loss_1) <= 1e-5 * abs(loss_1), f"losses {loss_m} vs {loss_1}")
+    total = math.sqrt(sum(float((g ** 2).sum()) for g in grads_1.values()))
+    worst = 0.0
+    for k, g in grads_1.items():
+        err = float((grads_m[k] - g).abs().max())
+        check(err <= 1e-3 * float(g.norm()) + 1e-5 * total, f"mesh gradient of {k} differs by {err}")
+        worst = max(worst, err / max(float(g.norm()), 1e-30) if float(g.norm()) > 1e-5 * total else 0.0)
+    return (f"train step of UNet(1, 8, 2) float32 (TF32 off), batch {len(x)}: mesh loss {loss_m:.7f}, one card "
+            f"{loss_1:.7f}, {len(grads_1)} gradients within tolerance (largest difference over its tensor's norm "
+            f"{worst:.3g}); K5 / K6 launches by card {by_card.get('group_norm')} / {by_card.get('group_norm_bwd')}")
+
+
+def phase_mesh(dev, limit: str, work: str) -> dict:
+    """Every path of this script that takes ``parallel:``, on a mesh of
+    every card the machine has (``make_mesh()``), against the same task on
+    one card: the loki Runner at the standard haul's shapes (frame groups of
+    4, round-robin over the cards) and predict semseg + polytaxo on phase
+    7's crops (batches split over the cards) give the same archives; the
+    mesh train step the one-card step's loss and gradients; the port's
+    ``dryrun_multichip`` runs on the card count. Every kernel of each path
+    launches on every card. Returns the loki run's launches."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    cards = torch.cuda.device_count()
+    say(f"  {cards} card(s): {[torch.cuda.get_device_name(i) for i in range(cards)]}")
+    data, unet = os.path.join(work, "data"), os.path.join(work, "unet")
+    if not os.path.isdir(data):
+        make_loki_tree(data, n_frames=24, objects_per_frame=20, frame_shape=(1024, 1280), seed=8)
+        unet = write_unet(unet, UNET, "bfloat16", seed=6)
+    archive = "LOKI_PS122-1_7.zip"
+    one = os.path.join(work, "mesh_loki_one")
+    wall_1 = run_loki(loki_task(data, unet, one, frame_batch=MESH_FRAME_BATCH))
+    reset_launches()
+    wall_m = run_loki({**loki_task(data, unet, os.path.join(work, "mesh_loki"), frame_batch=MESH_FRAME_BATCH),
+                       "parallel": True})
+    launches = read_launches("phase 12 (loki on the mesh)")
+    by_card = read_launches_by_card("phase 12 (loki on the mesh)", INFERENCE_KERNELS,
+                                    min(cards, 24 // MESH_FRAME_BATCH))
+    n = compare_archives(os.path.join(one, archive), os.path.join(work, "mesh_loki", archive))
+    say(f"  loki, standard haul, parallel: true, frame groups of {MESH_FRAME_BATCH}: the archive of the one-card run "
+        f"({n} objects); wall {wall_m:.3f} s on the mesh, {wall_1:.3f} s on one card; launches by card {by_card} "
+        f"[{limit}]")
+
+    inp = predict_inputs(work)
+    for name, task in (("semseg", lambda out: semseg_task(inp["archive"], inp["unet"], out)),
+                       ("polytaxo", lambda out: polytaxo_task(inp["archive"], inp["clf"], out, inp["taxonomy"]))):
+        ref = os.path.join(work, f"mesh_{name}_one")
+        wall_1 = run_predict(task(ref))
+        reset_launches()
+        wall_m = run_predict({**task(os.path.join(work, f"mesh_{name}")), "parallel": True})
+        fn = "crops.segmentation.zip" if name == "semseg" else "crops.polytaxo.zip"
+        expected = ("ccl_fixpoint", "cumsum_rows", "group_norm") if name == "semseg" else ("group_norm",)
+        by_card = read_launches_by_card(f"phase 12 ({name} on the mesh)", expected, cards)
+        n = compare_archives(os.path.join(ref, fn), os.path.join(work, f"mesh_{name}", fn))
+        say(f"  predict {name}, parallel: true: the archive of the one-card run ({n} objects); wall {wall_m:.3f} s "
+            f"on the mesh, {wall_1:.3f} s on one card; launches by card "
+            f"{ {k: by_card.get(k) for k in expected} } [{limit}]")
+
+    say(f"  {mesh_train_step(dev, cards)}")
+    t0 = time.perf_counter()
+    result = dryrun_multichip(cards, log=lambda line: say(f"  {line}"))
+    say(f"  dryrun_multichip({cards}) on {result['mesh']}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2449,6 +2726,13 @@ def main() -> int:
             stage_breakdown(dev, limit, work)
             sys.stdout.flush()
             os._exit(0)  # a process that ran torch.profiler may not exit by itself
+        if "--mesh" in sys.argv[1:]:
+            say("phase 12 several cards:")
+            phase_mesh(dev, limit, work)
+            say(gpu_name_and_limit())
+            say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                   "count": torch.cuda.device_count()}}))
+            return 0
 
         say("phase 2 kernels against their plain versions:")
         measured = phase_kernels(dev)
@@ -2496,13 +2780,18 @@ def main() -> int:
         t0 = time.perf_counter()
         launches[11] = phase_haul(limit, work)
         say(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+
+        say("phase 12 several cards:")
+        t0 = time.perf_counter()
+        launches[12] = phase_mesh(dev, limit, work)
+        say(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(not any(m == "jax" or m.startswith(("jax.", "maze_image_processing_pipeline_tpu."))
                   or m == "maze_image_processing_pipeline_tpu" for m in sys.modules),
           "jax or the JAX package was imported")
 
-    # launches: the main paths' runs of this script (phases 5 to 11) in all.
+    # launches: the main paths' runs of this script (phases 5 to 12) in all.
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
          "launches": sum(launches[p][k] for p in launches),

@@ -51,6 +51,7 @@ SIGNATURES = {
     "vertical_pass_banded_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _u, _vp],
     "ccl_fixpoint_launch": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     "ccl_fixpoint_banded_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _u, _vp],
+    "ccl_grid_launch": [_vp] * 5 + [_i] * 7 + [_vp],
     "remove_small_objects_launch": [_vp, _vp, _vp, _i, _ll, _i, _i, _i, _ll, _ll, _vp],
     "relabel_capacity": [_vp],
     "group_norm_capacity": [_i, _i, _i, _i, _vp],

@@ -10,7 +10,8 @@ that the JAX package's task files run unchanged, with these differences:
   true and ``"auto"`` mean the card (there is no dispatch probe);
 * ``postprocess.pallas_kernels`` is accepted and ignored (the port's
   kernels always run on the card);
-* ``parallel`` accepts only ``false`` (multi-GPU execution: ROADMAP A6).
+* ``parallel`` builds a mesh of the cards (of CPU replicas for a ``device:
+  cpu`` task), every card a data replica (:mod:`..parallel`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Any, Dict, List, Literal, Optional
 from pydantic import BaseModel, ConfigDict, Field, field_validator, model_validator
 
 from ..config import DefaultModel, TrueToDefaultsModel
+from ..parallel.config import ParallelConfig
 
 
 class SegmentationPostprocessingConfig(TrueToDefaultsModel):
@@ -373,10 +375,10 @@ class SegmentationPipelineConfig(BaseModel):
     segmentation: SegmentationConfig = Field(description="Configuration of the segmentation.")
     postprocess: PostprocessingConfig = Field(description="Configuration of the post-processing.")
     output: EcoTaxaOutputConfig = Field(description="Configuration of the output.")
-    parallel: Literal[False] = Field(
+    parallel: ParallelConfig | Literal[False] = Field(
         False,
-        description="Multi-GPU execution is not ported yet (ROADMAP A6); "
-        "only false is accepted.",
+        description="Multi-chip execution: shard device batches over a mesh "
+        "of all (or explicitly configured) accelerator devices.",
     )
     log_interval: str | float = Field(
         "60s", description="The interval at which progress is logged, e.g. 10s or 1m."

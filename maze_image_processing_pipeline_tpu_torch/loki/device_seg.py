@@ -13,14 +13,19 @@ Counterpart of ``maze_image_processing_pipeline_tpu/loki/device_seg.py``:
   crops;
 * :class:`DeviceFramePostprocess` — the frame chain on one host-blended
   frame at a time (the host-blend path);
+* with a ``mesh`` (:func:`..parallel.make_mesh`), frame groups (and, on the
+  host-blend path, frames) go round-robin over its devices, one group a
+  device in flight, each device with its own replica of the U-Net; objects
+  still leave in arrival order and the results do not depend on the mesh;
 * :func:`build_torch_segmentation` — the stage builder: [stitch →]
   segmentation (device blend, or tiles → :class:`..models.inference.
   TorchInference` → host blend → :class:`DeviceFramePostprocess`, which the
   full-frame debug archive needs) → region fan-out → ROI crops → metadata →
   ZooProcess features.
 
-Not ported: the sparse crop upload (``_build_compose``, ROADMAP A2) and the
-round-robin over several cards (ROADMAP A6).
+Not ported: the sparse crop upload (``_build_compose``): the dense upload's
+host → device copies take under 1 % of a haul's wall on the card (ROADMAP,
+queue A, "Not ported").
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from ..ops.label import clear_border, label, remove_small_objects
 from ..ops.merge_labels import merge_labels
 from ..ops.morphology import binary_closing, binary_opening
 from ..ops.regionprops_fused import regionprops_fused
+from ..parallel.mesh import mesh_devices, replicate
 from .meta import format_object_id
 
 __all__ = ["DeviceTiledSegmentation", "DeviceFramePostprocess", "build_torch_segmentation"]
@@ -164,12 +170,13 @@ def _finalize_frame(labels, n, props, post_cfg, device):
 class _Holder:
     """An arrived frame's place in the arrival-order emission queue."""
 
-    __slots__ = ("obj", "key", "result")
+    __slots__ = ("obj", "key", "result", "dispatched")
 
     def __init__(self, obj, key):
         self.obj = obj
         self.key = key
         self.result = None
+        self.dispatched = False
 
 
 @ReturnOutputs
@@ -180,7 +187,9 @@ class DeviceTiledSegmentation(Node):
     bucket (multiples of 256, at least one tile); each group is one upload,
     ``ceil(tiles / batch_size)`` model forwards, one frame chain and one
     device→host copy of the statistics and one of the crop masks. Objects
-    leave the node in arrival order.
+    leave the node in arrival order. With a mesh the groups go round-robin
+    over its devices, and a group is fetched once every device has one
+    dispatched (one device: as soon as it is dispatched).
 
     Args:
         image: frame variable (H, W) or (H, W, C) uint8; channel 0 is used.
@@ -196,6 +205,8 @@ class DeviceTiledSegmentation(Node):
         device: the torch device that runs the model and the chain; the
             card unless the caller asks for the CPU. Without a card a CUDA
             device raises: the node never carries on on the CPU.
+        mesh: optional :class:`..parallel.mesh.Mesh` whose devices take the
+            frame groups in turn (``device`` is not read).
     """
 
     outputs = ("labels", "props", "n_regions", "regions")
@@ -207,11 +218,12 @@ class DeviceTiledSegmentation(Node):
         config,
         postprocess_config,
         device="cuda",
+        mesh=None,
     ) -> None:
         self.image = image
         super().__init__()
-        self._device = _resolve_device(device)
-        self._module = model.module.to(self._device).eval()
+        self._devices = [_resolve_device(d) for d in mesh_devices(mesh, device)]
+        self._modules = {d: m.eval() for d, m in replicate(model.module, self._devices).items()}
         self._cfg = config
         self._post_cfg = postprocess_config
         self._skip_empty = bool(getattr(config, "skip_empty_tiles", True))
@@ -222,38 +234,38 @@ class DeviceTiledSegmentation(Node):
         self._crops_mode = bool(getattr(config, "device_crops", True)) and not merging
         self._chain, self._pack_keys = _build_frame_chain(postprocess_config, compute_filled=not merging)
         ts = config.tile_size
-        self._weight = torch.from_numpy(_linear_weight(ts, ts)).to(self._device)
+        weight = torch.from_numpy(_linear_weight(ts, ts))
+        self._weights = {d: weight.to(d) for d in self._modules}
 
     # -- one frame group -------------------------------------------------
 
-    def _predict(self, frames: torch.Tensor, jobs, hs, ws) -> torch.Tensor:
-        """Tile forward + linear-ramp blend → (B, Hb, Wb) float32 scores."""
+    def _predict(self, frames: torch.Tensor, jobs, hs, ws, device) -> torch.Tensor:
+        """Tile forward + linear-ramp blend on ``device`` → (B, Hb, Wb)
+        float32 scores."""
         ts = self._cfg.tile_size
         bs = self._cfg.batch_size or 8
-        canvas = torch.zeros(frames.shape, dtype=torch.float32, device=self._device)
+        module, weight = self._modules[device], self._weights[device]
+        canvas = torch.zeros(frames.shape, dtype=torch.float32, device=device)
         wsum = torch.zeros_like(canvas)
         for i in range(0, len(jobs), bs):
             chunk = jobs[i : i + bs]
             tiles = torch.stack([frames[b, y : y + ts, x : x + ts] for b, y, x in chunk])
-            pred = sigmoid_post(self._module(default_device_pre(tiles)))[..., 0].float()
+            pred = sigmoid_post(module(default_device_pre(tiles)))[..., 0].float()
             for j, (b, y, x) in enumerate(chunk):
-                canvas[b, y : y + ts, x : x + ts] += pred[j] * self._weight
-                wsum[b, y : y + ts, x : x + ts] += self._weight
+                canvas[b, y : y + ts, x : x + ts] += pred[j] * weight
+                wsum[b, y : y + ts, x : x + ts] += weight
         # Pixels covered only by skipped (empty) tiles keep weight 0 → 0.
         pred = canvas / torch.clamp(wsum, min=1.0)
         Hb, Wb = frames.shape[-2:]
-        rows = torch.arange(Hb, device=self._device)[None, :, None]
-        cols = torch.arange(Wb, device=self._device)[None, None, :]
-        hs_t = torch.as_tensor(hs, device=self._device)[:, None, None]
-        ws_t = torch.as_tensor(ws, device=self._device)[:, None, None]
+        rows = torch.arange(Hb, device=device)[None, :, None]
+        cols = torch.arange(Wb, device=device)[None, None, :]
+        hs_t = torch.as_tensor(hs, device=device)[:, None, None]
+        ws_t = torch.as_tensor(ws, device=device)[:, None, None]
         return torch.where((rows < hs_t) & (cols < ws_t), pred, 0.0)
 
-    def _run_group(self, imgs: np.ndarray, hs, ws, dims):
-        """Segment one (B, Hb, Wb) frame group → per frame ``(labels, props,
-        n_regions, regions)``: in crops mode the labels stay on the device
-        (None) and ``regions`` holds the frame's RegionInfo objects; in
-        label-frame mode ``labels`` is the frame's (H, W) int32 label image
-        on the host and ``regions`` is None."""
+    def _dispatch_group(self, imgs: np.ndarray, hs, ws, dims, device) -> SimpleNamespace:
+        """Launch one (B, Hb, Wb) frame group on ``device``: upload, tile
+        forward and blend, the frame chain. Nothing is read back."""
         ts, stride = self._cfg.tile_size, self._cfg.tile_stride
         B, Hb, Wb = imgs.shape
         offsets = [(y, x) for y in _tile_starts(Hb, ts, stride) for x in _tile_starts(Wb, ts, stride)]
@@ -264,22 +276,32 @@ class DeviceTiledSegmentation(Node):
             if not self._skip_empty or imgs[b, oy : oy + ts, ox : ox + ts].any()
         ]
         with torch.inference_mode():
-            frames = torch.from_numpy(imgs).to(self._device)
-            pred = self._predict(frames, jobs, hs, ws)
+            frames = torch.from_numpy(imgs).to(device)
+            pred = self._predict(frames, jobs, hs, ws, device)
             labels, flat = self._chain(pred, frames)
-            stats = _unpack_stats_batch(flat.cpu().numpy(), B, self._pack_keys)
+        return SimpleNamespace(imgs=imgs, dims=dims, frames=frames, labels=labels, flat=flat, device=device)
+
+    def _finish_group(self, g: SimpleNamespace):
+        """Fetch a dispatched group → per frame ``(labels, props, n_regions,
+        regions)``: in crops mode the labels stay on the device (None) and
+        ``regions`` holds the frame's RegionInfo objects; in label-frame mode
+        ``labels`` is the frame's (H, W) int32 label image on the host and
+        ``regions`` is None."""
+        B = g.imgs.shape[0]
+        with torch.inference_mode():
+            stats = _unpack_stats_batch(g.flat.cpu().numpy(), B, self._pack_keys)
             if self._crops_mode:
-                regions = self._crops(labels, frames, imgs, stats, dims)
+                regions = self._crops(g.labels, g.frames, g.imgs, stats, g.dims)
             else:
-                labels_host = labels.cpu().numpy()
+                labels_host = g.labels.cpu().numpy()
         results = []
-        for b, (H, W) in enumerate(dims):
+        for b, (H, W) in enumerate(g.dims):
             n, props = stats[b]
             if self._crops_mode:
-                _, props, n = _finalize_frame(None, n, props, self._post_cfg, self._device)
+                _, props, n = _finalize_frame(None, n, props, self._post_cfg, g.device)
                 results.append((None, props, n, regions[b]))
             else:
-                lab, props, n = _finalize_frame(labels_host[b, :H, :W], n, props, self._post_cfg, self._device)
+                lab, props, n = _finalize_frame(labels_host[b, :H, :W], n, props, self._post_cfg, g.device)
                 results.append((lab, props, n, None))
         return results
 
@@ -478,8 +500,18 @@ class DeviceTiledSegmentation(Node):
         # One open group per shape bucket; objects still leave in arrival
         # order through `arrival`.
         open_groups: Dict[Tuple[int, int], list] = {}
+        # Dispatched groups, oldest first: one a device in flight.
+        pending: "collections.deque" = collections.deque()
+        n_dev = len(self._devices)
+        group_idx = 0
+
+        def finish_one():
+            holders, g = pending.popleft()
+            for h, result in zip(holders, self._finish_group(g)):
+                h.result = result
 
         def flush_group(key):
+            nonlocal group_idx
             group = open_groups.pop(key, None)
             if not group:
                 return
@@ -491,15 +523,23 @@ class DeviceTiledSegmentation(Node):
                 imgs[b, :H, :W] = image
                 hs[b], ws[b] = H, W
             dims = [(H, W) for _, H, W, _ in group]
-            for (*_, h), result in zip(group, self._run_group(imgs, hs, ws, dims)):
-                h.result = result
+            device = self._devices[group_idx % n_dev]
+            group_idx += 1
+            holders = [h for *_, h in group]
+            for h in holders:
+                h.dispatched = True
+            pending.append((holders, self._dispatch_group(imgs, hs, ws, dims, device)))
+            while len(pending) >= n_dev:
+                finish_one()
 
         def emit_one():
             h = arrival.popleft()
-            if h.result is None:
+            if h.result is None and not h.dispatched:
                 # The head's group is still open: flush it partially to
                 # keep the arrival order.
                 flush_group(h.key)
+            while h.result is None:
+                finish_one()
             labels, props, n, regions = h.result
             self.prepare_output(h.obj, labels, props, n, regions)
             return h.obj
@@ -537,9 +577,10 @@ class DeviceFramePostprocess(Node):
     Counterpart of ``DeviceFramePostprocess`` in the JAX package's
     ``loki/device_seg.py``: binarize → opening → closing → label(8) →
     [clear_border] → [remove_small] → fused region measurement, on each
-    frame zero-padded to a multiple of ``bucket``; two frames are dispatched
-    before the oldest is fetched (labels and one stats buffer), as in the
-    JAX package on one device.
+    frame zero-padded to a multiple of ``bucket``; two frames a device are
+    dispatched before the oldest is fetched (labels and one stats buffer),
+    as in the JAX package. With a mesh whole frames go round-robin over its
+    devices.
 
     Args:
         pred: (H, W) or (H, W, 1) foreground probability frame variable.
@@ -548,10 +589,11 @@ class DeviceFramePostprocess(Node):
         bucket: pad both extents to a multiple of this.
         device: the torch device of the chain; the card unless the caller
             asks for the CPU.
+        mesh: optional :class:`..parallel.mesh.Mesh` whose devices take the
+            frames in turn (``device`` is not read).
     """
 
     outputs = ("labels", "props", "n_regions")
-    _IN_FLIGHT = 2
 
     def __init__(
         self,
@@ -560,31 +602,34 @@ class DeviceFramePostprocess(Node):
         config,
         bucket: int = 256,
         device="cuda",
+        mesh=None,
     ) -> None:
         self.pred = pred
         self.image = image
         self.config = config
         self.bucket = bucket
         super().__init__()
-        self._device = _resolve_device(device)
+        self._devices = [_resolve_device(d) for d in mesh_devices(mesh, device)]
         self._chain, self._pack_keys = _build_frame_chain(
             config, compute_filled=config.merge_segments_distance == 0
         )
 
-    def _padded(self, x: np.ndarray) -> torch.Tensor:
+    def _padded(self, x: np.ndarray, device) -> torch.Tensor:
         H, W = x.shape[:2]
         out = np.zeros((1, -(-H // self.bucket) * self.bucket, -(-W // self.bucket) * self.bucket), x.dtype)
         out[0, :H, :W] = x
-        return torch.from_numpy(out).to(self._device)
+        return torch.from_numpy(out).to(device)
 
     def transform_stream(self, stream: Stream) -> Stream:
         pending: "collections.deque" = collections.deque()
+        in_flight = 2 * len(self._devices)
+        frame_idx = 0
 
         def emit(entry):
-            obj, (labels, flat), (H, W) = entry
+            obj, (labels, flat), (H, W), device = entry
             labels = labels.cpu().numpy()[0, :H, :W]
             ((n, props),) = _unpack_stats_batch(flat.cpu().numpy(), 1, self._pack_keys)
-            labels, props, n = _finalize_frame(labels, n, props, self.config, self._device)
+            labels, props, n = _finalize_frame(labels, n, props, self.config, device)
             self.prepare_output(obj, labels, props, n)
             return obj
 
@@ -594,10 +639,12 @@ class DeviceFramePostprocess(Node):
                 image = np.asarray(self.prepare_input(obj, "image"))
                 if pred.ndim == 3:
                     pred = pred[..., 0]
+                device = self._devices[frame_idx % len(self._devices)]
+                frame_idx += 1
                 with torch.inference_mode():
-                    out = self._chain(self._padded(pred), self._padded(image))
-                pending.append((obj, out, pred.shape))
-                while len(pending) > self._IN_FLIGHT:
+                    out = self._chain(self._padded(pred, device), self._padded(image, device))
+                pending.append((obj, out, pred.shape, device))
+                while len(pending) > in_flight:
                     yield emit(pending.popleft())
             while pending:
                 yield emit(pending.popleft())
@@ -610,14 +657,16 @@ def build_torch_segmentation(
     meta: Variable,
     process_meta: Dict,
     device="cuda",
+    mesh=None,
 ):
     """Model segmentation: [stitch →] tile inference → device blend and
     postprocess → region extraction → ROI, metadata and ZooProcess features.
 
     ``config`` carries the ``JaxSegmentationConfig`` fields (read by
     attribute); ``device`` runs the model and the frame chain (the card
-    unless the caller asks for the CPU). Returns ``(roi, meta, mask)``
-    variables.
+    unless the caller asks for the CPU); a ``mesh`` (:func:`..parallel.
+    make_mesh`) spreads them over its devices instead. Returns ``(roi,
+    meta, mask)`` variables.
     """
     from ..models.model_io import load_model
 
@@ -644,7 +693,7 @@ def build_torch_segmentation(
     regions = None
     if getattr(config, "device_blend", True) and config.full_frame_archive_fn is None:
         labels, props, n_regions, regions = DeviceTiledSegmentation(
-            image, model, config, postprocess_config, device=device
+            image, model, config, postprocess_config, device=device, mesh=mesh
         )
     else:
         # Host blend: the debug archive needs the blended prediction on the
@@ -657,14 +706,18 @@ def build_torch_segmentation(
         ):
             # Skip empty tiles (no pixels above zero).
             Filter(Call(lambda img: bool((np.asarray(img) > 0).any()), image))
+            batch_size = config.batch_size or 8
+            if mesh is not None:
+                # Each device needs a full share: round the batch up.
+                batch_size = -(-batch_size // mesh.size) * mesh.size
             foreground_pred = TorchInference(
-                model, image, batch_size=config.batch_size or 8, transfer_dtype=np.float16, device=device
+                model, image, batch_size=batch_size, transfer_dtype=np.float16, device=device, mesh=mesh
             )
             # Single foreground channel: channel 0 of the sigmoid output.
             foreground_pred = Call(lambda p: np.asarray(p)[..., 0].astype(np.float32), foreground_pred)
 
         labels, props, n_regions = DeviceFramePostprocess(
-            foreground_pred, image, postprocess_config, device=device
+            foreground_pred, image, postprocess_config, device=device, mesh=mesh
         )
         if config.full_frame_archive_fn is not None:
             _build_full_frame_debug_output(config, target_dir, image, foreground_pred, labels, meta)

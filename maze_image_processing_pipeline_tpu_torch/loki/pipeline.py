@@ -8,9 +8,10 @@ frame chain with its CUDA kernels, device crops) or threshold segmentation
 of the crops (measured in batches on the card,
 :class:`..engine.image.BatchedImageProperties`) → duplicate detection →
 rescale / scalebar / annotation merge → EcoTaxa archive. Per-object host
-work stays behind stream buffers so it overlaps with the card.
-
-Not ported yet: multi-GPU execution (ROADMAP A6).
+work stays behind stream buffers so it overlaps with the card. With
+``parallel:`` the U-Net path's frame groups go round-robin over a mesh of
+cards (:mod:`..parallel`); ``input.num_shards`` / ``shard_index`` split the
+samples over hosts.
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ from ..engine.image import (
     ImageProperties,
 )
 from ..ops.image import rescale_max_intensity
+from ..parallel.multihost import partition_work
 from ..progress import LogProgress
-from ..runner import PipelineRunner
+from ..runner import PipelineRunner, apply_platform
 from .config_schema import (
     DetectDuplicatesModelOrFalse,
     EcoTaxaOutputConfig,
@@ -110,24 +112,6 @@ def score_fn_simple(meta0: Mapping, meta1: Mapping) -> float:
 
 # ---------------------------------------------------------------------------
 # Input stage
-
-
-def partition_work(items, n_hosts: int, this_host: int) -> list:
-    """Deterministic strided partition of a work list across hosts.
-
-    A copy of ``partition_work`` in
-    ``maze_image_processing_pipeline_tpu/parallel/multihost.py`` with the
-    host count and index given (``input.num_shards``, ``input.shard_index``).
-    Striding (rather than contiguous chunks) balances load when sample
-    sizes correlate with their position in the sorted list.
-    """
-    if not 0 <= this_host < n_hosts:
-        raise ValueError(f"host {this_host} not in [0, {n_hosts})")
-    subset = list(items[this_host::n_hosts])
-    logger.info(
-        "Host %d/%d takes %d of %d work items", this_host, n_hosts, len(subset), len(items)
-    )
-    return subset
 
 
 def read_log_and_yaml_meta(data_root, meta: Mapping) -> Dict:
@@ -338,6 +322,7 @@ def build_segmentation(
     image,
     meta,
     process_meta: Dict,
+    mesh=None,
 ):
     mask = None
     if config.threshold is not None:
@@ -350,6 +335,7 @@ def build_segmentation(
             meta,
             process_meta,
             device=config.pytorch.device,
+            mesh=mesh,
         )
     else:  # pragma: no cover - validated by the schema
         raise ValueError(f"Unknown segmentation config: {config}")
@@ -483,6 +469,14 @@ def filename_suffix(fn: str, suffix: str) -> str:
 # Runner
 
 
+def task_device(config: SegmentationConfig) -> str:
+    """The device a loki task runs on: the U-Net's, or the threshold
+    measurement's (the CPU for its host path, ``device: false``)."""
+    if config.pytorch is not None:
+        return config.pytorch.device
+    return "cpu" if config.threshold.device in ("cpu", False) else "cuda"
+
+
 class Runner(PipelineRunner):
     @staticmethod
     def _configure_and_run(config_dict):
@@ -495,6 +489,7 @@ class Runner(PipelineRunner):
         except pydantic.ValidationError as exc:
             logger.error(str(exc))
             return
+        apply_platform(pipeline_config)
 
         if sys.stdout.isatty():
             Progress = LiveProgress
@@ -503,6 +498,10 @@ class Runner(PipelineRunner):
             if isinstance(log_interval, str):
                 log_interval = pd.Timedelta(log_interval).total_seconds()
             Progress = partial(LogProgress, log_interval=log_interval)
+
+        from ..parallel import setup_parallel
+
+        mesh = setup_parallel(pipeline_config.parallel, device=task_device(pipeline_config.segmentation))
 
         with Pipeline() as p:
             process_meta_var = Variable("process_meta")
@@ -531,6 +530,7 @@ class Runner(PipelineRunner):
                 image,
                 meta,
                 process_meta,
+                mesh=mesh,
             )
 
             # Must hold a whole frame group's object burst (frame_batch

@@ -35,6 +35,8 @@ import torch
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from ..ops.row_scan import count_launch
+
 __all__ = [
     "GroupNorm",
     "NormPlan",
@@ -296,15 +298,17 @@ _COUNTERS: Dict[tuple, torch.Tensor] = {}
 
 def _capacity(x: torch.Tensor, backward: bool, vec: int, channels_last: bool) -> Tuple[int, int]:
     """(co-resident blocks, stageable bytes a block) of the kernel that takes
-    ``x``: asked of the card once per kernel and device."""
+    ``x``: asked of ``x``'s card once per kernel and device (the query also
+    sets the kernel's shared-memory size on that card)."""
     key = (x.device.index, backward, x.dtype, vec, channels_last)
     cap = _CAPACITY.get(key)
     if cap is None:
         from .._build import kernels
 
         out = (ctypes.c_int * 3)()
-        err = kernels().group_norm_capacity(int(backward), _DTYPE_CODES[x.dtype], vec, int(channels_last),
-                                            ctypes.addressof(out))
+        with torch.cuda.device(x.device):
+            err = kernels().group_norm_capacity(int(backward), _DTYPE_CODES[x.dtype], vec, int(channels_last),
+                                                ctypes.addressof(out))
         if err != 0:
             raise RuntimeError(f"group_norm: the kernel's occupancy query failed with CUDA error {err}")
         cap = _CAPACITY[key] = (out[0] * out[1], out[2])
@@ -376,7 +380,7 @@ def _group_norm_forward(x, weight, bias, G, eps) -> Tuple[torch.Tensor, torch.Te
         )
     if err != 0:
         raise RuntimeError(f"group_norm: kernel launch failed with CUDA error {err}")
-    group_norm.launches += 1
+    count_launch(group_norm, x.device)
     return y, stats
 
 
@@ -430,7 +434,7 @@ def group_norm_bwd(
         )
     if err != 0:
         raise RuntimeError(f"group_norm_bwd: kernel launch failed with CUDA error {err}")
-    group_norm_bwd.launches += 1
+    count_launch(group_norm_bwd, x.device)
     return dx, dwb[0], dwb[1]
 
 

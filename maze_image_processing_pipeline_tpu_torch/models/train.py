@@ -1,4 +1,4 @@
-"""Training of the port's U-Net and classifier on one card.
+"""Training of the port's U-Net and classifier on one card or several.
 
 Counterpart of ``maze_image_processing_pipeline_tpu/models/train.py``:
 
@@ -15,8 +15,19 @@ Counterpart of ``maze_image_processing_pipeline_tpu/models/train.py``:
   advanced (the JAX step returns a new state).
 
 Every GroupNorm of the forward runs K5 on the card and its backward K6
-(``models/layers.py``). The data-parallel (``mesh``) step of the JAX package
-is not ported (ROADMAP A6): passing a mesh raises.
+(``models/layers.py``).
+
+With a ``mesh`` (:func:`..parallel.make_mesh`) the step is data-parallel, as
+the JAX package's ``mesh`` step: the module lies on the mesh's first device
+and a replica on each other card; the batch is split over the mesh's devices
+(its size must divide by the ``data`` axis, as ``shard_batch_spec`` needs);
+each replica's loss is weighted by its share of the batch and its gradients
+are summed onto the first card, where AdamW steps; the parameters are copied
+to the replicas before the next step's forward. Both losses are means of
+per-sample terms (GroupNorm normalises each sample alone), so the step
+equals the one-device step on the whole batch up to summation order. Spatial
+(``space``) and tensor (``model``) sharding are not ported: every card of
+the mesh is a data replica.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import replicate, split_batch
 from .classifier import ConvClassifier
 from .inference import resolve_device
 from .model_io import init_classifier_params, init_unet_params, params_from_jax
@@ -75,11 +87,6 @@ def bce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return _sigmoid_bce(logits, targets.float()).mean()
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training over a mesh is not ported to PyTorch yet (ROADMAP A6)")
-
-
 def make_adamw(params, learning_rate: float = 1e-3) -> torch.optim.AdamW:
     """``torch.optim.AdamW`` as ``optax.adamw(learning_rate)``: betas (0.9,
     0.999), eps 1e-8 outside the square root, weight decay 1e-4 (torch's
@@ -119,14 +126,14 @@ def create_train_state(
             :func:`make_adamw` at ``learning_rate``.
         seed: numpy seed of the parameters.
         device: the card by default; raises without one unless ``"cpu"``.
-        mesh: not ported (ROADMAP A6); anything but None raises.
+        mesh: with a mesh, the module goes to its first device (``device``
+            is not read), where :func:`make_train_step` keeps the state.
 
     Returns:
         (state, state.optimizer), as the JAX package returns (state,
         optimizer).
     """
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.devices.flat[0] if mesh is not None else device)
     first = next(m for m in module.modules() if isinstance(m, nn.Conv2d))
     if input_shape[-1] != first.in_channels:
         raise ValueError(f"create_train_state: input_shape {tuple(input_shape)} has {input_shape[-1]} channels, "
@@ -150,9 +157,12 @@ def make_train_step(
     :func:`create_train_state` returned) in place and counts the step in
     ``state``. ``images`` (B, H, W, C) and ``targets`` (numpy arrays or
     tensors) go to the module's device as float32. The loss comes back as a
-    0-d tensor on that device (reading it waits for the step)."""
-    _no_mesh(mesh)
+    0-d tensor on that device (reading it waits for the step). With a
+    ``mesh`` the step is data-parallel over its devices (module docstring);
+    the module must lie on the mesh's first device."""
     dev = next(module.parameters()).device
+    if mesh is not None:
+        return _mesh_step(module, optimizer, loss_fn, mesh, dev)
 
     def step(state: TrainState, images, targets):
         x = torch.as_tensor(images).to(dev, torch.float32, non_blocking=True)
@@ -163,5 +173,56 @@ def make_train_step(
         optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach()}
+
+    return step
+
+
+def _mesh_step(module: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable, mesh, dev: torch.device):
+    devices = list(mesh.devices.flat)
+    if devices[0] != dev:
+        raise ValueError(f"make_train_step: the module lies on {dev}, the mesh's first device is {devices[0]} "
+                         "(create_train_state(..., mesh=mesh) places it)")
+    data = mesh.shape.get("data", 1)
+    replicas = replicate(module, devices)
+    params = list(module.parameters())
+    others = [m for m in replicas.values() if m is not module]
+    for m in others:
+        m.train(module.training)
+
+    def step(state: TrainState, images, targets):
+        x = torch.as_tensor(images)
+        y = torch.as_tensor(targets)
+        B = x.shape[0]
+        if B % data:
+            raise ValueError(f"make_train_step: a batch of {B} does not split over the mesh's data axis of {data}")
+        with torch.no_grad():
+            for m in others:
+                for p, q in zip(m.parameters(), params):
+                    p.copy_(q, non_blocking=True)
+                m.zero_grad(set_to_none=True)
+        optimizer.zero_grad(set_to_none=True)
+        loss = None
+        for share, d in zip(split_batch(B, len(devices)), devices):
+            if share.start == share.stop:
+                continue
+            xs = x[share].to(d, torch.float32, non_blocking=True)
+            ys = y[share].to(d, torch.float32, non_blocking=True)
+            part = loss_fn(replicas[d](xs), ys) * ((share.stop - share.start) / B)
+            part.backward()
+            part = part.detach().to(dev, non_blocking=True)
+            loss = part if loss is None else loss + part
+        with torch.no_grad():
+            for m in others:
+                for p, q in zip(params, m.parameters()):
+                    if q.grad is None:
+                        continue
+                    g = q.grad.to(dev, non_blocking=True)
+                    if p.grad is None:
+                        p.grad = g
+                    else:
+                        p.grad.add_(g)
+        optimizer.step()
+        state.step += 1
+        return state, {"loss": loss}
 
     return step

@@ -2,8 +2,9 @@
 
 Counterpart of ``fit``, ``save_checkpoint`` and ``restore_checkpoint`` of
 ``maze_image_processing_pipeline_tpu/models/train_loop.py``, with the same
-arguments apart from ``mesh`` (not ported, ROADMAP A6) and with a
-``device`` (the card unless ``"cpu"``). The loop restores the newest
+arguments and a ``device`` (the card unless ``"cpu"``); with a ``mesh``
+(:func:`..parallel.make_mesh`) each step splits its batch over the mesh's
+cards (:func:`.train.make_train_step`). The loop restores the newest
 checkpoint on start and saves every ``checkpoint_every`` steps and at the
 end, so a stopped job continues where it stopped.
 
@@ -105,8 +106,9 @@ def fit(
 ) -> TrainState:
     """Train ``module`` on (images, targets) batches with checkpoint/resume.
 
-    ``device`` is the card unless ``"cpu"`` (no card raises); ``mesh`` is
-    not ported (ROADMAP A6) and raises unless None."""
+    ``device`` is the card unless ``"cpu"`` (no card raises); with a
+    ``mesh`` the state lies on its first device and each step splits the
+    batch over its devices."""
     state, optimizer = create_train_state(
         module, input_shape, learning_rate=learning_rate, seed=seed, device=device, mesh=mesh
     )
@@ -114,7 +116,7 @@ def fit(
     if checkpoint_dir is not None:
         state, start_step = restore_checkpoint(checkpoint_dir, state)
 
-    step_fn = make_train_step(module, optimizer, loss_fn=loss_fn)
+    step_fn = make_train_step(module, optimizer, loss_fn=loss_fn, mesh=mesh)
     progress = ProgressLogger(description="train", n_total=n_steps, log_interval=log_interval, unit="step")
 
     metrics = None

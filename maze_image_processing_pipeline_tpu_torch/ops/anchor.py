@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .row_scan import _raise_on
+from .row_scan import _raise_on, count_launch
 
 __all__ = ["anchor", "anchor_plain"]
 
@@ -52,7 +52,7 @@ def anchor(mask: torch.Tensor) -> torch.Tensor:
             mask.data_ptr(), out.data_ptr(), *mask.shape, *mask.stride(), elem, int(vec), stream
         )
     _raise_on("anchor", err)
-    anchor.launches += 1
+    count_launch(anchor, mask.device)
     return out
 
 

@@ -11,8 +11,9 @@ same results:
    when a sweep changes nothing, with no host synchronisation; rows wider
    than 8192 take the banded route, ``csrc/ccl_banded.cu``: bands of a frame
    in co-resident blocks that exchange their edges through device memory,
-   :func:`ccl_route`; a frame whose bands the card cannot hold at once
-   raises); its plain
+   :func:`ccl_route`; a frame whose bands the card cannot hold at once takes
+   the grid route, ``csrc/ccl_grid.cu``: every block of the card on each row
+   of the vertical pass in turn, the grid synchronised once a row); its plain
    version :func:`fixpoint_plain` runs the sweeps of the horizontal pass
    (:func:`.row_scan.hpass_plain`, K1) and :func:`vertical_pass_plain` (K4).
    Both passes also stand alone on the card (:func:`.row_scan.hpass`,
@@ -51,7 +52,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .row_scan import INF, _check_cuda, _raise_on, cumsum_rows, hpass_plain
+from .row_scan import INF, _check_cuda, _raise_on, count_launch, cumsum_rows, hpass_plain
 
 __all__ = [
     "label",
@@ -78,6 +79,10 @@ CCL_BAND = 8192
 # wider it is (16 columns a walker thread and fewer ring stages past 4096),
 # so wide rows take bands of 512 columns while the card holds them all.
 CCL_BAND_MIN = 512
+# Columns a warp of the grid route's K1 stages at once (csrc/ccl_grid.cu:
+# kGridChunk) and the bytes of its chunk summary (ChunkSum).
+CCL_GRID_CHUNK = 1024
+_GRID_CHUNK_SUM_BYTES = 32
 # cudaErrorCooperativeLaunchTooLarge: the card cannot hold a frame's bands.
 _TOO_MANY_BANDS = 720
 
@@ -85,9 +90,11 @@ _TOO_MANY_BANDS = 720
 @dataclass(frozen=True)
 class CclRoute:
     """How the CCL fixpoint (and the 8-connected pass alone) runs on the
-    card: ``"one_block"``, a block a frame, or ``"banded"``, ``bands`` bands
+    card: ``"one_block"``, a block a frame; ``"banded"``, ``bands`` bands
     of ``band`` columns a frame (the last one narrower), a block each, which
-    exchange through a workspace of ``slots`` 16-byte slots."""
+    exchange through a workspace of ``slots`` 16-byte slots; or ``"grid"``,
+    every block of the card on each row in turn (K1 in ``bands`` chunks of
+    ``band`` columns a row), with ``slots`` 16-byte slots of scratch."""
 
     route: str
     band: int
@@ -104,13 +111,21 @@ def ccl_route(B: int, H: int, W: int, connectivity: int, sms: int) -> CclRoute:
     ``CCL_BAND``; then bands of equal width rounded up to a multiple of 32.
     The workspace holds, for each frame and band, K1's row summaries of both
     passes and two stop flags, and 8-connected K4's edge carries of both
-    passes and both sides (``unit_slots`` of csrc/ccl_banded.cu)."""
+    passes and both sides (``unit_slots`` of csrc/ccl_banded.cu). Where a
+    frame would need more than ``sms`` bands (the banded route holds a band
+    a block and every band of a frame resident at once), the grid route
+    takes it; its scratch is a sweep counter a frame and K1's summary of
+    each chunk of ``CCL_GRID_CHUNK`` columns (csrc/ccl_grid.cu)."""
     if W <= CCL_BAND:
         return CclRoute("one_block", W, 1, 0)
     band = min(CCL_BAND, max(CCL_BAND_MIN, -(-W // sms)))
     even = -(-W // -(-W // band))
     band = -(-even // 32) * 32
     bands = -(-W // band)
+    if bands > sms:
+        chunks = -(-W // CCL_GRID_CHUNK)
+        nbytes = 32 * -(-B // 8) + _GRID_CHUNK_SUM_BYTES * B * H * chunks
+        return CclRoute("grid", CCL_GRID_CHUNK, chunks, nbytes // 16)
     unit = 2 * H + 2 + (4 * H if connectivity == 2 else 0)
     return CclRoute("banded", band, bands, B * bands * unit)
 
@@ -155,7 +170,7 @@ def _exchange(device: torch.device, stream: int, slots: int) -> Tuple[torch.Tens
 
 
 def _raise_on_banded(name: str, err: int, W: int, route: CclRoute) -> None:
-    if err == _TOO_MANY_BANDS:
+    if err == _TOO_MANY_BANDS and route.route == "banded":
         raise ValueError(f"{name}: rows of {W} need {route.bands} bands of {route.band} columns resident at once; "
                          "the card holds fewer")
     _raise_on(name, err)
@@ -213,13 +228,17 @@ def vertical_pass(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, revers
     from .._build import kernels
 
     # 4-connected columns are independent (bands of 256 columns); 8-connected
-    # rows wider than a block walks take the banded route.
+    # rows wider than a block walks take the banded or the grid route.
     route = ccl_route_of(lab, 2) if connectivity == 2 else CclRoute("one_block", W, 1, 0)
     with torch.cuda.device(lab.device):
         stream = torch.cuda.current_stream(lab.device).cuda_stream
         if route.route == "one_block":
             err = kernels().vertical_pass_launch(
                 lab.data_ptr(), fg.data_ptr(), out.data_ptr(), B, H, W, connectivity, int(reverse), stream,
+            )
+        elif route.route == "grid":
+            err = kernels().ccl_grid_launch(
+                lab.data_ptr(), fg.data_ptr(), out.data_ptr(), None, None, B, H, W, 2, 0, int(reverse), 0, stream,
             )
         else:
             ws, epoch = _exchange(lab.device, stream, route.slots)
@@ -228,7 +247,7 @@ def vertical_pass(lab: torch.Tensor, fg: torch.Tensor, connectivity: int, revers
                 epoch, stream,
             )
     _raise_on_banded("vertical_pass", err, W, route)
-    vertical_pass.launches += 1
+    count_launch(vertical_pass, lab.device)
     return out
 
 
@@ -275,7 +294,8 @@ def _fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters
     Returns:
         (labels, sweeps): int32 (B, H, W), and int32 (B,) the sweeps each
         frame ran. On the card one launch (``csrc/ccl.cu``, or
-        ``csrc/ccl_banded.cu`` on the banded route; :func:`ccl_route` picks),
+        ``csrc/ccl_banded.cu`` on the banded route, ``csrc/ccl_grid.cu`` on
+        the grid route; :func:`ccl_route` picks),
         updating a copy of ``lab0`` in place; nothing is read back.
     """
     if lab0.dtype != torch.int32:
@@ -303,6 +323,12 @@ def _fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters
             err = kernels().ccl_fixpoint_launch(
                 lab.data_ptr(), fg.data_ptr(), sweeps.data_ptr(), B, H, W, connectivity, int(max_iters), stream
             )
+        elif route.route == "grid":
+            ws = torch.empty((2 * route.slots,), dtype=torch.int64, device=lab.device)
+            err = kernels().ccl_grid_launch(
+                lab.data_ptr(), fg.data_ptr(), None, sweeps.data_ptr(), ws.data_ptr(), B, H, W, connectivity, 1, 0,
+                int(max_iters), stream,
+            )
         else:
             ws, epoch = _exchange(lab.device, stream, route.slots)
             err = kernels().ccl_fixpoint_banded_launch(
@@ -310,7 +336,7 @@ def _fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters
                 int(max_iters), epoch, stream,
             )
     _raise_on_banded("_fixpoint", err, W, route)
-    _fixpoint.launches += 1
+    count_launch(_fixpoint, lab.device)
     return lab, sweeps
 
 
@@ -570,7 +596,7 @@ def remove_small_objects(
             plan.cluster, plan.share, plan.stage, stream,
         )
     _raise_on("remove_small_objects", err)
-    remove_small_objects.launches += 1
+    count_launch(remove_small_objects, labels.device)
     return out, n.reshape(batch_shape)
 
 

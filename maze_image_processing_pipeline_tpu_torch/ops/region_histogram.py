@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from .row_scan import _check_cuda, _raise_on
+from .row_scan import _check_cuda, _raise_on, count_launch
 
 __all__ = ["region_histogram", "region_histogram_plain", "region_measure"]
 
@@ -123,5 +123,5 @@ def region_measure(labels: torch.Tensor, intensity: Optional[torch.Tensor], num_
         )
     _raise_on("region_measure", err)
     if hist is not None:
-        region_histogram.launches += 1
+        count_launch(region_histogram, dev)
     return ((sums, *rows, colcnt) if partials else None), hist

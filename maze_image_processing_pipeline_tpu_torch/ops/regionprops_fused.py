@@ -43,7 +43,7 @@ import torch
 
 from .region_histogram import region_histogram_plain, region_measure
 from .regionprops import marching_squares_length
-from .row_scan import _check_cuda, _raise_on
+from .row_scan import _check_cuda, _raise_on, count_launch
 
 __all__ = [
     "regionprops_fused",
@@ -399,7 +399,7 @@ def region_props_partials(labels: torch.Tensor, intensity: Optional[torch.Tensor
     partials of :func:`region_props_partials_plain` and the (B, R, 256)
     int32 histogram (None without intensity)."""
     partials, hist = region_measure(labels, intensity, num_segments, partials=True)
-    regionprops_fused.launches += 1
+    count_launch(regionprops_fused, labels.device)
     return (*partials, hist)
 
 

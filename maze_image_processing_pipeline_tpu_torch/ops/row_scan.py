@@ -13,20 +13,29 @@
 A tensor on the CPU goes through the plain PyTorch version; a CUDA tensor
 always launches the kernel, and the wrapper raises if the kernel does not
 take it or does not launch. Each wrapper counts its kernel launches in a
-plain integer attribute (``hpass.launches``, ``cumsum_rows.launches``) so a
-run can show that its main path went through the kernels.
+plain integer attribute (``hpass.launches``, ``cumsum_rows.launches``; by
+card in ``launches_by_device``, :func:`count_launch`) so a run can show that
+its main path went through the kernels, on each card of a mesh.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["hpass", "hpass_plain", "cumsum_rows", "cumsum_rows_plain", "INF"]
+__all__ = ["hpass", "hpass_plain", "cumsum_rows", "cumsum_rows_plain", "count_launch", "INF"]
 
 INF = 2**30  # background label of the CCL
 _MAX_W1 = 46000  # widest row K1 stages in one block's shared memory; wider rows take the wide route
 WIDE_CHUNK = 4096  # csrc/ccl_banded.cu: kWideChunk
 _CHUNK_SUM_INTS = 8  # csrc/ccl_banded.cu: ChunkSum
+
+
+def count_launch(fn, device: torch.device) -> None:
+    """One launch of ``fn``'s kernel on ``device``: ``fn.launches`` counts
+    every launch, ``fn.launches_by_device`` those of each card (by index)."""
+    fn.launches += 1
+    by_device = fn.__dict__.setdefault("launches_by_device", {})
+    by_device[device.index] = by_device.get(device.index, 0) + 1
 
 
 def _shift(v: torch.Tensor, d: int, fill, reverse: bool) -> torch.Tensor:
@@ -124,7 +133,7 @@ def hpass(lab: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
                 lab.data_ptr(), fg.data_ptr(), out.data_ptr(), sums.data_ptr(), rows, W, stream
             )
     _raise_on("hpass", err)
-    hpass.launches += 1
+    count_launch(hpass, lab.device)
     return out
 
 
@@ -150,7 +159,7 @@ def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), out.data_ptr(), rows, W, stream
         )
     _raise_on("cumsum_rows", err)
-    cumsum_rows.launches += 1
+    count_launch(cumsum_rows, x.device)
     return out
 
 

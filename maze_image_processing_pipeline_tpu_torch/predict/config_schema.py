@@ -6,7 +6,8 @@ differences:
 
 * ``model.device`` defaults to ``"cuda"``, accepts ``"cpu"``, and reads
   ``"tpu"`` (and ``"gpu"``) as the accelerator, i.e. the CUDA card;
-* ``parallel`` accepts only ``false`` (multi-GPU execution: ROADMAP A6).
+* ``parallel`` builds a mesh of the cards (of CPU replicas for a
+  ``device: cpu`` model), every card a data replica (:mod:`..parallel`).
 
 Every other field and default is the original's.
 """
@@ -18,6 +19,7 @@ from typing import Dict, List, Literal, Optional, Sequence, Tuple
 from pydantic import BaseModel, ConfigDict, Field, field_validator
 
 from ..config import TrueToDefaultsModel
+from ..parallel.config import ParallelConfig
 
 
 class EcoTaxaInputConfig(BaseModel):
@@ -242,10 +244,10 @@ class PredictionPipelineConfig(BaseModel):
 
     target_dir: str = Field(description="Directory where the output files are created.")
 
-    parallel: Literal[False] = Field(
+    parallel: ParallelConfig | Literal[False] = Field(
         False,
-        description="Multi-GPU execution is not ported yet (ROADMAP A6); "
-        "only false is accepted.",
+        description="Multi-chip execution: shard device batches over a mesh "
+        "of all (or explicitly configured) accelerator devices.",
     )
 
     log_interval: str | float = Field(

@@ -12,8 +12,9 @@ behind stream buffers. ``_convex_area``, :func:`measure_segments`,
 the originals (``tests/test_torch_host_copies.py`` holds them equal).
 
 The raw HDF5 export (``save_raw_h5: true``) goes through the port's own
-writer, :class:`..dataio.HDF5Writer`, which needs no h5py. Not ported yet:
-multi-GPU execution (ROADMAP A6).
+writer, :class:`..dataio.HDF5Writer`, which needs no h5py. With
+``parallel:`` both inference nodes split their work over a mesh of cards
+(:mod:`..parallel`).
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from ..models.inference import resolve_device
 from ..ops.host_props import host_region_props
 from ..polytaxo import Description, NegatedRealNode, PolyTaxonomy, PrimaryNode, TagNode
 from ..progress import LogProgress
-from ..runner import PipelineRunner
+from ..runner import PipelineRunner, apply_platform
 from .config_schema import ModelMetaSchema, PredictionPipelineConfig
 
 logging.captureWarnings(True)
@@ -606,6 +607,7 @@ class Runner(PipelineRunner):
         except pydantic.ValidationError as exc:
             logger.error(str(exc))
             return
+        apply_platform(config)
 
         if sys.stdout.isatty():
             Progress = LiveProgress
@@ -621,6 +623,10 @@ class Runner(PipelineRunner):
         from ..models.model_io import load_model
 
         device = resolve_device(config.model.device)
+
+        from ..parallel import setup_parallel
+
+        mesh = setup_parallel(config.parallel, device=device)
 
         with Pipeline() as p:
             process_meta_var = Variable("process_meta")
@@ -774,6 +780,7 @@ class Runner(PipelineRunner):
                         config.segmentation.fill_holes if fused_measure else False
                     ),
                     device=device,
+                    mesh=mesh,
                 )
                 if not fused_measure:
                     seg_stats = None
@@ -810,6 +817,7 @@ class Runner(PipelineRunner):
                         pre_transform=pre_transform,
                         transfer_dtype=transfer_dtype,
                         device=device,
+                        mesh=mesh,
                     )
 
             # Decouple the device stage from the output taps; the capacity

@@ -11,7 +11,7 @@
   ``regionprops_fused``): labels and counts exact, integer props exact,
   float props within rtol 1e-5 / atol 1e-3 (``tests/test_torch_regionprops.py``'s
   tolerance: float64 moment sums in the port, float32 in JAX).
-* The lab's ``main`` at ``--shape 64x80 --device cpu``.
+* The lab's ``main``: ``tests/test_torch_perf_lab_main.py``.
 * On the card only (``cuda``): K9 against ``anchor_plain``, bit-exact, at
   the lab's shapes, a tail that is not a multiple of 16 bytes, (1, 1, 1),
   transposed and sliced views and every element size; the tiled transpose
@@ -116,23 +116,6 @@ def test_lab_morph_anchor_label_matches_jax(lab_scene):
         labels, n = exps[name]()
         np.testing.assert_array_equal(labels.numpy(), np.asarray(ref_labels), err_msg=name)
         np.testing.assert_array_equal(n.numpy(), np.asarray(ref_n), err_msg=name)
-
-
-def test_lab_main_runs_on_the_cpu(capsys):
-    results = perf_lab.main(["--shape", "64x80", "--device", "cpu"])
-    assert set(results) == set(perf_lab.EXPERIMENTS) | {f"{e}_fps" for e in perf_lab.EXPERIMENTS
-                                                       if e.startswith("chain")}
-    assert all(np.isfinite(v) and v > 0 for v in results.values())
-    out = capsys.readouterr().out
-    assert "batch=(8, 64, 80)" in out and "ms/batch" in out and "frames/s" in out
-    with pytest.raises(ValueError, match="unknown experiments"):
-        perf_lab.main(["props16", "--device", "cpu"])
-
-
-def test_lab_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA card"):
-        perf_lab.main(["morph", "--shape", "64x80"])
 
 
 def _card():

@@ -4,8 +4,10 @@ On the card the whole fixpoint (sweeps of K1, K4 down, K4 up, K1 until no
 pixel of a frame changes) is one launch of ``csrc/ccl.cu``, one block per
 frame, each frame stopping on its own; rows wider than 8192 take the banded
 route (``ccl_route``: ``csrc/ccl_banded.cu``, bands of 512 to 8192
-columns, a block each, their edges exchanged through device memory). Its
-plain version
+columns, a block each, their edges exchanged through device memory), and
+frames whose bands the card cannot hold at once the grid route
+(``csrc/ccl_grid.cu``, the whole grid on each row in turn). Its plain
+version
 ``fixpoint_plain`` is held here on seeded numpy masks: its labels against
 the batch-wide host loop of the standalone passes (the loop ``label`` ran
 before the fixpoint became a kernel) and, through ``label``, against the JAX
@@ -15,7 +17,9 @@ Here too: the port's CPU ``label`` against the JAX package's on rows wider
 than one block walks; ``ccl_route`` at the path's shapes and above them;
 and the banded route's K1 (each band's own scan, its row summary, the
 look-back over the neighbours' summaries, the lowering of its edge runs)
-replayed in torch against the plain K1 of whole rows; the banded route's
+replayed in torch against the plain K1 of whole rows; the grid route's
+sweeps (chunked K1, the stop rule) replayed against the plain fixpoint; the
+banded route's
 workspace handing each call its own epoch across host threads. The kernel runs
 only on the card (tests marked ``cuda``).
 
@@ -160,16 +164,48 @@ def test_ccl_route_is_one_block_at_the_path_shapes(shape, connectivity):
 def test_ccl_route_bands_wider_rows(W, connectivity):
     """Bands of 512 columns (equal, rounded up to 32) while a frame's bands
     fit the card's blocks, wider ones (at most 8192) where they would not;
-    beyond 132 bands of 8192 the card cannot hold a frame (the wrapper
-    raises)."""
+    beyond 132 bands of 8192 the card cannot hold a frame's bands and the
+    grid route takes it."""
     B, H = 3, 512
     r = tl.ccl_route(B, H, W, connectivity, H100_SMS)
+    if W > H100_SMS * tl.CCL_BAND:
+        assert r.route == "grid" and r.band == tl.CCL_GRID_CHUNK and r.bands == -(-W // tl.CCL_GRID_CHUNK)
+        assert r.slots * 16 == 32 + 32 * B * H * r.bands
+        return
     assert r.route == "banded" and r.band <= tl.CCL_BAND and r.band % 32 == 0
     assert (r.bands - 1) * r.band < W <= r.bands * r.band
     if W <= H100_SMS * tl.CCL_BAND_MIN:
         assert r.band <= tl.CCL_BAND_MIN
-    assert (r.bands <= H100_SMS) == (W <= H100_SMS * tl.CCL_BAND)
+    assert r.bands <= H100_SMS
     assert r.slots == B * r.bands * (2 * H + 2 + (4 * H if connectivity == 2 else 0))
+
+
+@pytest.mark.parametrize("sms", [2, 66, H100_SMS])
+@pytest.mark.parametrize("B, H", [(1, 1), (9, 3), (2, 992)])
+def test_ccl_route_takes_the_grid_route_where_the_bands_stop_fitting(B, H, sms):
+    """The grid route starts exactly where a frame needs one band of
+    ``CCL_BAND`` more than the card has multiprocessors (on an H100 133
+    bands: 1,081,345 columns), for every batch and height; its scratch is
+    a 32-B counter block a 8 frames and 32 B a chunk of each row."""
+    edge = sms * tl.CCL_BAND
+    for connectivity in (1, 2):
+        below = tl.ccl_route(B, H, edge, connectivity, sms)
+        above = tl.ccl_route(B, H, edge + 1, connectivity, sms)
+        assert below.route == "banded" and below.bands == sms and below.band == tl.CCL_BAND
+        assert above.route == "grid" and above.bands == -(-(edge + 1) // tl.CCL_GRID_CHUNK)
+        assert above.slots * 16 == 32 * -(-B // 8) + 32 * B * H * above.bands
+    assert tl.ccl_route(1, 1, 4_000_000, 2, H100_SMS).route == "grid"
+
+
+@pytest.mark.parametrize("limit, W, route", [(32, 4224, "banded"), (32, 4225, "grid"), (64, 8449, "grid"),
+                                             (96, 8449, "banded")])
+def test_ccl_route_takes_the_grid_route_at_forced_small_bands(monkeypatch, limit, W, route):
+    """With ``CCL_BAND`` lowered (the card tests' way to run the wide routes
+    on narrow frames) the grid route starts past 132 bands of the limit
+    (bands are rounded to multiples of 32: a limit of 96 gives bands of
+    64 where that keeps their count)."""
+    monkeypatch.setattr(tl, "CCL_BAND", limit)
+    assert tl.ccl_route(3, 61, W, 2, H100_SMS).route == route
 
 
 @pytest.mark.parametrize("limit, W, band, bands", [(32, 100, 32, 4), (32, 33, 32, 2), (64, 300, 64, 5), (96, 97, 64, 2)])
@@ -286,6 +322,90 @@ def test_banded_k1_replay_matches_the_plain_k1(band, density):
     fg[5, ::band] = False  # background on every band's first column
     lab = torch.from_numpy(rng.integers(1, INF, (rows, W), dtype=np.int32))
     assert torch.equal(_banded_k1(lab, fg, band), row_scan.hpass_plain(lab, fg))
+
+
+def _grid_k1(lab: torch.Tensor, fg: torch.Tensor, chunk: int):
+    """csrc/ccl_grid.cu's K1 replayed on (rows, W): each chunk's own K1 and
+    its edge runs; the chains of edge runs leftwards and rightwards (a chunk
+    foreground throughout passes the run on, lowered by its own); each
+    chunk's first and last run lowered to what crosses in. Returns the
+    labels and, per row, whether a label changed."""
+    W = lab.shape[-1]
+    out, sums = [], []
+    for c0 in range(0, W, chunk):
+        v, m = row_scan.hpass_plain(lab[:, c0:c0 + chunk], fg[:, c0:c0 + chunk]), fg[:, c0:c0 + chunk].bool()
+        bg = ~m
+        cw = m.shape[1]
+        first = torch.where(bg.any(1), bg.int().argmax(1), cw)
+        last = torch.where(bg.any(1), cw - 1 - bg.flip(1).int().argmax(1), -1)
+        sums.append((torch.where(m[:, 0], v[:, 0], INF), torch.where(m[:, -1], v[:, -1], INF), first, last, first == cw))
+        out.append(v)
+    n = len(sums)
+    left, right = [None] * n, [None] * n
+    run = torch.full((lab.shape[0],), INF, dtype=torch.int32)
+    for q in range(n):
+        left[q] = run
+        run = torch.where(sums[q][4], torch.minimum(run, sums[q][1]), sums[q][1])
+    run = torch.full((lab.shape[0],), INF, dtype=torch.int32)
+    for q in range(n - 1, -1, -1):
+        right[q] = run
+        run = torch.where(sums[q][4], torch.minimum(run, sums[q][0]), sums[q][0])
+    for q, v in enumerate(out):
+        cols = torch.arange(v.shape[1])[None]
+        _, _, first, last, whole = sums[q]
+        low = torch.where(cols < first[:, None], left[q][:, None], INF)
+        low = torch.minimum(low, torch.where(cols > last[:, None], right[q][:, None], INF))
+        out[q] = torch.minimum(v, low)
+    new = torch.cat(out, 1)
+    return new, (new != lab).any(1)
+
+
+def _grid_fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters: int, chunk: int):
+    """csrc/ccl_grid.cu's fixpoint replayed: every frame's `last` sweep that
+    changed it; K1 on the active frames' rows (the first sweep and the
+    closing K1 of each), K4 down and up a row at a time, the stop rule read
+    from `last` after each sweep."""
+    B, H, W = lab0.shape
+    lab = lab0.clone()
+    last = [0] * B
+    sweeps = torch.zeros(B, dtype=torch.int32)
+    sweep = 1
+    while True:
+        act = [b for b in range(B) if last[b] >= sweep - 1]
+        for step in (["k1"] if sweep == 1 else []) + ["down", "up", "k1"]:
+            for b in act:
+                if step == "k1":
+                    new, ch = _grid_k1(lab[b], fg[b], chunk)
+                else:
+                    new = tl.vertical_pass_plain(lab[b], fg[b], connectivity, reverse=step == "up")
+                    ch = (new != lab[b]).any()
+                if bool(ch.any()):
+                    last[b] = sweep
+                lab[b] = new
+        more = False
+        for b in act:
+            if last[b] >= sweep and sweep < max_iters:
+                more = True
+            else:
+                sweeps[b] = sweep
+        if not more:
+            return lab, sweeps
+        sweep += 1
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+@pytest.mark.parametrize("connectivity", [1, 2])
+def test_grid_route_replay_matches_fixpoint_plain(connectivity, chunk):
+    """The grid route's sweeps, chunked K1 and stop rule replayed in torch:
+    the plain fixpoint's labels and per-frame sweep counts, on a serpentine,
+    blobs, an empty and a full frame, both seeds, capped at 1, 3 and 256
+    sweeps."""
+    fg = torch.from_numpy(_batch())
+    for lab0 in (_raster_seed(fg), _rank_seed(fg, connectivity)):
+        for max_iters in (1, 3, 256):
+            lab, sweeps = _grid_fixpoint(lab0, fg, connectivity, max_iters, chunk)
+            ref, ref_sweeps = tl.fixpoint_plain(lab0, fg, connectivity, max_iters)
+            assert torch.equal(lab, ref) and torch.equal(sweeps, ref_sweeps)
 
 
 # -- on the card ----------------------------------------------------------------
@@ -511,15 +631,53 @@ def test_cuda_label_on_wide_rows_is_one_launch_a_fixpoint_without_host_sync(shap
 
 @pytest.mark.cuda
 def test_cuda_label_raises_where_the_card_cannot_hold_a_frames_bands():
-    """Pins C4, an open fault (ROADMAP queue C): the JAX ``label`` labels
-    this frame, the card raises, because a frame's bands must all be
-    resident at once (on an H100 rows above 132 × 8192 columns). Until C4
-    is repaired the raise is its documented behaviour; the repair turns
-    this test into an equality with the plain labels."""
+    """Pins the repair of C4 (ROADMAP queue C): the card once raised on this
+    frame, because a frame's bands must all be resident at once (on an H100
+    rows above 132 × 8192 columns), where the JAX ``label`` labels it. The
+    grid route takes such frames now: ``label()`` equals ``label()``
+    through the plain versions, as does the fixpoint's sweep count."""
+    from chip_smoke import plain_label
+
     dev = _card()
-    fg = torch.ones((1, 1, 4_000_000), dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError, match="bands of"):
-        tl.label(fg)
+    rng = np.random.default_rng(13)
+    for fg_np in (np.ones((1, 1, 4_000_000), bool), rng.random((1, 1, 4_000_000)) < 0.9):
+        fg = torch.from_numpy(fg_np).to(dev)
+        assert tl.ccl_route_of(fg, 2).route == "grid"
+        for connectivity in (1, 2):
+            labels, n = tl.label(fg, connectivity=connectivity)
+            ref, n_ref = plain_label(fg, connectivity)
+            assert torch.equal(labels, ref) and torch.equal(n, n_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band, shape", [(32, (3, 61, 4300)), (32, (2, 1, 9000)), (64, (2, 1, 9000)),
+                                         (64, (5, 16, 8449))])
+def test_cuda_fixpoint_grid_route_matches_plain(monkeypatch, shape, band):
+    """The grid route at forced small bands (``CCL_BAND`` lowered so that a
+    frame needs more than 132 bands): both seeds, both connectivities,
+    serpentines capped at 1 and 3 sweeps, labels and sweep counts, and the
+    8-connected pass alone both ways."""
+    dev = _card()
+    monkeypatch.setattr(tl, "CCL_BAND", band)
+    B, h, w = shape
+    if tl.ccl_route_of(torch.empty(shape, device=dev), 2).route != "grid":
+        pytest.skip(f"{shape} at bands of {band} fits this card's bands")
+    rng = np.random.default_rng(band + w)
+    lin = torch.arange(1, h * w + 1, dtype=torch.int32, device=dev).reshape(1, h, w)
+    for fg_np in (rng.random(shape) < 0.6, serpentine(*shape) if h > 4 else np.ones(shape, bool)):
+        fg = torch.from_numpy(fg_np).to(dev)
+        random_lab = torch.from_numpy(rng.integers(1, INF, shape, dtype=np.int32)).to(dev)
+        for lab0 in (torch.where(fg, lin, INF), random_lab):
+            for connectivity in (1, 2):
+                for max_iters in (1, 3, 256):
+                    n = tl._fixpoint.launches
+                    lab, sweeps = tl._fixpoint(lab0, fg, connectivity, max_iters)
+                    assert tl._fixpoint.launches == n + 1
+                    ref, ref_sweeps = tl.fixpoint_plain(lab0, fg, connectivity, max_iters)
+                    assert torch.equal(lab, ref) and torch.equal(sweeps, ref_sweeps), (connectivity, max_iters)
+            for reverse in (False, True):
+                out = tl.vertical_pass(lab0, fg, 2, reverse)
+                assert torch.equal(out, tl.vertical_pass_plain(lab0, fg, 2, reverse))
 
 
 def test_plain_label_is_label_through_the_plain_versions():

@@ -351,3 +351,62 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         t_seg.DeviceFramePostprocess(None, None, t_seg.DEFAULT_POSTPROCESS)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         t_merge.merge_labels(np.zeros((4, 4), np.int32))
+
+
+# -- the parallel section's copies -------------------------------------------
+
+
+def _class(path: Path, name: str) -> str:
+    """The class's code."""
+    (c,) = [n for n in ast.parse(path.read_text()).body if isinstance(n, ast.ClassDef) and n.name == name]
+    return ast.dump(c)
+
+
+def test_parallel_config_and_partition_work_are_copies():
+    """``ParallelConfig`` (the ``parallel:`` section, field for field) and
+    ``partition_work`` hold the originals' code, and give the same outputs."""
+    from maze_image_processing_pipeline_tpu import parallel as jp
+    from maze_image_processing_pipeline_tpu_torch import parallel as tp
+
+    rel = "parallel/config.py"
+    assert _class(REPO / "maze_image_processing_pipeline_tpu_torch" / rel, "ParallelConfig") == _class(
+        REPO / "maze_image_processing_pipeline_tpu" / rel, "ParallelConfig")
+    assert f"maze_image_processing_pipeline_tpu/{rel}" in ast.get_docstring(
+        ast.parse((REPO / "maze_image_processing_pipeline_tpu_torch" / rel).read_text()))
+    rel = "parallel/multihost.py"
+    assert _function(REPO / "maze_image_processing_pipeline_tpu_torch" / rel, "partition_work") == _function(
+        REPO / "maze_image_processing_pipeline_tpu" / rel, "partition_work")
+    for section in (True, {"mesh": {"data": 4, "model": 2}, "data_axis": "data"},
+                    {"coordinator_address": "h:1", "num_processes": 2, "process_id": 1}):
+        assert tp.ParallelConfig.model_validate(section).model_dump() == \
+            jp.ParallelConfig.model_validate(section).model_dump()
+    items = list(range(11))
+    for n in (1, 2, 3):
+        assert [tp.partition_work(items, n, i) for i in range(n)] == [jp.partition_work(items, n, i) for i in range(n)]
+    for bad in (-1, 3):
+        with pytest.raises(ValueError, match=rf"host {bad} not in \[0, 3\)"):
+            tp.partition_work(items, 3, bad)
+    assert tp.partition_work(items) == jp.partition_work(items, 1, 0)
+
+
+def test_make_mesh_checks_are_the_originals():
+    """``make_mesh``'s argument checks and defaults, and ``shard_batch_spec``,
+    against the JAX package's on the same number of devices."""
+    import jax
+
+    from maze_image_processing_pipeline_tpu.parallel import mesh as jm
+    from maze_image_processing_pipeline_tpu_torch.parallel import mesh as tm
+
+    cpu = torch.device("cpu")
+    for n, axes in ((2, {"data": 3}), (4, {"data": 2}), (8, {"data": 4, "model": 3})):
+        with pytest.raises(ValueError) as j_err:
+            jm.make_mesh(axes, devices=jax.devices()[:n])
+        with pytest.raises(ValueError) as t_err:
+            tm.make_mesh(axes, devices=[cpu] * n)
+        assert str(t_err.value) == str(j_err.value)
+    for n, axes in ((2, None), (8, {"data": 4, "model": 2}), (8, {"data": 2, "space": 2, "model": 2}),
+                    (4, {"space": 4})):
+        j_mesh, t_mesh = jm.make_mesh(axes, devices=jax.devices()[:n]), tm.make_mesh(axes, devices=[cpu] * n)
+        assert t_mesh.axis_names == j_mesh.axis_names and t_mesh.devices.shape == j_mesh.devices.shape
+        for ndim in (2, 3, 4):
+            assert tm.shard_batch_spec(t_mesh, ndim) == tuple(jm.shard_batch_spec(j_mesh, ndim))

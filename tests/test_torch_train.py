@@ -44,6 +44,7 @@ from maze_image_processing_pipeline_tpu_torch.models.model_io import (
     params_to_jax,
 )
 from maze_image_processing_pipeline_tpu_torch.models.train_loop import fit, restore_checkpoint
+from maze_image_processing_pipeline_tpu_torch.parallel import make_mesh
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -237,7 +238,12 @@ def test_training_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         fit(UNet(1, 4, 1), _batches(), 1, input_shape=(2, 32, 32, 3), checkpoint_dir=str(tmp_path))
     assert not os.path.exists(tmp_path / "1")
-    with pytest.raises(NotImplementedError, match="A6"):
-        t_train.create_train_state(UNet(1, 4, 1), (2, 32, 32, 3), device="cpu", mesh=object())
+    # A mesh of a card needs the card; a mesh of CPU replicas is asked for by name.
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        t_train.create_train_state(UNet(1, 4, 1), (2, 32, 32, 3), device="cpu",
+                                   mesh=make_mesh({"data": 1}, devices=["cuda"]))
+    module = UNet(1, 4, 1)
+    t_train.create_train_state(module, (2, 32, 32, 3), mesh=make_mesh({"data": 2}, devices=["cpu"] * 2))
+    assert next(module.parameters()).device.type == "cpu"
     with pytest.raises(ValueError, match="channels"):
         t_train.create_train_state(UNet(1, 4, 1), (2, 32, 32, 1), device="cpu")
