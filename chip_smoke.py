@@ -172,7 +172,15 @@ csrc`` and runs, one line of output per phase:
     phase 7's semseg and polytaxo tasks (batches split over the cards) with
     ``parallel: true`` give the archives of the same tasks on one card; the
     mesh train step (``UNet(1, 8, 2)`` float32, 4 tiles a card) the one-card
-    step's loss and gradients within phase 9's tolerance;
+    step's loss and gradients within phase 9's tolerance; the sharded train
+    steps (``SHARDED_STEPS``: ``UNet(1, 64, 1)`` on ``{data: 1, space: 2,
+    model: 2}``, ``UNet(1, 32, 4)`` at batch 8 of 512² on ``{space: 4}``,
+    float32, over the first four cards or, on a machine of fewer, four
+    replicas of card 0) the one-card steps' loss and gradients, each card's
+    peak memory and the bytes its forward saved for the backward printed
+    beside the one-card step's, and K5 and K6's split
+    launches (partials and apply) on every card, each held to its plain
+    version at the shard shapes the steps gave it and timed at the largest;
     ``parallel.dryrun.dryrun_multichip`` on the card count; every kernel of
     each path launches on every card (``launches_by_device``).
 
@@ -185,7 +193,9 @@ K5 and K6, and no other, in phase 9; K1, K4 (the lab's probes of them),
 ``ccl_fixpoint``, K2, K8, K3, K7 and K9, and not K5 or K6, in phase 10; all
 but K9 and K1, K4 alone in phase 11. ``label`` runs K1 and K4 inside
 ``ccl_fixpoint``: alone they launch in phase 10 and no other. K9 launches in
-no phase but 10. The last lines are a JSON object of the
+no phase but 10. The split K5/K6 launches (``SPLIT_NORMS``) launch in phase
+12's sharded train steps (counted from just before each sharded step to
+just after it) and in no other phase. The last lines are a JSON object of the
 kernels, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before the last line.
 """
@@ -245,15 +255,25 @@ KERNELS = {
     # The perf lab's layout anchor: the mask read once and written once
     # (1 + 1 B per bool element).
     "anchor": (f"{CSRC}/anchor.cu", "tools/perf_lab.py:94", 1 + 1),
+    # The sharded norm's launches (a norm whose rows or groups span cards):
+    # their bytes depend on the shard's dtype, reckoned in phase 12.
+    "group_norm_partials": (f"{CSRC}/group_norm.cu", "attic/pallas_norm.py:95", None),
+    "group_norm_apply": (f"{CSRC}/group_norm.cu", "attic/pallas_norm.py:95", None),
+    "group_norm_bwd_partials": (f"{CSRC}/group_norm.cu", "attic/pallas_norm.py:256", None),
+    "group_norm_bwd_apply": (f"{CSRC}/group_norm.cu", "attic/pallas_norm.py:256", None),
 }
 # The kernels of the frame chain's region measurement (K3, K7).
 REGION_KERNELS = ("region_histogram", "regionprops_fused")
 # The CCL passes alone (K1, K4): `label` runs them inside `ccl_fixpoint`, so
 # they launch only in phase 2 and in the perf lab's probes of them.
 CCL_PASSES = ("hpass", "vertical_pass")
+# The sharded norm's partials and apply launches of K5 and K6: only a U-Net
+# sharded over space (or a group straddling model cards) runs them, in
+# phase 12's sharded train steps.
+SPLIT_NORMS = ("group_norm_partials", "group_norm_apply", "group_norm_bwd_partials", "group_norm_bwd_apply")
 # The kernels inference may launch (all but the GroupNorm backward, K6, the
-# perf lab's anchor, K9, and the CCL passes alone).
-INFERENCE_KERNELS = tuple(k for k in KERNELS if k not in ("group_norm_bwd", "anchor") + CCL_PASSES)
+# perf lab's anchor, K9, the CCL passes alone and the sharded norm's).
+INFERENCE_KERNELS = tuple(k for k in KERNELS if k not in ("group_norm_bwd", "anchor") + CCL_PASSES + SPLIT_NORMS)
 # The kernels of the perf lab's experiments (phase 10).
 LAB_KERNELS = CCL_PASSES + ("ccl_fixpoint", "cumsum_rows", "remove_small_objects") + REGION_KERNELS + ("anchor",)
 # The norms' (B, C, H, W) on the path: loki level 0 (16 tiles of 1024²),
@@ -1594,7 +1614,8 @@ def _counted():
             "ccl_fixpoint": tl._fixpoint,
             "remove_small_objects": tl.remove_small_objects, "group_norm": layers.group_norm,
             "group_norm_bwd": layers.group_norm_bwd, "region_histogram": rh.region_histogram,
-            "regionprops_fused": rf.regionprops_fused, "anchor": anchor}
+            "regionprops_fused": rf.regionprops_fused, "anchor": anchor,
+            **{name: getattr(layers, name) for name in SPLIT_NORMS}}
 
 
 def reset_launches() -> None:
@@ -1615,7 +1636,8 @@ def read_launches_by_card(where: str, expected, cards: int) -> dict:
     return {name: v for name, v in by_card.items() if v}
 
 
-def read_launches(where: str, expected=INFERENCE_KERNELS, absent=("group_norm_bwd", "anchor") + CCL_PASSES) -> dict:
+def read_launches(where: str, expected=INFERENCE_KERNELS,
+                  absent=("group_norm_bwd", "anchor") + CCL_PASSES + SPLIT_NORMS) -> dict:
     """The launch counts since :func:`reset_launches`; every kernel the
     phase's path runs (``expected``) must have launched, and the kernels of
     other paths (``absent``) must not have."""
@@ -2307,7 +2329,7 @@ def phase_train(dev, limit: str, work: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches("phase 9 (U-Net step)", expected=("group_norm", "group_norm_bwd"),
-                             absent=tuple(k for k in KERNELS if not k.startswith("group_norm")))
+                             absent=tuple(k for k in KERNELS if k not in ("group_norm", "group_norm_bwd")))
     check(launches["group_norm"] == 18 * n_steps and launches["group_norm_bwd"] == 18 * n_steps,
           f"K5 / K6 launched {launches['group_norm']} / {launches['group_norm_bwd']} times in {n_steps} steps")
     losses += [float(v) for v in timed]
@@ -2328,7 +2350,7 @@ def phase_train(dev, limit: str, work: str) -> dict:
     reset_launches()
     closses = [float(cstep(cstate, cx, cy)[1]["loss"]) for _ in range(3)]
     c_launches = read_launches("phase 9 (classifier step)", expected=("group_norm", "group_norm_bwd"),
-                               absent=tuple(k for k in KERNELS if not k.startswith("group_norm")))
+                               absent=tuple(k for k in KERNELS if k not in ("group_norm", "group_norm_bwd")))
     check(c_launches["group_norm"] == 24 and c_launches["group_norm_bwd"] == 24, f"classifier launches {c_launches}")
     check(all(math.isfinite(v) for v in closses), f"classifier losses {closses}")
     say(f"  ConvClassifier(8) bf16, batch 64 of 256², bce_loss: 3 steps, losses {[round(v, 4) for v in closses]}, "
@@ -2563,7 +2585,7 @@ def phase_lab(dev, limit: str) -> dict:
 
     reset_launches()
     results = perf_lab.run(device=dev)
-    launches = read_launches("phase 10", expected=LAB_KERNELS, absent=("group_norm", "group_norm_bwd"))
+    launches = read_launches("phase 10", expected=LAB_KERNELS, absent=("group_norm", "group_norm_bwd") + SPLIT_NORMS)
     x = torch.from_numpy(perf_lab.lab_frames()).to(dev)
     with torch.inference_mode():
         ref, anchored, plain = perf_lab.chain(x), perf_lab.chain(x, anchored=True), perf_lab.chain(x.cpu())
@@ -2648,15 +2670,235 @@ def mesh_train_step(dev, cards: int) -> str:
             f"{worst:.3g}); K5 / K6 launches by card {by_card.get('group_norm')} / {by_card.get('group_norm_bwd')}")
 
 
+# The sharded train steps: UNet(1, 64, 1) (tests/test_models.py's sharded
+# step, its 64- and 128-wide convs split over model) on {data: 1, space: 2,
+# model: 2}, and phase 9's batch of UNet(1, 32, 4) over space alone.
+SHARDED_STEPS = (
+    (dict(out_channels=1, base_features=64, depth=1), {"data": 1, "space": 2, "model": 2}, (8, 128, 128)),
+    (dict(out_channels=1, base_features=32, depth=4), {"space": 4}, TRAIN_BATCH[:3]),
+)
+
+
+def sharded_cards():
+    """Four cards for the sharded steps: the machine's first four, or, on a
+    machine of fewer, four replicas of card 0."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i if n >= 4 else 0) for i in range(4)]
+
+
+def peak_step(dev, cfg, axes, x, y):
+    """One float32 train step of ``UNet(**cfg)`` on one card (``axes`` None)
+    or sharded over ``axes`` on :func:`sharded_cards`: (loss, gradients on
+    the CPU, the step's peak memory on each card (bytes above what the card
+    held before the state was made), the bytes of the tensors the forward
+    saved for the backward on each card (each storage once: what the
+    activations take, whatever workspace cuDNN takes besides), launches by
+    card, seconds)."""
+    import gc
+
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models import train as tt
+    from maze_image_processing_pipeline_tpu_torch.models.unet import ShardedUNet, UNet
+    from maze_image_processing_pipeline_tpu_torch.parallel import make_mesh
+
+    mesh = None if axes is None else make_mesh(axes, devices=sharded_cards()[: math.prod(axes.values())])
+    cards = sorted({d.index for d in (mesh.devices.flat if mesh is not None else [dev])})
+    torch.cuda.synchronize()
+    base = {}
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+        base[i] = torch.cuda.memory_allocated(i)
+    module = UNet(**cfg, dtype="float32")
+    state, opt = tt.create_train_state(module, x.shape, device=dev, seed=3, mesh=mesh)
+    check((mesh is not None) == isinstance(state.module, ShardedUNet), f"the step on {axes} is not sharded")
+    step = tt.make_train_step(module, opt, mesh=mesh)
+    saved, storages = {}, set()
+
+    def pack(t):
+        key = (t.device, t.untyped_storage().data_ptr())
+        if t.is_cuda and key not in storages:
+            storages.add(key)
+            saved[t.device.index] = saved.get(t.device.index, 0) + t.untyped_storage().nbytes()
+        return t
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        state, m = step(state, x, y)
+    loss = float(m["loss"])
+    for i in cards:
+        torch.cuda.synchronize(i)
+    wall = time.perf_counter() - t0
+    launches = {name: dict(getattr(fn, "launches_by_device", {})) for name, fn in _counted().items()}
+    peak = {i: torch.cuda.max_memory_allocated(i) - base[i] for i in cards}
+    if mesh is not None:
+        grads = state.module.grads()
+    else:
+        grads = {k: p.grad.cpu() for k, p in module.named_parameters()}
+    del state, opt, step, module, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, {k: g.double() for k, g in grads.items()}, peak, saved, launches, wall
+
+
+def split_norm_cases(dev, seen) -> dict:
+    """Each split K5/K6 launch against its plain version at the shard
+    shapes, dtypes and layouts ``seen`` in the sharded steps, on fresh
+    seeded inputs: the sums and rows within K6's float32 tolerance
+    (``within_f32``), y within phase 2's K5 tolerance (1e-5 float32, one
+    16-bit ulp), dx within K6's; the same bits twice. At the largest shape
+    the four launches are timed beside their plain versions, the one-launch
+    K5 and K6 on the same shard and the bound. Returns the kernels line's
+    entries."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst = dict.fromkeys(SPLIT_NORMS, 0.0)
+    cases = sorted(seen, key=lambda c: (math.prod(c[0]), c[0], c[2]))
+    mantissa = {torch.bfloat16: 7, torch.float16: 10}
+    out = {}
+    for shape, dtype, layout in cases:
+        C = shape[1]
+        G = min(8, C)
+        fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+        x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dtype).contiguous(memory_format=fmt)
+        ct = torch.randn(shape, device=dev, generator=gen).to(dtype).contiguous(memory_format=fmt)
+        w = torch.rand(C, device=dev, generator=gen) + 0.5
+        b = torch.randn(C, device=dev, generator=gen)
+        stats = layers.group_stats_plain(x, G)
+        rows = layers.group_norm_bwd_partials_plain(x, ct, stats, G)
+        n = math.prod(shape[1:]) // G
+        s2 = (w * rows[0].view(shape[0], C)).view(shape[0], G, C // G).sum(-1).reshape(-1)
+        s1 = (w * rows[1].view(shape[0], C)).view(shape[0], G, C // G).sum(-1).reshape(-1)
+        coef = torch.stack([(-stats[1] * stats[1]) * s2 / n, (-stats[1]) * s1 / n])
+        calls = {
+            "group_norm_partials": (lambda: layers.group_norm_partials(x, G),
+                                    lambda: layers.group_partials_plain(x, G)),
+            "group_norm_apply": (lambda: layers.group_norm_apply(x, w, b, stats, G),
+                                 lambda: layers.group_norm_apply_plain(x, w, b, stats, G)),
+            "group_norm_bwd_partials": (lambda: layers.group_norm_bwd_partials(x, ct, stats, G),
+                                        lambda: layers.group_norm_bwd_partials_plain(x, ct, stats, G)),
+            "group_norm_bwd_apply": (lambda: layers.group_norm_bwd_apply(x, ct, w, stats, coef, G),
+                                     lambda: layers.group_norm_bwd_apply_plain(x, ct, w, stats, coef, G)),
+        }
+        where = f"{shape} {str(dtype)[6:]} {layout}"
+        for name, (kernel, plain) in calls.items():
+            got, again, ref = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{name} not deterministic at {where}")
+            err = float((got.float() - ref.float()).abs().max())
+            worst[name] = max(worst[name], err)
+            if name.endswith("partials") or (dtype == torch.float32 and name == "group_norm_bwd_apply"):
+                ok = within_f32(got, ref)
+            elif dtype == torch.float32:
+                ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+            else:
+                ok = bool(((got.float() - ref.float()).abs() <= half_ulp(ref.float(), mantissa[dtype])).all())
+            check(ok, f"{name} differs from its plain version at {where} by {err:.3g}")
+            if not name.endswith("partials"):
+                check(got.stride() == x.stride(), f"{name} changed the layout at {where}")
+        say(f"  {where}: the four split launches within tolerance of their plain versions, the same bits twice")
+        if (shape, dtype, layout) == cases[-1]:
+            nbytes = x.numel() * x.element_size()
+            bound = {"group_norm_partials": bytes_ms(nbytes + 8 * shape[0] * G),
+                     "group_norm_apply": bytes_ms(2 * nbytes),
+                     "group_norm_bwd_partials": bytes_ms(2 * nbytes + 8 * shape[0] * C),
+                     "group_norm_bwd_apply": bytes_ms(3 * nbytes)}
+            for name, (kernel, plain) in calls.items():
+                out[name] = dict(ms=cuda_ms(kernel, iters=10), queued_ms=queued_ms(kernel, iters=20),
+                                 plain_ms=cuda_ms(plain, iters=3), library_ms=None, bound_ms=bound[name],
+                                 bound_by="bytes", shape=list(shape), dtype=str(dtype)[6:], layout=layout)
+            whole = {"K5": queued_ms(lambda: layers.group_norm(x, w, b, G), iters=20),
+                     "K6": queued_ms(lambda: layers.group_norm_bwd(x, ct, w, stats, G), iters=20)}
+            say(f"  split launches at {where}: " + "; ".join(
+                f"{k} {v['ms']:.4f} ms (queue full {v['queued_ms']:.4f}), plain {v['plain_ms']:.4f} ms, bound "
+                f"{v['bound_ms']:.4f} ms" for k, v in out.items())
+                + f"; the one-launch K5 / K6 on the same shard, queue full: {whole['K5']:.4f} / {whole['K6']:.4f} ms")
+        del x, ct
+    for name in SPLIT_NORMS:
+        out[name]["max_abs_err"] = worst[name]
+    return out
+
+
+def sharded_train_steps(dev, limit: str) -> tuple:
+    """The sharded train steps of ``SHARDED_STEPS`` on :func:`sharded_cards`
+    (four cards, or four replicas of card 0), each against the same step on
+    one card: float32 (TF32 off) on distillation batches, the loss within
+    rtol 1e-5 and every gradient within 1e-3 of its tensor's norm plus 1e-5
+    of the whole gradient's (:func:`mesh_train_step`'s tolerance); K5 and
+    K6's split launches on every card of the mesh and each held to its
+    plain version at the shapes it took (:func:`split_norm_cases`); each
+    step's peak memory and saved-for-backward bytes on each card beside the
+    one-card step's. Returns
+    (the launches of the sharded steps, the kernels line's entries of the
+    split launches)."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models import unet as unet_mod
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seen = set()
+    real = unet_mod.sharded_group_norm
+
+    def spy(xs, ws, bs, offsets, C, G, eps=1e-6):
+        for t in xs:
+            seen.add((tuple(t.shape), t.dtype, "NCHW" if t.is_contiguous() else "channels_last"))
+        return real(xs, ws, bs, offsets, C, G, eps)
+
+    total = {}
+    gib = 2.0**30
+    cards = sorted({d.index for d in sharded_cards()})
+    unet_mod.sharded_group_norm = spy
+    try:
+        for cfg, axes, (B, H, W) in SHARDED_STEPS:
+            x, y = next(distill_batches(1, size=H, batch=B, seed=23))
+            loss_1, grads_1, peak_1, saved_1, _, wall_1 = peak_step(dev, cfg, None, x, y)
+            loss_s, grads_s, peak_s, saved_s, launches, wall_s = peak_step(dev, cfg, axes, x, y)
+            check(math.isfinite(loss_s) and abs(loss_s - loss_1) <= 1e-5 * abs(loss_1),
+                  f"sharded loss {loss_s} vs one card {loss_1} on {axes}")
+            norm = math.sqrt(sum(float((g ** 2).sum()) for g in grads_1.values()))
+            worst = 0.0
+            for k, g in grads_1.items():
+                err = float((grads_s[k] - g).abs().max())
+                check(err <= 1e-3 * float(g.norm()) + 1e-5 * norm, f"sharded gradient of {k} differs by {err}")
+                worst = max(worst, err / max(float(g.norm()), 1e-30) if float(g.norm()) > 1e-5 * norm else 0.0)
+            for name in SPLIT_NORMS:
+                for i in cards:
+                    check(launches[name].get(i, 0) > 0, f"{name} did not launch on card {i} in the step on {axes}")
+            for name, by_card in launches.items():
+                total[name] = total.get(name, 0) + sum(by_card.values())
+            say(f"  sharded step UNet({cfg['out_channels']}, {cfg['base_features']}, {cfg['depth']}) float32 (TF32 "
+                f"off), batch {B} of {H}x{W}, on {axes} over cards {[d.index for d in sharded_cards()]}: loss "
+                f"{loss_s:.7f}, one card {loss_1:.7f}; {len(grads_1)} gradients within tolerance (largest "
+                f"difference over its tensor's norm {worst:.3g}); {wall_s:.3f} s, one card {wall_1:.3f} s (first "
+                f"steps); peak memory by card { {i: round(v / gib, 4) for i, v in peak_s.items()} } GiB, one card "
+                f"{peak_1[dev.index] / gib:.4f} GiB; saved for the backward by card "
+                f"{ {i: round(v / gib, 4) for i, v in sorted(saved_s.items())} } GiB, one card "
+                f"{saved_1.get(dev.index, 0) / gib:.4f} GiB; split launches by card "
+                f"{ {k: launches[k] for k in SPLIT_NORMS} }, K5 / K6 {launches['group_norm']} / "
+                f"{launches['group_norm_bwd']} [{limit}]")
+    finally:
+        unet_mod.sharded_group_norm = real
+    return total, split_norm_cases(dev, seen)
+
+
 def phase_mesh(dev, limit: str, work: str) -> dict:
     """Every path of this script that takes ``parallel:``, on a mesh of
     every card the machine has (``make_mesh()``), against the same task on
     one card: the loki Runner at the standard haul's shapes (frame groups of
     4, round-robin over the cards) and predict semseg + polytaxo on phase
     7's crops (batches split over the cards) give the same archives; the
-    mesh train step the one-card step's loss and gradients; the port's
+    mesh train step the one-card step's loss and gradients; the sharded
+    train steps (:func:`sharded_train_steps`) the one-card steps'; the port's
     ``dryrun_multichip`` runs on the card count. Every kernel of each path
-    launches on every card. Returns the loki run's launches."""
+    launches on every card. Returns the launches of the loki run and of the
+    sharded steps, and the split launches' entries of the kernels line."""
     import torch
 
     from maze_image_processing_pipeline_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -2698,9 +2940,12 @@ def phase_mesh(dev, limit: str, work: str) -> dict:
 
     say(f"  {mesh_train_step(dev, cards)}")
     t0 = time.perf_counter()
+    sharded, measured = sharded_train_steps(dev, limit)
+    say(f"  sharded train steps and their split launches: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     result = dryrun_multichip(cards, log=lambda line: say(f"  {line}"))
     say(f"  dryrun_multichip({cards}) on {result['mesh']}: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return {k: launches[k] + sharded.get(k, 0) for k in launches}, measured
 
 
 def main() -> int:
@@ -2783,7 +3028,8 @@ def main() -> int:
 
         say("phase 12 several cards:")
         t0 = time.perf_counter()
-        launches[12] = phase_mesh(dev, limit, work)
+        launches[12], split = phase_mesh(dev, limit, work)
+        measured.update(split)
         say(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -57,6 +57,11 @@ SIGNATURES = {
     "group_norm_capacity": [_i, _i, _i, _i, _vp],
     "group_norm_launch": [_vp] * 7 + [_i, _i, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _f, _vp],
     "group_norm_bwd_launch": [_vp] * 9 + [_i, _i, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _vp],
+    "group_norm_shard_capacity": [_i, _i, _i, _i, _i, _vp],
+    "group_norm_partials_launch": [_vp] * 4 + [_i, _i, _i, _ll] + [_i] * 6 + [_vp],
+    "group_norm_apply_launch": [_vp] * 5 + [_i, _i, _i, _ll] + [_i] * 6 + [_vp],
+    "group_norm_bwd_partials_launch": [_vp] * 6 + [_i, _i, _i, _ll] + [_i] * 7 + [_vp],
+    "group_norm_bwd_apply_launch": [_vp] * 6 + [_i, _i, _i, _ll] + [_i] * 7 + [_vp],
     "region_measure_launch": [_vp] * 7 + [_ll, _i, _i, _i, _i, _vp],
     "anchor_launch": [_vp, _vp, _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _vp],
 }

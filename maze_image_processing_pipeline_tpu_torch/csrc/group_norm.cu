@@ -123,6 +123,12 @@ constexpr int kMaxBlockChannels = 64;       // K6 NCHW: channel planes a share m
 constexpr int kMaxPieces = 128;             // K6 NCHW: pieces a share is cut into
 constexpr int kMaxDevices = 64;
 constexpr int kChunk = 4;  // commit groups a unit's staging is cut into
+// What a launch does (the kernels' Mode): the whole norm; the sharded
+// norm's partials launch (pass 1 and the unit sums, no pass 2); its apply
+// launch (pass 2 alone, from statistics or coefficients it is given).
+constexpr int kWhole = 0;
+constexpr int kPartials = 1;
+constexpr int kApply = 2;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -167,11 +173,12 @@ struct Params {
   const void* ct;         // K6
   const float* w;
   const float* bias;      // K5
-  const float* stats_in;  // K6: the forward's (2, B*G) mean and rstd
+  const float* stats_in;  // K6, and the apply launches: the (2, B*G) mean and rstd
+  const float* coef;      // K6 apply: the (2, B*G) dx coefficients
   void* out;              // y or dx
-  float* stats;           // K5: (2, B*G) mean and rstd
+  float* stats;           // K5: (2, B*G) mean and rstd; K5 partials: sum(x) and sum(x*x)
   float* part;            // (units, splits, slots) partials
-  float* rows;            // K6: (2, B*C) dw and dbias rows
+  float* rows;            // K6 and its partials: (2, B*C) dw and dbias rows
   float* dwb;             // K6: (2, C) dw and dbias
   int* counters;          // [0]: K6's finished units; [1 + unit]: the unit's barrier
   int B, C, G;
@@ -429,7 +436,10 @@ struct Pieces {
 
 // ---------------------------------------------------------------- K5 ----
 
-template <typename T, int V, bool CL>
+// Mode kPartials writes each unit's two sums (not its mean and rstd) to
+// p.stats and no y; kApply writes y from the mean and rstd in p.stats_in.
+// Both run with nothing staged (each reads x once).
+template <typename T, int V, bool CL, int Mode>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gn_fwd_kernel(const Params p) {
   using Vt = Vec<T, V>;
   extern __shared__ __align__(16) unsigned char shm[];
@@ -465,152 +475,170 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gn_fwd_kernel(const Pa
     Vt* yu = y + static_cast<long long>(unit) * p.unit_vectors;
     float* part = p.part + static_cast<long long>(unit) * S * p.slots;  // [2 * ng][S]
 
-    // Pass 1: the streamed vectors while the copies land, then the staged
-    // ones, a commit group at a time.
-    float a1[CL ? V : 1], a2[CL ? V : 1];
+    if constexpr (Mode != kApply) {
+      // Pass 1: the streamed vectors while the copies land, then the staged
+      // ones, a commit group at a time.
+      float a1[CL ? V : 1], a2[CL ? V : 1];
 #pragma unroll
-    for (int e = 0; e < (CL ? V : 1); ++e) a1[e] = a2[e] = 0.f;
-    auto add = [&](const Vt& v) {
+      for (int e = 0; e < (CL ? V : 1); ++e) a1[e] = a2[e] = 0.f;
+      auto add = [&](const Vt& v) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const float f = to_f(v.v[e]);
-        a1[CL ? e : 0] += f;
-        a2[CL ? e : 0] = fmaf(f, f, a2[CL ? e : 0]);
-      }
-    };
-    if (!wide) {
-      sh.streamed([&](int v) { add(xu[v]); });
-      by_chunk([&](int c) { sh.slots(c, [&](int j) { add(stage[j]); }); });
-    }
-
-    // The block's partials: NCHW the group's two sums; channels_last each
-    // group's, its channels in order.
-    if constexpr (CL) {
-      if (wide) {
-        wait_group<0>();
-        __syncthreads();  // the table may still be read
-        for (int u = tid; u < sh.A; u += kThreads) {  // each lane's own channels: table[c], table[C + c]
-#pragma unroll
-          for (int e = 0; e < V; ++e) a1[e] = a2[e] = 0.f;
-          sh.lane_streamed(u, [&](int v) { add(xu[v]); });
-          sh.lane_slots(u, [&](int j) { add(stage[j]); });
-          const int cu = ((sh.r0 + u) % P) * V;
-#pragma unroll
-          for (int e = 0; e < V; ++e) {
-            table[cu + e] = a1[e];
-            table[C + cu + e] = a2[e];
-          }
+        for (int e = 0; e < V; ++e) {
+          const float f = to_f(v.v[e]);
+          a1[CL ? e : 0] += f;
+          a2[CL ? e : 0] = fmaf(f, f, a2[CL ? e : 0]);
         }
-        __syncthreads();
-        group_sums(G, Cg, [&](int c) { return table[c]; }, [&](int g, float t) { part[g * S + split] = t; });
-        group_sums(G, Cg, [&](int c) { return table[C + c]; },
-                   [&](int g, float t) { part[(G + g) * S + split] = t; });
-      } else {
-        channel_sums<V>(a1, table, C, P, sh.A, c0);
-        auto from_table = [&](int c) { return table[c]; };
-        group_sums(G, Cg, from_table, [&](int g, float t) { part[g * S + split] = t; });
-        channel_sums<V>(a2, table, C, P, sh.A, c0);
-        group_sums(G, Cg, from_table, [&](int g, float t) { part[(G + g) * S + split] = t; });
+      };
+      if (!wide) {
+        sh.streamed([&](int v) { add(xu[v]); });
+        by_chunk([&](int c) { sh.slots(c, [&](int j) { add(stage[j]); }); });
       }
-    } else {
-      const float t1 = block_sum(a1[0], red);
-      const float t2 = block_sum(a2[0], red);
-      if (tid == 0) {
-        part[split] = t1;
-        part[S + split] = t2;
-      }
-    }
-    int* cnt = p.counters + 1 + unit;
-    unit_arrive(cnt);
-    if (!CL && unit + p.units_per_wave < p.units) {  // (channels_last measured slower with it)
-      prefetch_l2(xu + static_cast<long long>(p.units_per_wave) * p.unit_vectors + sh.r0,
-                  static_cast<size_t>(sh.s1 - sh.r0) * sizeof(Vt));
-    }
-    unit_wait(cnt, S);
 
-    // Every block: the unit's sums in split order, mean and rstd (share 0
-    // stores them).
-    split_sums(part, S, 2 * ng, table);
-    for (int g = tid; g < ng; g += kThreads) {
-      const float mean = __fdiv_rn(table[g], p.n);
-      const float var = fmaxf(__fsub_rn(__fdiv_rn(table[ng + g], p.n), __fmul_rn(mean, mean)), 0.f);
-      const float rstd = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, p.eps)));
-      table[g] = mean;
-      table[ng + g] = rstd;
-      if (split == 0) {
+      // The block's partials: NCHW the group's two sums; channels_last each
+      // group's, its channels in order.
+      if constexpr (CL) {
+        if (wide) {
+          wait_group<0>();
+          __syncthreads();  // the table may still be read
+          for (int u = tid; u < sh.A; u += kThreads) {  // each lane's own channels: table[c], table[C + c]
+#pragma unroll
+            for (int e = 0; e < V; ++e) a1[e] = a2[e] = 0.f;
+            sh.lane_streamed(u, [&](int v) { add(xu[v]); });
+            sh.lane_slots(u, [&](int j) { add(stage[j]); });
+            const int cu = ((sh.r0 + u) % P) * V;
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              table[cu + e] = a1[e];
+              table[C + cu + e] = a2[e];
+            }
+          }
+          __syncthreads();
+          group_sums(G, Cg, [&](int c) { return table[c]; }, [&](int g, float t) { part[g * S + split] = t; });
+          group_sums(G, Cg, [&](int c) { return table[C + c]; },
+                     [&](int g, float t) { part[(G + g) * S + split] = t; });
+        } else {
+          channel_sums<V>(a1, table, C, P, sh.A, c0);
+          auto from_table = [&](int c) { return table[c]; };
+          group_sums(G, Cg, from_table, [&](int g, float t) { part[g * S + split] = t; });
+          channel_sums<V>(a2, table, C, P, sh.A, c0);
+          group_sums(G, Cg, from_table, [&](int g, float t) { part[(G + g) * S + split] = t; });
+        }
+      } else {
+        const float t1 = block_sum(a1[0], red);
+        const float t2 = block_sum(a2[0], red);
+        if (tid == 0) {
+          part[split] = t1;
+          part[S + split] = t2;
+        }
+      }
+      int* cnt = p.counters + 1 + unit;
+      unit_arrive(cnt);
+      if (!CL && unit + p.units_per_wave < p.units) {  // (channels_last measured slower with it)
+        prefetch_l2(xu + static_cast<long long>(p.units_per_wave) * p.unit_vectors + sh.r0,
+                    static_cast<size_t>(sh.s1 - sh.r0) * sizeof(Vt));
+      }
+      unit_wait(cnt, S);
+
+      // Every block: the unit's sums in split order, mean and rstd (share 0
+      // stores them; the partials launch stores the sums).
+      split_sums(part, S, 2 * ng, table);
+      for (int g = tid; g < ng; g += kThreads) {
+        if constexpr (Mode == kPartials) {
+          if (split == 0) {
+            const long long bg = CL ? static_cast<long long>(unit) * G + g : unit;
+            p.stats[bg] = table[g];
+            p.stats[nb + bg] = table[ng + g];
+          }
+          continue;
+        }
+        const float mean = __fdiv_rn(table[g], p.n);
+        const float var = fmaxf(__fsub_rn(__fdiv_rn(table[ng + g], p.n), __fmul_rn(mean, mean)), 0.f);
+        const float rstd = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, p.eps)));
+        table[g] = mean;
+        table[ng + g] = rstd;
+        if (split == 0) {
+          const long long bg = CL ? static_cast<long long>(unit) * G + g : unit;
+          p.stats[bg] = mean;
+          p.stats[nb + bg] = rstd;
+        }
+      }
+    } else {  // kApply: the given mean and rstd
+      for (int g = tid; g < ng; g += kThreads) {
         const long long bg = CL ? static_cast<long long>(unit) * G + g : unit;
-        p.stats[bg] = mean;
-        p.stats[nb + bg] = rstd;
+        table[g] = __ldg(&p.stats_in[bg]);
+        table[ng + g] = __ldg(&p.stats_in[nb + bg]);
       }
     }
     __syncthreads();
 
-    // Pass 2: y = (x - mean) * (rstd * w) + bias; each staged slot, once
-    // written, takes the next unit's vector.
-    const bool next = unit + p.units_per_wave < p.units;
-    const Vt* src = xu + static_cast<long long>(p.units_per_wave) * p.unit_vectors + sh.r0;
-    if constexpr (CL) {
-      float mean[V], scale[V], shift[V];
-      auto consts = [&](int cl) {
+    if constexpr (Mode != kPartials) {
+      // Pass 2: y = (x - mean) * (rstd * w) + bias; each staged slot, once
+      // written, takes the next unit's vector.
+      const bool next = unit + p.units_per_wave < p.units;
+      const Vt* src = xu + static_cast<long long>(p.units_per_wave) * p.unit_vectors + sh.r0;
+      if constexpr (CL) {
+        float mean[V], scale[V], shift[V];
+        auto consts = [&](int cl) {
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const int c = cl + e;
-          mean[e] = table[c / Cg];
-          scale[e] = __fmul_rn(table[G + c / Cg], __ldg(&p.w[c]));
-          shift[e] = __ldg(&p.bias[c]);
-        }
-      };
-      auto norm = [&](const Vt& v) {
-        Vt o;
+          for (int e = 0; e < V; ++e) {
+            const int c = cl + e;
+            mean[e] = table[c / Cg];
+            scale[e] = __fmul_rn(table[G + c / Cg], __ldg(&p.w[c]));
+            shift[e] = __ldg(&p.bias[c]);
+          }
+        };
+        auto norm = [&](const Vt& v) {
+          Vt o;
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          o.v[e] = from_f<T>(__fadd_rn(__fmul_rn(__fsub_rn(to_f(v.v[e]), mean[e]), scale[e]), shift[e]));
+          for (int e = 0; e < V; ++e) {
+            o.v[e] = from_f<T>(__fadd_rn(__fmul_rn(__fsub_rn(to_f(v.v[e]), mean[e]), scale[e]), shift[e]));
+          }
+          return o;
+        };
+        if (wide) {
+          for (int u = tid; u < sh.A; u += kThreads) {
+            consts(((sh.r0 + u) % P) * V);
+            sh.lane_slots(u, [&](int j) {
+              yu[sh.r0 + j] = norm(stage[j]);
+              if (next) stage_one<sizeof(Vt)>(stage + j, src + j);
+            });
+            sh.lane_streamed(u, [&](int v) { yu[v] = norm(xu[v]); });
+          }
+          commit_group();
+        } else {
+          consts(c0);
+          for (int c = 0; c < kChunk; ++c) {
+            sh.slots(c, [&](int j) {
+              yu[sh.r0 + j] = norm(stage[j]);
+              if (next) stage_one<sizeof(Vt)>(stage + j, src + j);
+            });
+            commit_group();
+          }
+          sh.streamed([&](int v) { yu[v] = norm(xu[v]); });
         }
-        return o;
-      };
-      if (wide) {
-        for (int u = tid; u < sh.A; u += kThreads) {
-          consts(((sh.r0 + u) % P) * V);
-          sh.lane_slots(u, [&](int j) {
-            yu[sh.r0 + j] = norm(stage[j]);
-            if (next) stage_one<sizeof(Vt)>(stage + j, src + j);
-          });
-          sh.lane_streamed(u, [&](int v) { yu[v] = norm(xu[v]); });
-        }
-        commit_group();
       } else {
-        consts(c0);
+        const float mean = table[0], rstd = table[1];
+        const int cbase = (unit % G) * Cg;
+        auto norm = [&](const Vt& v, int vi) {
+          const int c = cbase + p.plane.div(vi);
+          const float scale = __fmul_rn(rstd, __ldg(&p.w[c]));
+          const float shift = __ldg(&p.bias[c]);
+          Vt o;
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            o.v[e] = from_f<T>(__fadd_rn(__fmul_rn(__fsub_rn(to_f(v.v[e]), mean), scale), shift));
+          }
+          return o;
+        };
         for (int c = 0; c < kChunk; ++c) {
           sh.slots(c, [&](int j) {
-            yu[sh.r0 + j] = norm(stage[j]);
+            yu[sh.r0 + j] = norm(stage[j], sh.r0 + j);
             if (next) stage_one<sizeof(Vt)>(stage + j, src + j);
           });
           commit_group();
         }
-        sh.streamed([&](int v) { yu[v] = norm(xu[v]); });
+        sh.streamed([&](int v) { yu[v] = norm(xu[v], v); });
       }
-    } else {
-      const float mean = table[0], rstd = table[1];
-      const int cbase = (unit % G) * Cg;
-      auto norm = [&](const Vt& v, int vi) {
-        const int c = cbase + p.plane.div(vi);
-        const float scale = __fmul_rn(rstd, __ldg(&p.w[c]));
-        const float shift = __ldg(&p.bias[c]);
-        Vt o;
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          o.v[e] = from_f<T>(__fadd_rn(__fmul_rn(__fsub_rn(to_f(v.v[e]), mean), scale), shift));
-        }
-        return o;
-      };
-      for (int c = 0; c < kChunk; ++c) {
-        sh.slots(c, [&](int j) {
-          yu[sh.r0 + j] = norm(stage[j], sh.r0 + j);
-          if (next) stage_one<sizeof(Vt)>(stage + j, src + j);
-        });
-        commit_group();
-      }
-      sh.streamed([&](int v) { yu[v] = norm(xu[v], v); });
     }
     __syncthreads();  // the table is rewritten by the next unit
   }
@@ -618,7 +646,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gn_fwd_kernel(const Pa
 
 // ---------------------------------------------------------------- K6 ----
 
-template <typename T, int V, bool CL>
+// Mode kPartials writes the dw and dbias rows of each (b, c) (the sums
+// about p.stats_in's mean) and no dx, nor dw and dbias; kApply writes dx
+// from the coefficients in p.coef (per (b, g): the factor of x - mean, then
+// the term added). Both run with nothing staged.
+template <typename T, int V, bool CL, int Mode>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gn_bwd_kernel(const Params p) {
   using Vt = Vec<T, V>;
   extern __shared__ __align__(16) unsigned char shm[];
@@ -712,7 +744,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gn_bwd_kernel(const Pa
         p.rows[BC + row0 + c] = t1;
       }
     }
-    if (owned == 0) return;
+    if (Mode == kPartials || owned == 0) return;
     __threadfence();
     __syncthreads();
     if (tid == 0) *flag = atomicAdd(&p.counters[0], owned) + owned == BC;
@@ -745,209 +777,228 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gn_bwd_kernel(const Pa
     float* part = p.part + static_cast<long long>(unit) * S * p.slots;  // [2 * ng][S], then [S][cs]
     float* chan = part + 2 * ng * S + static_cast<long long>(split) * cs;
 
-    // Pass 1: per channel, sum(ct) and sum(ct * (x - mean)); per group the
-    // share's parts of S1 = sum w * Sc and S2 = sum w * rstd * Scx.
-    if constexpr (CL) {
-      float mean[V], s[V], sx[V];
-      auto start = [&](int cl) {
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          mean[e] = __ldg(&p.stats_in[static_cast<long long>(unit) * G + (cl + e) / Cg]);
-          s[e] = sx[e] = 0.f;
-        }
-      };
-      auto add = [&](const Vt& xv, const Vt& cv) {
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const float c = to_f(cv.v[e]);
-          s[e] += c;
-          sx[e] = fmaf(c, to_f(xv.v[e]) - mean[e], sx[e]);
-        }
-      };
-      const float* rstd_u = p.stats_in + nb + static_cast<long long>(unit) * G;
-      if (wide) {  // each lane's own channels: table[c], table[C + c]
-        wait_group<0>();
-        __syncthreads();  // the table may still be read
-        for (int u = tid; u < sh.A; u += kThreads) {
-          const int cl = ((sh.r0 + u) % P) * V;
-          start(cl);
-          sh.lane_streamed(u, [&](int v) { add(xu[v], cu[v]); });
-          sh.lane_slots(u, [&](int j) { add(stage_x[j], stage_c[j]); });
+    if constexpr (Mode != kApply) {
+      // Pass 1: per channel, sum(ct) and sum(ct * (x - mean)); per group the
+      // share's parts of S1 = sum w * Sc and S2 = sum w * rstd * Scx.
+      if constexpr (CL) {
+        float mean[V], s[V], sx[V];
+        auto start = [&](int cl) {
 #pragma unroll
           for (int e = 0; e < V; ++e) {
-            table[cl + e] = s[e];
-            table[C + cl + e] = sx[e];
+            mean[e] = __ldg(&p.stats_in[static_cast<long long>(unit) * G + (cl + e) / Cg]);
+            s[e] = sx[e] = 0.f;
           }
-        }
-        __syncthreads();
-        for (int c = tid; c < 2 * C; c += kThreads) chan[c] = table[c];
-        group_sums(G, Cg, [&](int c) { return __fmul_rn(__ldg(&p.w[c]), table[c]); },
-                   [&](int g, float t) { part[g * S + split] = t; });
-        group_sums(G, Cg, [&](int c) { return __fmul_rn(__ldg(&p.w[c]), __fmul_rn(__ldg(&rstd_u[c / Cg]), table[C + c])); },
-                   [&](int g, float t) { part[(G + g) * S + split] = t; });
-      } else {
-        start(c0);
-        sh.streamed([&](int v) { add(xu[v], cu[v]); });
-        by_chunk([&](int c) { sh.slots(c, [&](int j) { add(stage_x[j], stage_c[j]); }); });
-        channel_sums<V>(s, table, C, P, sh.A, c0);
-        for (int c = tid; c < C; c += kThreads) chan[c] = table[c];
-        group_sums(G, Cg, [&](int c) { return __fmul_rn(__ldg(&p.w[c]), table[c]); },
-                   [&](int g, float t) { part[g * S + split] = t; });
-        channel_sums<V>(sx, table, C, P, sh.A, c0);
-        for (int c = tid; c < C; c += kThreads) chan[C + c] = table[c];
-        group_sums(G, Cg, [&](int c) { return __fmul_rn(__ldg(&p.w[c]), __fmul_rn(__ldg(&rstd_u[c / Cg]), table[c])); },
-                   [&](int g, float t) { part[(G + g) * S + split] = t; });
-      }
-    } else {
-      // Each of this warp's pieces reduced into table[2 * g], then each
-      // channel's pieces summed in order.
-      const float mean = __ldg(&p.stats_in[unit]);
-      auto piece_sums = [&](int g, int pa, int pe, int) {
-        float s = 0.f, sx = 0.f;
-        for (int v = pa + lane; v < pe; v += 32) {
-          const Vt xv = v < pc.s1 ? stage_x[v - pc.r0] : xu[v];
-          const Vt cv = v < pc.s1 ? stage_c[v - pc.r0] : cu[v];
+        };
+        auto add = [&](const Vt& xv, const Vt& cv) {
 #pragma unroll
-          for (int j = 0; j < V; ++j) {
-            const float c = to_f(cv.v[j]);
-            s += c;
-            sx = fmaf(c, to_f(xv.v[j]) - mean, sx);
+          for (int e = 0; e < V; ++e) {
+            const float c = to_f(cv.v[e]);
+            s[e] += c;
+            sx[e] = fmaf(c, to_f(xv.v[e]) - mean[e], sx[e]);
           }
-        }
-        s = warp_sum(s);
-        sx = warp_sum(sx);
-        if (lane == 0) {
-          table[2 * g] = s;
-          table[2 * g + 1] = sx;
-        }
-      };
-      by_chunk([&](int c) { pc.chunk(c, piece_sums); });
-      __syncthreads();
-      const int k_lo = pc.tab[2 * kMaxPieces], nch = pc.tab[2 * kMaxPieces + pc.n - 1] - k_lo + 1;
-      for (int kk = tid; kk < nch; kk += kThreads) {
-        float t1 = 0.f, t2 = 0.f;
-        for (int g = pc.tab[3 * kMaxPieces + 1 + kk]; g < pc.tab[3 * kMaxPieces + 2 + kk]; ++g) {
-          t1 += table[2 * g];
-          t2 += table[2 * g + 1];
-        }
-        chan[kk] = t1;
-        chan[kMaxBlockChannels + kk] = t2;
-        table[2 * kMaxPieces + 2 * kk] = t1;
-        table[2 * kMaxPieces + 2 * kk + 1] = t2;
-      }
-      __syncthreads();
-      if (warp == 0) {
-        const float rstd = __ldg(&p.stats_in[nb + unit]);
-        const float* w = p.w + (unit % G) * Cg + k_lo;
-        float t1 = 0.f, t2 = 0.f;
-        for (int kk = lane; kk < nch; kk += 32) {
-          t1 += __fmul_rn(__ldg(&w[kk]), table[2 * kMaxPieces + 2 * kk]);
-          t2 += __fmul_rn(__ldg(&w[kk]), __fmul_rn(rstd, table[2 * kMaxPieces + 2 * kk + 1]));
-        }
-        t1 = warp_sum(t1);
-        t2 = warp_sum(t2);
-        if (lane == 0) {
-          part[split] = t1;
-          part[S + split] = t2;
-        }
-      }
-    }
-    int* cnt = p.counters + 1 + unit;
-    unit_arrive(cnt);
-    if (!CL && unit + p.units_per_wave < p.units) {  // (channels_last measured slower with it)
-      const size_t bytes = static_cast<size_t>(pc.s1 - pc.r0) * sizeof(Vt);
-      prefetch_l2(xu + step + pc.r0, bytes);
-      prefetch_l2(cu + step + pc.r0, bytes);
-    }
-    if (owed >= 0) rows(owed);  // while the other shares arrive
-    unit_wait(cnt, S);
-
-    // Every block: S1 and S2 in split order, then the dx coefficients.
-    split_sums(part, S, 2 * ng, table);
-    for (int g = tid; g < ng; g += kThreads) {
-      const float rstd = __ldg(&p.stats_in[nb + (CL ? static_cast<long long>(unit) * G + g : unit)]);
-      const float s1 = table[g], s2 = table[ng + g];
-      table[g] = __fdiv_rn(__fmul_rn(__fmul_rn(-rstd, rstd), s2), p.n);  // times (x - mean)
-      table[ng + g] = __fdiv_rn(__fmul_rn(-rstd, s1), p.n);              // added
-    }
-    __syncthreads();
-
-    // Pass 2: dx = (rstd * w) * ct + cx * (x - mean) + cd; each staged
-    // slot, once written, takes the next unit's vector.
-    const bool next = unit + p.units_per_wave < p.units;
-    if constexpr (CL) {
-      float mean[V], a[V], cx[V], cd[V];
-      auto consts = [&](int cl) {
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const int c = cl + e;
-          const long long bg = static_cast<long long>(unit) * G + c / Cg;
-          mean[e] = __ldg(&p.stats_in[bg]);
-          a[e] = __fmul_rn(__ldg(&p.stats_in[nb + bg]), __ldg(&p.w[c]));
-          cx[e] = table[c / Cg];
-          cd[e] = table[G + c / Cg];
-        }
-      };
-      auto grad = [&](const Vt& xv, const Vt& cv) {
-        Vt o;
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const float xc = __fsub_rn(to_f(xv.v[e]), mean[e]);
-          o.v[e] = from_f<T>(__fadd_rn(__fadd_rn(__fmul_rn(a[e], to_f(cv.v[e])), __fmul_rn(cx[e], xc)), cd[e]));
-        }
-        return o;
-      };
-      auto write = [&](int j) {
-        du[sh.r0 + j] = grad(stage_x[j], stage_c[j]);
-        if (next) {
-          stage_one<sizeof(Vt)>(stage_x + j, xu + step + sh.r0 + j);
-          stage_one<sizeof(Vt)>(stage_c + j, cu + step + sh.r0 + j);
-        }
-      };
-      if (wide) {
-        for (int u = tid; u < sh.A; u += kThreads) {
-          consts(((sh.r0 + u) % P) * V);
-          sh.lane_slots(u, write);
-          sh.lane_streamed(u, [&](int v) { du[v] = grad(xu[v], cu[v]); });
-        }
-        commit_group();
-      } else {
-        consts(c0);
-        for (int c = 0; c < kChunk; ++c) {
-          sh.slots(c, write);
-          commit_group();
-        }
-        sh.streamed([&](int v) { du[v] = grad(xu[v], cu[v]); });
-      }
-    } else {
-      const float mean = __ldg(&p.stats_in[unit]);
-      const float rstd = __ldg(&p.stats_in[nb + unit]);
-      const float cx = table[0], cd = table[1];
-      const int cbase = (unit % G) * Cg;
-      for (int c = 0; c < kChunk; ++c) {
-        pc.chunk(c, [&](int, int pa, int pe, int k) {
-          const float a = __fmul_rn(rstd, __ldg(&p.w[cbase + k]));
-          for (int v = pa + lane; v < pe; v += 32) {
-            const bool staged = v < pc.s1;
-            const Vt xv = staged ? stage_x[v - pc.r0] : xu[v];
-            const Vt cv = staged ? stage_c[v - pc.r0] : cu[v];
-            Vt o;
+        };
+        const float* rstd_u = p.stats_in + nb + static_cast<long long>(unit) * G;
+        if (wide) {  // each lane's own channels: table[c], table[C + c]
+          wait_group<0>();
+          __syncthreads();  // the table may still be read
+          for (int u = tid; u < sh.A; u += kThreads) {
+            const int cl = ((sh.r0 + u) % P) * V;
+            start(cl);
+            sh.lane_streamed(u, [&](int v) { add(xu[v], cu[v]); });
+            sh.lane_slots(u, [&](int j) { add(stage_x[j], stage_c[j]); });
 #pragma unroll
             for (int e = 0; e < V; ++e) {
-              const float xc = __fsub_rn(to_f(xv.v[e]), mean);
-              o.v[e] = from_f<T>(__fadd_rn(__fadd_rn(__fmul_rn(a, to_f(cv.v[e])), __fmul_rn(cx, xc)), cd));
-            }
-            du[v] = o;
-            if (staged && next) {
-              stage_one<sizeof(Vt)>(stage_x + v - pc.r0, xu + step + v);
-              stage_one<sizeof(Vt)>(stage_c + v - pc.r0, cu + step + v);
+              table[cl + e] = s[e];
+              table[C + cl + e] = sx[e];
             }
           }
-        });
-        commit_group();
+          __syncthreads();
+          for (int c = tid; c < 2 * C; c += kThreads) chan[c] = table[c];
+          if constexpr (Mode == kWhole) {
+            group_sums(G, Cg, [&](int c) { return __fmul_rn(__ldg(&p.w[c]), table[c]); },
+                       [&](int g, float t) { part[g * S + split] = t; });
+            group_sums(G, Cg, [&](int c) { return __fmul_rn(__ldg(&p.w[c]), __fmul_rn(__ldg(&rstd_u[c / Cg]), table[C + c])); },
+                       [&](int g, float t) { part[(G + g) * S + split] = t; });
+          }
+        } else {
+          start(c0);
+          sh.streamed([&](int v) { add(xu[v], cu[v]); });
+          by_chunk([&](int c) { sh.slots(c, [&](int j) { add(stage_x[j], stage_c[j]); }); });
+          channel_sums<V>(s, table, C, P, sh.A, c0);
+          for (int c = tid; c < C; c += kThreads) chan[c] = table[c];
+          if constexpr (Mode == kWhole) {
+            group_sums(G, Cg, [&](int c) { return __fmul_rn(__ldg(&p.w[c]), table[c]); },
+                       [&](int g, float t) { part[g * S + split] = t; });
+          }
+          channel_sums<V>(sx, table, C, P, sh.A, c0);
+          for (int c = tid; c < C; c += kThreads) chan[C + c] = table[c];
+          if constexpr (Mode == kWhole) {
+            group_sums(G, Cg, [&](int c) { return __fmul_rn(__ldg(&p.w[c]), __fmul_rn(__ldg(&rstd_u[c / Cg]), table[c])); },
+                       [&](int g, float t) { part[(G + g) * S + split] = t; });
+          }
+        }
+      } else {
+        // Each of this warp's pieces reduced into table[2 * g], then each
+        // channel's pieces summed in order.
+        const float mean = __ldg(&p.stats_in[unit]);
+        auto piece_sums = [&](int g, int pa, int pe, int) {
+          float s = 0.f, sx = 0.f;
+          for (int v = pa + lane; v < pe; v += 32) {
+            const Vt xv = v < pc.s1 ? stage_x[v - pc.r0] : xu[v];
+            const Vt cv = v < pc.s1 ? stage_c[v - pc.r0] : cu[v];
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+              const float c = to_f(cv.v[j]);
+              s += c;
+              sx = fmaf(c, to_f(xv.v[j]) - mean, sx);
+            }
+          }
+          s = warp_sum(s);
+          sx = warp_sum(sx);
+          if (lane == 0) {
+            table[2 * g] = s;
+            table[2 * g + 1] = sx;
+          }
+        };
+        by_chunk([&](int c) { pc.chunk(c, piece_sums); });
+        __syncthreads();
+        const int k_lo = pc.tab[2 * kMaxPieces], nch = pc.tab[2 * kMaxPieces + pc.n - 1] - k_lo + 1;
+        for (int kk = tid; kk < nch; kk += kThreads) {
+          float t1 = 0.f, t2 = 0.f;
+          for (int g = pc.tab[3 * kMaxPieces + 1 + kk]; g < pc.tab[3 * kMaxPieces + 2 + kk]; ++g) {
+            t1 += table[2 * g];
+            t2 += table[2 * g + 1];
+          }
+          chan[kk] = t1;
+          chan[kMaxBlockChannels + kk] = t2;
+          table[2 * kMaxPieces + 2 * kk] = t1;
+          table[2 * kMaxPieces + 2 * kk + 1] = t2;
+        }
+        __syncthreads();
+        if (Mode == kWhole && warp == 0) {  // the partials launch leaves S1 and S2 to the wrapper
+          const float rstd = __ldg(&p.stats_in[nb + unit]);
+          const float* w = p.w + (unit % G) * Cg + k_lo;
+          float t1 = 0.f, t2 = 0.f;
+          for (int kk = lane; kk < nch; kk += 32) {
+            t1 += __fmul_rn(__ldg(&w[kk]), table[2 * kMaxPieces + 2 * kk]);
+            t2 += __fmul_rn(__ldg(&w[kk]), __fmul_rn(rstd, table[2 * kMaxPieces + 2 * kk + 1]));
+          }
+          t1 = warp_sum(t1);
+          t2 = warp_sum(t2);
+          if (lane == 0) {
+            part[split] = t1;
+            part[S + split] = t2;
+          }
+        }
+      }
+      int* cnt = p.counters + 1 + unit;
+      unit_arrive(cnt);
+      if (!CL && unit + p.units_per_wave < p.units) {  // (channels_last measured slower with it)
+        const size_t bytes = static_cast<size_t>(pc.s1 - pc.r0) * sizeof(Vt);
+        prefetch_l2(xu + step + pc.r0, bytes);
+        prefetch_l2(cu + step + pc.r0, bytes);
+      }
+      if (owed >= 0) rows(owed);  // while the other shares arrive
+      unit_wait(cnt, S);
+      owed = unit;
+    }
+
+    if constexpr (Mode == kWhole) {
+      // Every block: S1 and S2 in split order, then the dx coefficients.
+      split_sums(part, S, 2 * ng, table);
+      for (int g = tid; g < ng; g += kThreads) {
+        const float rstd = __ldg(&p.stats_in[nb + (CL ? static_cast<long long>(unit) * G + g : unit)]);
+        const float s1 = table[g], s2 = table[ng + g];
+        table[g] = __fdiv_rn(__fmul_rn(__fmul_rn(-rstd, rstd), s2), p.n);  // times (x - mean)
+        table[ng + g] = __fdiv_rn(__fmul_rn(-rstd, s1), p.n);              // added
+      }
+      __syncthreads();
+    } else if constexpr (Mode == kApply) {
+      for (int g = tid; g < ng; g += kThreads) {
+        const long long bg = CL ? static_cast<long long>(unit) * G + g : unit;
+        table[g] = __ldg(&p.coef[bg]);
+        table[ng + g] = __ldg(&p.coef[nb + bg]);
+      }
+      __syncthreads();
+    }
+
+    if constexpr (Mode != kPartials) {
+      // Pass 2: dx = (rstd * w) * ct + cx * (x - mean) + cd; each staged
+      // slot, once written, takes the next unit's vector.
+      const bool next = unit + p.units_per_wave < p.units;
+      if constexpr (CL) {
+        float mean[V], a[V], cx[V], cd[V];
+        auto consts = [&](int cl) {
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const int c = cl + e;
+            const long long bg = static_cast<long long>(unit) * G + c / Cg;
+            mean[e] = __ldg(&p.stats_in[bg]);
+            a[e] = __fmul_rn(__ldg(&p.stats_in[nb + bg]), __ldg(&p.w[c]));
+            cx[e] = table[c / Cg];
+            cd[e] = table[G + c / Cg];
+          }
+        };
+        auto grad = [&](const Vt& xv, const Vt& cv) {
+          Vt o;
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float xc = __fsub_rn(to_f(xv.v[e]), mean[e]);
+            o.v[e] = from_f<T>(__fadd_rn(__fadd_rn(__fmul_rn(a[e], to_f(cv.v[e])), __fmul_rn(cx[e], xc)), cd[e]));
+          }
+          return o;
+        };
+        auto write = [&](int j) {
+          du[sh.r0 + j] = grad(stage_x[j], stage_c[j]);
+          if (next) {
+            stage_one<sizeof(Vt)>(stage_x + j, xu + step + sh.r0 + j);
+            stage_one<sizeof(Vt)>(stage_c + j, cu + step + sh.r0 + j);
+          }
+        };
+        if (wide) {
+          for (int u = tid; u < sh.A; u += kThreads) {
+            consts(((sh.r0 + u) % P) * V);
+            sh.lane_slots(u, write);
+            sh.lane_streamed(u, [&](int v) { du[v] = grad(xu[v], cu[v]); });
+          }
+          commit_group();
+        } else {
+          consts(c0);
+          for (int c = 0; c < kChunk; ++c) {
+            sh.slots(c, write);
+            commit_group();
+          }
+          sh.streamed([&](int v) { du[v] = grad(xu[v], cu[v]); });
+        }
+      } else {
+        const float mean = __ldg(&p.stats_in[unit]);
+        const float rstd = __ldg(&p.stats_in[nb + unit]);
+        const float cx = table[0], cd = table[1];
+        const int cbase = (unit % G) * Cg;
+        for (int c = 0; c < kChunk; ++c) {
+          pc.chunk(c, [&](int, int pa, int pe, int k) {
+            const float a = __fmul_rn(rstd, __ldg(&p.w[cbase + k]));
+            for (int v = pa + lane; v < pe; v += 32) {
+              const bool staged = v < pc.s1;
+              const Vt xv = staged ? stage_x[v - pc.r0] : xu[v];
+              const Vt cv = staged ? stage_c[v - pc.r0] : cu[v];
+              Vt o;
+#pragma unroll
+              for (int e = 0; e < V; ++e) {
+                const float xc = __fsub_rn(to_f(xv.v[e]), mean);
+                o.v[e] = from_f<T>(__fadd_rn(__fadd_rn(__fmul_rn(a, to_f(cv.v[e])), __fmul_rn(cx, xc)), cd));
+              }
+              du[v] = o;
+              if (staged && next) {
+                stage_one<sizeof(Vt)>(stage_x + v - pc.r0, xu + step + v);
+                stage_one<sizeof(Vt)>(stage_c + v - pc.r0, cu + step + v);
+              }
+            }
+          });
+          commit_group();
+        }
       }
     }
-    owed = unit;
     __syncthreads();  // the table is rewritten by the next unit
   }
   if (owed >= 0) rows(owed);
@@ -962,7 +1013,7 @@ struct Info {
 // The kernel's dynamic shared memory (half an SM's, less the per-block
 // reserve), its co-resident blocks an SM at that size and the SMs: queried
 // once per kernel and device, with the size set on the kernel.
-template <typename T, int V, bool CL, bool BWD>
+template <typename T, int V, bool CL, bool BWD, int Mode>
 int kernel_info(Info* out) {
   static std::mutex mu;
   static Info cache[kMaxDevices] = {};
@@ -981,8 +1032,8 @@ int kernel_info(Info* out) {
     if (e != cudaSuccess) return static_cast<int>(e);
     const int smem = std::min(per_sm_smem / kBlocksPerSm - reserved, optin) / 16 * 16;
     if (smem <= kScratchBytes) return static_cast<int>(cudaErrorInvalidConfiguration);
-    const void* kernel = BWD ? reinterpret_cast<const void*>(gn_bwd_kernel<T, V, CL>)
-                             : reinterpret_cast<const void*>(gn_fwd_kernel<T, V, CL>);
+    const void* kernel = BWD ? reinterpret_cast<const void*>(gn_bwd_kernel<T, V, CL, Mode>)
+                             : reinterpret_cast<const void*>(gn_fwd_kernel<T, V, CL, Mode>);
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     int per_sm = 0;
     if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
@@ -994,17 +1045,17 @@ int kernel_info(Info* out) {
   return 0;
 }
 
-template <typename T, int V, bool CL, bool BWD>
+template <typename T, int V, bool CL, bool BWD, int Mode = kWhole>
 int launch(Params& p, cudaStream_t stream) {
   Info in{};
-  if (int err = kernel_info<T, V, CL, BWD>(&in)) return err;
+  if (int err = kernel_info<T, V, CL, BWD, Mode>(&in)) return err;
   const long long grid = static_cast<long long>(p.units_per_wave) * p.splits;
   const size_t staged = (BWD ? 2 : 1) * round16(static_cast<size_t>(p.stage_vectors) * sizeof(Vec<T, V>));
   if (grid < 1 || grid > static_cast<long long>(in.per_sm) * in.sms ||
       staged + (p.table + 32) * sizeof(float) > static_cast<size_t>(in.smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = BWD ? reinterpret_cast<const void*>(gn_bwd_kernel<T, V, CL>)
-                           : reinterpret_cast<const void*>(gn_fwd_kernel<T, V, CL>);
+  const void* kernel = BWD ? reinterpret_cast<const void*>(gn_bwd_kernel<T, V, CL, Mode>)
+                           : reinterpret_cast<const void*>(gn_fwd_kernel<T, V, CL, Mode>);
   void* args[] = {&p};
   return static_cast<int>(cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(grid)), dim3(kThreads),
                                                       args, static_cast<size_t>(in.smem), stream));
@@ -1103,8 +1154,8 @@ extern "C" int group_norm_capacity(int backward, int dtype, int vec, int channel
   return dispatch(dtype, vec, channels_last, [&](auto t, auto v, auto cl) -> int {
     using T = typename decltype(t)::type;
     Info in{};
-    const int err = backward ? kernel_info<T, decltype(v)::value, decltype(cl)::value, true>(&in)
-                             : kernel_info<T, decltype(v)::value, decltype(cl)::value, false>(&in);
+    const int err = backward ? kernel_info<T, decltype(v)::value, decltype(cl)::value, true, kWhole>(&in)
+                             : kernel_info<T, decltype(v)::value, decltype(cl)::value, false, kWhole>(&in);
     if (err) return err;
     out[0] = in.per_sm;
     out[1] = in.sms;
@@ -1173,5 +1224,129 @@ extern "C" int group_norm_bwd_launch(const void* x, const void* ct, const void* 
   return dispatch(dtype, vec, channels_last, [&](auto t, auto v, auto cl) -> int {
     using T = typename decltype(t)::type;
     return launch<T, decltype(v)::value, decltype(cl)::value, true>(p, s);
+  });
+}
+
+// ------------------------------------------------ the sharded norm ----
+//
+// A norm whose activations are cut into shards over several cards (rows,
+// or channels where a group straddles cards: models/layers.py:
+// sharded_group_norm) takes two launches of each kernel on each shard: the
+// partials launch (Mode kPartials) writes the shard's share of the sums a
+// statistic needs, the wrapper sums them over the shards in a fixed order,
+// and the apply launch (Mode kApply) writes the shard's y or dx from the
+// result. A shard's units are those of a tensor of its own channels, in
+// groups that lie within one group of the whole. Nothing is staged: each
+// launch reads its inputs once.
+
+// The capacity of the partials (mode 1) or apply (mode 2) kernel, as
+// group_norm_capacity's.
+extern "C" int group_norm_shard_capacity(int backward, int mode, int dtype, int vec, int channels_last, int* out) {
+  return dispatch(dtype, vec, channels_last, [&](auto t, auto v, auto cl) -> int {
+    using T = typename decltype(t)::type;
+    constexpr int V = decltype(v)::value;
+    constexpr bool CL = decltype(cl)::value;
+    Info in{};
+    int err = static_cast<int>(cudaErrorInvalidValue);
+    if (mode == kPartials) {
+      err = backward ? kernel_info<T, V, CL, true, kPartials>(&in) : kernel_info<T, V, CL, false, kPartials>(&in);
+    } else if (mode == kApply) {
+      err = backward ? kernel_info<T, V, CL, true, kApply>(&in) : kernel_info<T, V, CL, false, kApply>(&in);
+    }
+    if (err) return err;
+    out[0] = in.per_sm;
+    out[1] = in.sms;
+    out[2] = in.smem - kScratchBytes;
+    return 0;
+  });
+}
+
+// K5's partials launch: sums (2, B*G) float32 output, sum(x) then
+// sum(x*x) of each (b, g); x, part, counters and the plan as K5's, nothing
+// staged.
+extern "C" int group_norm_partials_launch(const void* x, void* sums, void* part, void* counters, int B, int C, int G,
+                                          long long HW, int channels_last, int dtype, int vec, int splits, int vps,
+                                          int units_per_wave, void* stream) {
+  if (B <= 0 || HW <= 0) return 0;
+  Params p{};
+  if (!plan_params(p, B, C, G, HW, channels_last, vec, splits, vps, 0, units_per_wave, 1, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.x = x;
+  p.stats = static_cast<float*>(sums);
+  p.part = static_cast<float*>(part);
+  p.counters = static_cast<int*>(counters);
+  auto s = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, vec, channels_last, [&](auto t, auto v, auto cl) -> int {
+    using T = typename decltype(t)::type;
+    return launch<T, decltype(v)::value, decltype(cl)::value, false, kPartials>(p, s);
+  });
+}
+
+// K5's apply launch: y from x and the given (2, B*G) mean and rstd; no
+// barrier, no scratch.
+extern "C" int group_norm_apply_launch(const void* x, const void* w, const void* bias, const void* stats, void* y,
+                                       int B, int C, int G, long long HW, int channels_last, int dtype, int vec,
+                                       int splits, int vps, int units_per_wave, void* stream) {
+  if (B <= 0 || HW <= 0) return 0;
+  Params p{};
+  if (!plan_params(p, B, C, G, HW, channels_last, vec, splits, vps, 0, units_per_wave, 1, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.x = x;
+  p.w = static_cast<const float*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.stats_in = static_cast<const float*>(stats);
+  p.out = y;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, vec, channels_last, [&](auto t, auto v, auto cl) -> int {
+    using T = typename decltype(t)::type;
+    return launch<T, decltype(v)::value, decltype(cl)::value, false, kApply>(p, s);
+  });
+}
+
+// K6's partials launch: rows (2, B*C) float32 output, rstd * sum(ct * (x -
+// mean)) then sum(ct) of each (b, c), about stats' (2, B*G) mean; part,
+// counters and the plan as K6's, nothing staged.
+extern "C" int group_norm_bwd_partials_launch(const void* x, const void* ct, const void* stats, void* rows, void* part,
+                                              void* counters, int B, int C, int G, long long HW, int channels_last,
+                                              int dtype, int vec, int splits, int vps, int units_per_wave, int piece,
+                                              void* stream) {
+  if (B <= 0 || HW <= 0) return 0;
+  Params p{};
+  if (!plan_params(p, B, C, G, HW, channels_last, vec, splits, vps, 0, units_per_wave, piece, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.x = x;
+  p.ct = ct;
+  p.stats_in = static_cast<const float*>(stats);
+  p.rows = static_cast<float*>(rows);
+  p.part = static_cast<float*>(part);
+  p.counters = static_cast<int*>(counters);
+  auto s = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, vec, channels_last, [&](auto t, auto v, auto cl) -> int {
+    using T = typename decltype(t)::type;
+    return launch<T, decltype(v)::value, decltype(cl)::value, true, kPartials>(p, s);
+  });
+}
+
+// K6's apply launch: dx from x, ct, w, stats' (2, B*G) mean and rstd and
+// coef's (2, B*G) coefficients (the factor of x - mean, the term added);
+// no barrier, no scratch.
+extern "C" int group_norm_bwd_apply_launch(const void* x, const void* ct, const void* w, const void* stats,
+                                           const void* coef, void* dx, int B, int C, int G, long long HW,
+                                           int channels_last, int dtype, int vec, int splits, int vps,
+                                           int units_per_wave, int piece, void* stream) {
+  if (B <= 0 || HW <= 0) return 0;
+  Params p{};
+  if (!plan_params(p, B, C, G, HW, channels_last, vec, splits, vps, 0, units_per_wave, piece, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.x = x;
+  p.ct = ct;
+  p.w = static_cast<const float*>(w);
+  p.stats_in = static_cast<const float*>(stats);
+  p.coef = static_cast<const float*>(coef);
+  p.out = dx;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, vec, channels_last, [&](auto t, auto v, auto cl) -> int {
+    using T = typename decltype(t)::type;
+    return launch<T, decltype(v)::value, decltype(cl)::value, true, kApply>(p, s);
   });
 }

@@ -29,9 +29,10 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
@@ -41,12 +42,22 @@ __all__ = [
     "GroupNorm",
     "NormPlan",
     "group_norm",
+    "group_norm_apply",
+    "group_norm_apply_plain",
     "group_norm_bwd",
+    "group_norm_bwd_apply",
+    "group_norm_bwd_apply_plain",
+    "group_norm_bwd_partials",
+    "group_norm_bwd_partials_plain",
     "group_norm_bwd_plain",
+    "group_norm_partials",
     "group_norm_plain",
     "group_norm_plan",
+    "group_partials_plain",
     "group_stats_plain",
     "norm_plan",
+    "shard_norm_plan",
+    "sharded_group_norm",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -57,22 +68,32 @@ def _check_groups(C: int, G: int) -> None:
         raise ValueError(f"group_norm: channels {C} not divisible by groups {G}")
 
 
-def group_stats_plain(x: torch.Tensor, num_groups: int, eps: float = 1e-6) -> torch.Tensor:
-    """Plain version of K5's statistics: (2, B*G) float32, the mean and
-    rstd of each (batch, group) of channels-first ``x`` (B, C, ...)."""
+def group_partials_plain(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Plain version of K5's partials launch: (2, B*G) float32, the sum of
+    x and of x*x over each (batch, group) of channels-first ``x`` (B, C,
+    ...)."""
     B, C = x.shape[:2]
     G = num_groups
     _check_groups(C, G)
     red = tuple(range(2, x.dim()))
-    n = C // G
-    for a in red:
-        n *= x.shape[a]
     xf = x.float()
     s1 = xf.sum(red)  # (B, C)
     s2 = (xf * xf).sum(red)
-    mean_g = s1.view(B, G, C // G).sum(-1) / n
-    var_g = torch.clamp(s2.view(B, G, C // G).sum(-1) / n - mean_g * mean_g, min=0.0)
-    return torch.stack([mean_g.reshape(-1), torch.rsqrt(var_g + eps).reshape(-1)])
+    return torch.stack([s1.view(B, G, C // G).sum(-1).reshape(-1), s2.view(B, G, C // G).sum(-1).reshape(-1)])
+
+
+def _stats_from_sums(sums: torch.Tensor, n, eps: float) -> torch.Tensor:
+    """K5's mean and rstd from a statistic's two sums over ``n`` elements."""
+    mean = sums[0] / n
+    var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+    return torch.stack([mean, torch.rsqrt(var + eps)])
+
+
+def group_stats_plain(x: torch.Tensor, num_groups: int, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of K5's statistics: (2, B*G) float32, the mean and
+    rstd of each (batch, group) of channels-first ``x`` (B, C, ...)."""
+    n = math.prod(x.shape[1:]) // num_groups
+    return _stats_from_sums(group_partials_plain(x, num_groups), n, eps)
 
 
 def _per_channel(stats_row: torch.Tensor, B: int, C: int, G: int) -> torch.Tensor:
@@ -124,24 +145,17 @@ def group_norm_bwd_plain(
         ``dx = rstd·weight·ct − rstd²·S2/n·(x − mean) − rstd·S1/n``.
     """
     B, C = x.shape[:2]
-    G = num_groups
-    _check_groups(C, G)
-    red = tuple(range(2, x.dim()))
-    n = math.prod(x.shape[1:]) // G
-    shape = (B, C) + (1,) * len(red)
-    xc = x.float() - _per_channel(stats[0], B, C, G).view(shape)
-    cf = ct.float()
-    rstd_g = stats[1].view(B, G)
-    rstd_c = _per_channel(stats[1], B, C, G)
-    gamma = weight.float()
-    sc = cf.sum(red)  # (B, C)
-    dw_rows = rstd_c * (cf * xc).sum(red)
-    s1 = (gamma * sc).view(B, G, C // G).sum(-1)  # (B, G)
-    s2 = (gamma * dw_rows).view(B, G, C // G).sum(-1)
-    coef_x = (-rstd_g * rstd_g * s2 / n).repeat_interleave(C // G, dim=1).view(shape)
-    coef_d = (-rstd_g * s1 / n).repeat_interleave(C // G, dim=1).view(shape)
-    dx = (rstd_c * gamma).view(shape) * cf + coef_x * xc + coef_d
-    return dx.to(x.dtype), dw_rows.sum(0), sc.sum(0)
+    rows = group_norm_bwd_partials_plain(x, ct, stats, num_groups)
+    s = (weight.float() * rows.view(2, B, C)).view(2, B, num_groups, C // num_groups).sum(-1).view(2, -1)
+    coef = _bwd_coefficients(s, stats[1], math.prod(x.shape[1:]) // num_groups)
+    dx = group_norm_bwd_apply_plain(x, ct, weight, stats, coef, num_groups)
+    return dx, rows[0].view(B, C).sum(0), rows[1].view(B, C).sum(0)
+
+
+def _bwd_coefficients(s: torch.Tensor, rstd: torch.Tensor, n) -> torch.Tensor:
+    """K6's dx coefficients of each group from its S2 and S1 (``s``) over
+    ``n`` elements: the factor of x - mean, then the term added."""
+    return torch.stack([(-rstd * rstd) * s[0] / n, (-rstd) * s[1] / n])
 
 
 def _vector_width(n: int, itemsize: int, *tensors: torch.Tensor) -> int:
@@ -500,3 +514,370 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
+
+
+# -- the sharded norm: a norm's activations cut over several cards ----------
+#
+# Each kernel has two more launches (the Mode of csrc/group_norm.cu): a
+# partials launch, which writes a shard's share of the sums a statistic
+# needs, and an apply launch, which writes the shard's y or dx from
+# statistics or coefficients it is given. Nothing is staged in either: each
+# reads its inputs once.
+
+_PARTIALS, _APPLY = 1, 2  # the kernels' Mode
+
+
+def group_norm_apply_plain(x, weight, bias, stats, num_groups) -> torch.Tensor:
+    """Plain version of K5's apply launch: y of channels-first ``x`` from the
+    (2, B*G) mean and rstd ``stats``."""
+    _check_groups(x.shape[1], num_groups)
+    return _normalize_plain(x, weight, bias, stats, num_groups)
+
+
+def group_norm_bwd_partials_plain(x, ct, stats, num_groups) -> torch.Tensor:
+    """Plain version of K6's partials launch: (2, B*C) float32, the dw row
+    ``rstd * sum(ct * (x - mean))`` and the dbias row ``sum(ct)`` of each
+    (batch, channel), about the (2, B*G) mean and rstd ``stats``."""
+    B, C = x.shape[:2]
+    G = num_groups
+    _check_groups(C, G)
+    red = tuple(range(2, x.dim()))
+    shape = (B, C) + (1,) * len(red)
+    xc = x.float() - _per_channel(stats[0], B, C, G).view(shape)
+    cf = ct.float()
+    dw_rows = _per_channel(stats[1], B, C, G) * (cf * xc).sum(red)
+    return torch.stack([dw_rows.reshape(-1), cf.sum(red).reshape(-1)])
+
+
+def group_norm_bwd_apply_plain(x, ct, weight, stats, coef, num_groups) -> torch.Tensor:
+    """Plain version of K6's apply launch: ``dx = rstd * w * ct + coef[0] *
+    (x - mean) + coef[1]``, with the (2, B*G) mean and rstd ``stats`` and
+    per-group coefficients ``coef`` (2, B*G), in x's dtype."""
+    B, C = x.shape[:2]
+    G = num_groups
+    _check_groups(C, G)
+    shape = (B, C) + (1,) * (x.dim() - 2)
+    xc = x.float() - _per_channel(stats[0], B, C, G).view(shape)
+    a = (_per_channel(stats[1], B, C, G) * weight.float()).view(shape)
+    cx = _per_channel(coef[0], B, C, G).view(shape)
+    cd = _per_channel(coef[1], B, C, G).view(shape)
+    return (a * ct.float() + cx * xc + cd).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=4096)
+def shard_norm_plan(
+    shape: Tuple[int, ...],
+    num_groups: int,
+    channels_last: bool,
+    itemsize: int,
+    vec: int,
+    backward: bool,
+    capacity: int,
+) -> NormPlan:
+    """How a partials or apply launch of K5 (``backward`` False) or K6 cuts
+    activations of ``shape`` into blocks, on a card that holds ``capacity``
+    co-resident blocks: nothing staged; each unit cut into shares of at
+    least ``_MIN_SHARE_BYTES`` of input (K6 NCHW: touching few enough
+    channel planes), as many as fill the card with the units of a wave."""
+    B, C = shape[0], shape[1]
+    HW = math.prod(shape[2:])
+    G = num_groups
+    vb = vec * itemsize
+    units = B if channels_last else B * G
+    unit_vectors = (C * HW if channels_last else C // G * HW) // vec
+    max_vps = unit_vectors
+    if backward and not channels_last:
+        max_vps = min(max_vps, (_MAX_BLOCK_CHANNELS - 1) * (HW // vec))
+    least = -(-unit_vectors // max_vps)
+    if least > capacity:
+        raise ValueError(f"shard_norm_plan: {shape} needs {least} blocks a unit, the card holds {capacity}")
+    want = -(-unit_vectors // max(1, _MIN_SHARE_BYTES // ((2 if backward else 1) * vb)))
+    per_wave = min(units, max(1, capacity // least))
+    per_wave = -(-units // -(-units // per_wave))  # the same number of waves, evenly filled
+    splits = max(least, min(capacity // per_wave, want))
+    vps = -(-unit_vectors // splits)
+    splits = -(-unit_vectors // vps)
+    piece = max(_PIECE, -(-vps // (_MAX_PIECES - _MAX_BLOCK_CHANNELS))) if backward and not channels_last else 1
+    return NormPlan(units=units, unit_vectors=unit_vectors, splits=splits, vectors_per_split=vps, stage_vectors=0,
+                    units_per_wave=per_wave, piece=piece, staged_bytes=0)
+
+
+def _shard_card_plan(x: torch.Tensor, num_groups: int, backward: bool, mode: int,
+                     *others: torch.Tensor) -> Tuple[bool, int, NormPlan]:
+    """(channels_last, vec, plan) of a partials or apply launch for ``x``."""
+    name = "group_norm_bwd" if backward else "group_norm"
+    channels_last = _cuda_layout(x, num_groups, name)
+    vec = _vector_width(x.shape[1] if channels_last else math.prod(x.shape[2:]), x.element_size(), x, *others)
+    key = (x.device.index, backward, mode, x.dtype, vec, channels_last)
+    cap = _CAPACITY.get(key)
+    if cap is None:
+        from .._build import kernels
+
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(x.device):
+            err = kernels().group_norm_shard_capacity(int(backward), mode, _DTYPE_CODES[x.dtype], vec,
+                                                      int(channels_last), ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"{name}: the sharded kernel's occupancy query failed with CUDA error {err}")
+        cap = _CAPACITY[key] = (out[0] * out[1], out[2])
+    plan = shard_norm_plan(tuple(x.shape), num_groups, channels_last, x.element_size(), vec, backward, cap[0])
+    return channels_last, vec, plan
+
+
+def _launched(err: int, fn, x: torch.Tensor) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA error {err}")
+    count_launch(fn, x.device)
+
+
+def group_norm_partials(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """K5's partials launch on the card (:func:`group_partials_plain` on the
+    CPU): (2, B*G) float32, the sum of x and of x*x of each (batch, group)."""
+    if x.device.type == "cpu" or x.numel() == 0:
+        return group_partials_plain(x, num_groups)
+    channels_last, vec, plan = _shard_card_plan(x, num_groups, False, _PARTIALS)
+    B, C = x.shape[:2]
+    sums = torch.empty((2, B * num_groups), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.units * plan.splits * (2 * num_groups if channels_last else 2),), dtype=torch.float32,
+                       device=x.device)
+    from .._build import kernels
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        counters = _counters(x, stream, plan.units + 1)
+        err = kernels().group_norm_partials_launch(
+            x.data_ptr(), sums.data_ptr(), part.data_ptr(), counters.data_ptr(), B, C, num_groups,
+            math.prod(x.shape[2:]), int(channels_last), _DTYPE_CODES[x.dtype], vec, plan.splits,
+            plan.vectors_per_split, plan.units_per_wave, stream)
+    _launched(err, group_norm_partials, x)
+    return sums
+
+
+def group_norm_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, stats: torch.Tensor,
+                     num_groups: int) -> torch.Tensor:
+    """K5's apply launch on the card (:func:`group_norm_apply_plain` on the
+    CPU): y in x's dtype and layout from the (2, B*G) mean and rstd."""
+    if x.device.type == "cpu" or x.numel() == 0:
+        return group_norm_apply_plain(x, weight, bias, stats, num_groups)
+    y = torch.empty_like(x)
+    channels_last, vec, plan = _shard_card_plan(x, num_groups, False, _APPLY, y)
+    w, b = _param(weight, x, "group_norm_apply"), _param(bias, x, "group_norm_apply")
+    stats = stats.to(device=x.device, dtype=torch.float32).contiguous()
+    B, C = x.shape[:2]
+    from .._build import kernels
+
+    with torch.cuda.device(x.device):
+        err = kernels().group_norm_apply_launch(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), stats.data_ptr(), y.data_ptr(), B, C, num_groups,
+            math.prod(x.shape[2:]), int(channels_last), _DTYPE_CODES[x.dtype], vec, plan.splits,
+            plan.vectors_per_split, plan.units_per_wave, torch.cuda.current_stream(x.device).cuda_stream)
+    _launched(err, group_norm_apply, x)
+    return y
+
+
+def _ct_like(x: torch.Tensor, ct: torch.Tensor, channels_last: bool) -> torch.Tensor:
+    if ct.shape != x.shape:
+        raise ValueError(f"group_norm_bwd: cotangent {tuple(ct.shape)} for activations {tuple(x.shape)}")
+    return ct.to(x.dtype).contiguous(memory_format=torch.channels_last if channels_last else torch.contiguous_format)
+
+
+def group_norm_bwd_partials(x: torch.Tensor, ct: torch.Tensor, stats: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """K6's partials launch on the card (:func:`group_norm_bwd_partials_plain`
+    on the CPU): (2, B*C) float32 dw and dbias rows about the (2, B*G) mean
+    and rstd. ``ct`` of any layout is copied into x's first."""
+    if x.device.type == "cpu" or x.numel() == 0:
+        return group_norm_bwd_partials_plain(x, ct, stats, num_groups)
+    ct = _ct_like(x, ct, _cuda_layout(x, num_groups, "group_norm_bwd"))
+    channels_last, vec, plan = _shard_card_plan(x, num_groups, True, _PARTIALS, ct)
+    B, C = x.shape[:2]
+    stats = stats.to(device=x.device, dtype=torch.float32).contiguous()
+    rows = torch.empty((2, B * C), dtype=torch.float32, device=x.device)
+    slots = (2 * num_groups + 2 * C) if channels_last else (2 + 2 * _MAX_BLOCK_CHANNELS)
+    part = torch.empty((plan.units * plan.splits * slots,), dtype=torch.float32, device=x.device)
+    from .._build import kernels
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        counters = _counters(x, stream, plan.units + 1)
+        err = kernels().group_norm_bwd_partials_launch(
+            x.data_ptr(), ct.data_ptr(), stats.data_ptr(), rows.data_ptr(), part.data_ptr(), counters.data_ptr(),
+            B, C, num_groups, math.prod(x.shape[2:]), int(channels_last), _DTYPE_CODES[x.dtype], vec, plan.splits,
+            plan.vectors_per_split, plan.units_per_wave, plan.piece, stream)
+    _launched(err, group_norm_bwd_partials, x)
+    return rows
+
+
+def group_norm_bwd_apply(x: torch.Tensor, ct: torch.Tensor, weight: torch.Tensor, stats: torch.Tensor,
+                         coef: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """K6's apply launch on the card (:func:`group_norm_bwd_apply_plain` on
+    the CPU): dx in x's dtype and layout."""
+    if x.device.type == "cpu" or x.numel() == 0:
+        return group_norm_bwd_apply_plain(x, ct, weight, stats, coef, num_groups)
+    ct = _ct_like(x, ct, _cuda_layout(x, num_groups, "group_norm_bwd"))
+    dx = torch.empty_like(x)
+    channels_last, vec, plan = _shard_card_plan(x, num_groups, True, _APPLY, ct, dx)
+    B, C = x.shape[:2]
+    w = _param(weight, x, "group_norm_bwd_apply")
+    stats = stats.to(device=x.device, dtype=torch.float32).contiguous()
+    coef = coef.to(device=x.device, dtype=torch.float32).contiguous()
+    from .._build import kernels
+
+    with torch.cuda.device(x.device):
+        err = kernels().group_norm_bwd_apply_launch(
+            x.data_ptr(), ct.data_ptr(), w.data_ptr(), stats.data_ptr(), coef.data_ptr(), dx.data_ptr(), B, C,
+            num_groups, math.prod(x.shape[2:]), int(channels_last), _DTYPE_CODES[x.dtype], vec, plan.splits,
+            plan.vectors_per_split, plan.units_per_wave, plan.piece, torch.cuda.current_stream(x.device).cuda_stream)
+    _launched(err, group_norm_bwd_apply, x)
+    return dx
+
+
+for _fn in (group_norm_partials, group_norm_apply, group_norm_bwd_partials, group_norm_bwd_apply):
+    _fn.launches = 0
+
+
+@dataclass(frozen=True)
+class _Units:
+    """A shard's channels [offset, offset + channels) of a norm whose groups
+    have ``group_channels`` each, cut into ``count`` units of ``width``
+    channels that each lie within one group: the shard's tensor is normed
+    as one of ``count`` groups, and ``lead`` units of its first group lie
+    before it (on another shard)."""
+
+    offset: int
+    channels: int
+    group_channels: int
+
+    @property
+    def width(self) -> int:
+        return math.gcd(math.gcd(self.offset, self.channels), self.group_channels)
+
+    @property
+    def count(self) -> int:
+        return self.channels // self.width
+
+    @property
+    def per_group(self) -> int:
+        return self.group_channels // self.width
+
+    @property
+    def lead(self) -> int:
+        return self.offset % self.group_channels // self.width
+
+    @property
+    def first(self) -> int:
+        return self.offset // self.group_channels
+
+    @property
+    def groups(self) -> int:
+        return -(-(self.lead + self.count) // self.per_group)
+
+    def fold(self, v: torch.Tensor, G: int) -> torch.Tensor:
+        """(k, B*count) per-unit values → (k, B, G): summed over each group's
+        units in order, zero in the groups the shard does not touch."""
+        k = v.shape[0]
+        v = v.view(k, -1, self.count)
+        v = F.pad(v, (self.lead, self.groups * self.per_group - self.lead - self.count))
+        v = v.view(k, v.shape[1], self.groups, self.per_group).sum(-1)
+        return F.pad(v, (self.first, G - self.first - self.groups))
+
+    def unfold(self, v: torch.Tensor) -> torch.Tensor:
+        """(k, B, G) per-group values → (k, B*count) per unit."""
+        idx = (self.offset + torch.arange(self.count, device=v.device) * self.width) // self.group_channels
+        return v.index_select(2, idx).reshape(v.shape[0], -1)
+
+
+def _ordered_sum(parts, device) -> torch.Tensor:
+    """The parts summed on ``device`` in the order given."""
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    return total
+
+
+class _ShardedGroupNorm(torch.autograd.Function):
+    """The sharded norm's forward (K5's partials and apply launches) and
+    backward (K6's), over shards on any devices."""
+
+    @staticmethod
+    def forward(ctx, units, num_groups, eps, *tensors):
+        k = len(units)
+        xs, ws, bs = tensors[:k], tensors[k:2 * k], tensors[2 * k:]
+        B, G = xs[0].shape[0], num_groups
+        root = xs[0].device
+        n = torch.zeros(G, dtype=torch.float64)
+        for x, u in zip(xs, units):
+            spatial = math.prod(x.shape[2:])
+            for c0 in range(u.offset, u.offset + u.channels, u.width):
+                n[c0 // u.group_channels] += u.width * spatial
+        n = n.clamp(min=1).float().to(root)
+        sums = _ordered_sum([u.fold(group_norm_partials(x, u.count), G) for x, u in zip(xs, units)], root)
+        stats = _stats_from_sums(sums, n.view(1, G), eps)  # (2, B, G)
+        local = [u.unfold(stats.to(x.device)) for x, u in zip(xs, units)]
+        ys = [group_norm_apply(x, w, b, st, u.count) for x, w, b, st, u in zip(xs, ws, bs, local, units)]
+        ctx.save_for_backward(*xs, *ws, *local, stats, n)
+        ctx.units, ctx.num_groups = units, G
+        ctx.meta = [(w.device, w.dtype, b.device, b.dtype) for w, b in zip(ws, bs)]
+        return tuple(ys)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *dys):
+        units, G = ctx.units, ctx.num_groups
+        k = len(units)
+        saved = ctx.saved_tensors
+        xs, ws, local, (stats, n) = saved[:k], saved[k:2 * k], saved[2 * k:3 * k], saved[3 * k:]
+        B = xs[0].shape[0]
+        rows = [group_norm_bwd_partials(x, dy, st, u.count) for x, dy, st, u in zip(xs, dys, local, units)]
+        # S2 and S1 of each group: w times the dw and dbias rows, summed over
+        # each unit's channels, then over the units of a group and the shards.
+        parts = []
+        for r, w, u in zip(rows, ws, units):
+            t = r.view(2, B, u.channels) * w.detach().to(r.device, torch.float32)
+            parts.append(u.fold(t.view(2, B, u.count, u.width).sum(-1).view(2, -1), G))
+        coef = _bwd_coefficients(_ordered_sum(parts, stats.device), stats[1], n)
+        dxs = [group_norm_bwd_apply(x, dy, w, st, u.unfold(coef.to(x.device)), u.count)
+               for x, dy, w, st, u in zip(xs, dys, ws, local, units)]
+        dws, dbs = [], []
+        for r, u, (wd, wt, bd, bt) in zip(rows, units, ctx.meta):
+            r = r.view(2, B, u.channels).sum(1)
+            dws.append(r[0].to(wd, wt))
+            dbs.append(r[1].to(bd, bt))
+        return (None, None, None, *dxs, *dws, *dbs)
+
+
+def sharded_group_norm(xs, weights, biases, offsets, num_channels: int, num_groups: int,
+                       eps: float = 1e-6) -> List[torch.Tensor]:
+    """GroupNorm of activations cut into shards, one tensor a card:
+    differentiable in every shard, weight and bias.
+
+    Shard i holds channels ``offsets[i] .. offsets[i] + xs[i].shape[1]`` of
+    a ``num_channels``-channel activation and some of its spatial elements
+    (rows of a ``space`` shard); together the shards hold each element of
+    the groups they touch once. Each group's statistics span every shard
+    that holds its channels: a group may straddle shards of channels. Each
+    shard's K5 partials launch writes its share of each group's two sums,
+    the shards' shares are summed on the first shard's device in shard
+    order into K5's mean and rstd, and each shard's K5 apply launch writes
+    its y. The backward likewise: K6's partials launch writes each shard's
+    dw and dbias rows, their sums give S1 and S2 of each group, and K6's
+    apply launch writes dx. On the CPU the launches' plain versions run.
+
+    Args:
+        xs: (B, C_i, *spatial_i) activations; on the card NCHW-contiguous
+            or channels_last.
+        weights, biases: the (C_i,) affine parameters of each shard's
+            channels.
+        offsets: the first channel of each shard.
+        num_channels, num_groups: C and G of the whole norm.
+
+    Returns:
+        y of each shard, in its dtype and layout.
+    """
+    _check_groups(num_channels, num_groups)
+    Cg = num_channels // num_groups
+    units = []
+    for x, o in zip(xs, offsets):
+        if o < 0 or o + x.shape[1] > num_channels:
+            raise ValueError(f"sharded_group_norm: channels {o}..{o + x.shape[1]} of {num_channels}")
+        units.append(_Units(o, x.shape[1], Cg))
+    return list(_ShardedGroupNorm.apply(tuple(units), num_groups, eps, *xs, *weights, *biases))

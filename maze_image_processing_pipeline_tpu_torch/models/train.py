@@ -17,17 +17,30 @@ Counterpart of ``maze_image_processing_pipeline_tpu/models/train.py``:
 Every GroupNorm of the forward runs K5 on the card and its backward K6
 (``models/layers.py``).
 
-With a ``mesh`` (:func:`..parallel.make_mesh`) the step is data-parallel, as
-the JAX package's ``mesh`` step: the module lies on the mesh's first device
-and a replica on each other card; the batch is split over the mesh's devices
-(its size must divide by the ``data`` axis, as ``shard_batch_spec`` needs);
-each replica's loss is weighted by its share of the batch and its gradients
-are summed onto the first card, where AdamW steps; the parameters are copied
-to the replicas before the next step's forward. Both losses are means of
-per-sample terms (GroupNorm normalises each sample alone), so the step
-equals the one-device step on the whole batch up to summation order. Spatial
-(``space``) and tensor (``model``) sharding are not ported: every card of
-the mesh is a data replica.
+With a ``mesh`` (:func:`..parallel.make_mesh`) the step runs over the
+mesh's cards, as the JAX package's ``mesh`` step, in one of two ways:
+
+* A :class:`.unet.UNet` on a mesh with ``space`` cards, or with ``model``
+  cards and a conv ``parallel.mesh.shard_params`` splits, is sharded:
+  :func:`create_train_state` places its weights as ``shard_params`` does
+  (:class:`.unet.ShardedUNet`; ``state.module`` is that), the batch is split
+  over the ``data`` groups, each group runs its share through its ``space``
+  × ``model`` cards, each share's loss is weighted by its share of the
+  batch, every gradient is summed over the cards that hold the same slice
+  onto its owner, AdamW updates each slice on the card that holds it, and
+  the new values are copied to the other holders.
+* Otherwise (any module on a ``data`` mesh, the classifier whatever the
+  axes) every card is a data replica: the module lies on the mesh's first
+  device and a replica on each other card; the batch is split over the
+  mesh's devices; each replica's loss is weighted by its share of the batch
+  and its gradients are summed onto the first card, where AdamW steps; the
+  parameters are copied to the replicas before the next step's forward.
+
+The batch must divide by the ``data`` axis, as ``shard_batch_spec`` needs.
+Both losses are means of per-sample terms over whole images (GroupNorm
+normalises each sample alone; a sharded group's logits are gathered onto its
+first card for the loss), so either step equals the one-device step on the
+whole batch up to summation order.
 """
 
 from __future__ import annotations
@@ -39,11 +52,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import replicate, split_batch
+from ..parallel.mesh import mesh_grid, replicate, sharded_names, split_batch
 from .classifier import ConvClassifier
 from .inference import resolve_device
 from .model_io import init_classifier_params, init_unet_params, params_from_jax
-from .unet import UNet
+from .unet import ShardedUNet, UNet
 
 __all__ = [
     "bce_dice_loss",
@@ -105,6 +118,18 @@ def _init_params(module: nn.Module, in_channels: int, seed: int) -> Dict:
     raise TypeError(f"create_train_state: no initialiser for {type(module).__name__}")
 
 
+def shards(module, mesh) -> bool:
+    """Whether the train step shards ``module`` over ``mesh`` (module
+    docstring): a U-Net, on a mesh with ``space`` cards or with ``model``
+    cards that split one of its convs."""
+    if isinstance(module, ShardedUNet):
+        return True
+    if mesh is None or not isinstance(module, UNet):
+        return False
+    _, S, M = mesh_grid(mesh).shape
+    return S > 1 or bool(sharded_names(module, M))
+
+
 def create_train_state(
     module: nn.Module,
     input_shape: Tuple[int, ...],
@@ -126,8 +151,11 @@ def create_train_state(
             :func:`make_adamw` at ``learning_rate``.
         seed: numpy seed of the parameters.
         device: the card by default; raises without one unless ``"cpu"``.
-        mesh: with a mesh, the module goes to its first device (``device``
-            is not read), where :func:`make_train_step` keeps the state.
+        mesh: with a mesh that :func:`shards` the module, its weights are
+            placed on the mesh's cards and ``state.module`` is the
+            :class:`.unet.ShardedUNet`; with any other mesh the module goes
+            to the mesh's first device, where :func:`make_train_step` keeps
+            the state. ``device`` is not read.
 
     Returns:
         (state, state.optimizer), as the JAX package returns (state,
@@ -139,7 +167,12 @@ def create_train_state(
         raise ValueError(f"create_train_state: input_shape {tuple(input_shape)} has {input_shape[-1]} channels, "
                          f"the module takes {first.in_channels}")
     module.load_state_dict(params_from_jax(_init_params(module, first.in_channels, seed)))
-    module.to(dev).train()
+    if shards(module, mesh):
+        for d in mesh.devices.flat:
+            resolve_device(d)
+        module = ShardedUNet(module.train(), mesh)
+    else:
+        module.to(dev).train()
     params = module.parameters()
     opt = make_adamw(params, learning_rate) if optimizer is None else optimizer(params)
     return TrainState(module, opt, 0), opt
@@ -158,8 +191,12 @@ def make_train_step(
     ``state``. ``images`` (B, H, W, C) and ``targets`` (numpy arrays or
     tensors) go to the module's device as float32. The loss comes back as a
     0-d tensor on that device (reading it waits for the step). With a
-    ``mesh`` the step is data-parallel over its devices (module docstring);
-    the module must lie on the mesh's first device."""
+    ``mesh`` the step is sharded where :func:`shards` says so (it runs
+    ``state.module``, the :class:`.unet.ShardedUNet`), else data-parallel
+    over the mesh's devices with the module on the mesh's first device
+    (module docstring)."""
+    if shards(module, mesh):
+        return _sharded_step(optimizer, loss_fn)
     dev = next(module.parameters()).device
     if mesh is not None:
         return _mesh_step(module, optimizer, loss_fn, mesh, dev)
@@ -222,6 +259,36 @@ def _mesh_step(module: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Cal
                     else:
                         p.grad.add_(g)
         optimizer.step()
+        state.step += 1
+        return state, {"loss": loss}
+
+    return step
+
+
+def _sharded_step(optimizer: torch.optim.Optimizer, loss_fn: Callable):
+    def step(state: TrainState, images, targets):
+        model = state.module
+        if not isinstance(model, ShardedUNet):
+            raise TypeError("make_train_step: a sharded step needs the state of create_train_state(..., mesh=mesh)")
+        x = torch.as_tensor(images)
+        y = torch.as_tensor(targets)
+        B, D = x.shape[0], model.groups
+        if B % D:
+            raise ValueError(f"make_train_step: a batch of {B} does not split over the mesh's data axis of {D}")
+        model.zero_grad()  # every copy's gradient, the owners' (the optimizer's) among them
+        loss = None
+        for g, share in enumerate(split_batch(B, D)):
+            if share.start == share.stop:
+                continue
+            logits = model(x[share].to(torch.float32), g)  # each row share goes to its cards
+            part = loss_fn(logits, y[share].to(model.root(g), torch.float32, non_blocking=True))
+            part = part * ((share.stop - share.start) / B)
+            part.backward()
+            part = part.detach().to(model.root(0), non_blocking=True)
+            loss = part if loss is None else loss + part
+        model.reduce_grads()
+        optimizer.step()
+        model.sync()
         state.step += 1
         return state, {"loss": loss}
 

@@ -3,8 +3,9 @@
 Counterpart of ``fit``, ``save_checkpoint`` and ``restore_checkpoint`` of
 ``maze_image_processing_pipeline_tpu/models/train_loop.py``, with the same
 arguments and a ``device`` (the card unless ``"cpu"``); with a ``mesh``
-(:func:`..parallel.make_mesh`) each step splits its batch over the mesh's
-cards (:func:`.train.make_train_step`). The loop restores the newest
+(:func:`..parallel.make_mesh`) each step runs over the mesh's cards, a
+U-Net sharded where the mesh's axes shard it (:func:`.train.make_train_step`).
+The loop restores the newest
 checkpoint on start and saves every ``checkpoint_every`` steps and at the
 end, so a stopped job continues where it stopped.
 
@@ -107,8 +108,9 @@ def fit(
     """Train ``module`` on (images, targets) batches with checkpoint/resume.
 
     ``device`` is the card unless ``"cpu"`` (no card raises); with a
-    ``mesh`` the state lies on its first device and each step splits the
-    batch over its devices."""
+    ``mesh`` each step runs over its cards (:func:`.train.make_train_step`;
+    a sharded state's trained weights are copied back into ``module`` at
+    the end)."""
     state, optimizer = create_train_state(
         module, input_shape, learning_rate=learning_rate, seed=seed, device=device, mesh=mesh
     )
@@ -133,4 +135,6 @@ def fit(
         save_checkpoint(checkpoint_dir, state, state.step)
     if metrics is not None:
         logger.info("Training finished at step %d (loss %.4f)", state.step, float(metrics["loss"]))
+    if state.module is not module:  # sharded over the mesh: the whole weights, for save_model
+        module.load_state_dict(state.module.state_dict())
     return state

@@ -1,11 +1,29 @@
 """Several cards: the ``parallel:`` section, the mesh and multi-host runs.
 
 Counterpart of ``maze_image_processing_pipeline_tpu/parallel/__init__.py``,
-with the same exports. The JAX package places data and weights over a mesh
-of named axes (``data``, ``space``, ``model``) and lets XLA insert the halo
-exchanges and gathers; the results are those of the data axis alone. The
-port accepts any axis names and sizes and runs every card of the mesh as a
-data replica, which gives the same outputs:
+with the same exports. A mesh has named axes; the port gives them the JAX
+package's meaning (``parallel.mesh.mesh_grid`` orders the cards as data ×
+space × model, any other axis folded into ``data``):
+
+* ``data``: samples. Each ``data`` index takes a share of every batch.
+* ``space``: image rows, in training. A U-Net's train step
+  (``models.train.make_train_step(..., mesh=)``) cuts each image's rows
+  over the ``space`` cards (``parallel.mesh.space_rows``), with halo rows
+  exchanged before each conv and GroupNorm statistics summed over the
+  shards (``models.layers.sharded_group_norm``: K5/K6's partials and apply
+  launches). Inference splits batches over ``data`` only, as the JAX
+  package's (``PartitionSpec("data")``), so there the ``space`` cards are
+  data replicas.
+* ``model``: wide output channels. ``parallel.mesh.shard_params`` splits
+  every conv weight (and its bias) of at least 64 output channels that
+  divide by the axis over its cards, as the JAX package's rule; the U-Net
+  (``models.unet.ShardedUNet``) computes each slice on its card and
+  gathers the slices where an op needs every channel, in training and in
+  both inference nodes.
+
+Where the axes shard nothing (a ``data`` mesh, a U-Net with no conv wide
+enough, the ConvClassifier, the loki device path) every card is a data
+replica:
 
 * inference: a replica of the module on each card; ``TorchInference``
   splits each batch over the cards, ``DeviceTiledInference`` each bucket of
@@ -13,16 +31,16 @@ data replica, which gives the same outputs:
   are gathered in order;
 * the loki device path (``DeviceTiledSegmentation``,
   ``DeviceFramePostprocess``): frame groups, or frames, round-robin over the
-  cards;
-* training (``models.train.make_train_step(..., mesh=)``): the batch split
-  over the cards, the gradients summed onto the first, AdamW there, the
-  parameters copied back to the replicas;
+  cards, as the JAX package's;
+* training: the batch split over the cards, the gradients summed onto the
+  first, AdamW there, the parameters copied back to the replicas;
 * multi-host: samples partitioned per host (``input.num_shards`` /
   ``shard_index``, :func:`partition_work`), with ``torch.distributed``
   initialised from the coordinator's address.
 
-Spatial and tensor sharding of one model over several cards is not ported:
-nothing in the repo needs a model that one card cannot hold.
+Every path gives the outputs of one device. ``space`` and ``model`` shard
+over the cards of one process (one host); across hosts each host runs its
+own mesh.
 """
 
 from .config import ParallelConfig, setup_parallel

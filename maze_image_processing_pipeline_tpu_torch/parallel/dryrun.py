@@ -3,9 +3,11 @@
 Counterpart of ``dryrun_multichip`` in the repository's
 ``__graft_entry__.py``: the data-parallel train step, both inference nodes
 and a small LOKI haul through the loki Runner, each on a mesh of ``n``
-devices, the haul's archive held equal to the one-device run's. The JAX
-package factors ``n`` into ``data`` × ``space`` × ``model`` axes; the port
-takes the same axes and runs every device as a data replica.
+devices, the haul's archive held equal to the one-device run's. ``n`` is
+factored into ``data`` × ``space`` × ``model`` axes as the JAX dry run
+factors it; on four or more devices the train step's U-Net is sharded over
+``space`` and ``model`` and the inference U-Net over ``model``
+(:mod:`..parallel`).
 
     python -m maze_image_processing_pipeline_tpu_torch.parallel.dryrun [n] [--device cpu]
 
@@ -63,7 +65,7 @@ def dryrun_multichip(n_devices: Optional[int] = None, device="cuda", log=print) 
     mesh = make_mesh(axes, devices=devices)
     out: Dict[str, object] = {"mesh": axes, "devices": [str(d) for d in devices]}
 
-    # The data-parallel train step.
+    # The train step (sharded over space and model where the axes have them).
     module = UNet(out_channels=2, base_features=64, depth=2, dtype="float32")
     state, opt = create_train_state(module, (2, 32, 32, 3), mesh=mesh)
     step = make_train_step(module, opt, mesh=mesh)
@@ -77,7 +79,8 @@ def dryrun_multichip(n_devices: Optional[int] = None, device="cuda", log=print) 
     if not np.isfinite(loss):
         raise AssertionError(f"dryrun_multichip: train loss {loss}")
     out["train_loss"] = loss
-    log(f"dryrun_multichip train OK: mesh={axes} loss={loss:.4f}")
+    out["train_sharded"] = type(state.module).__name__ == "ShardedUNet"
+    log(f"dryrun_multichip train OK: mesh={axes} loss={loss:.4f} sharded={out['train_sharded']}")
 
     # Inference over the mesh.
     cfg = dict(out_channels=2, base_features=16, depth=2)

@@ -1,9 +1,11 @@
 """A/B walls of checkouts: the ``maze-ipp loki`` Runner's wall (or, with
-``--norms``, the GroupNorm kernels' times; with ``--relabel``, K8's; with
-``--anchor``, K9's; with ``--fixpoint``, the CCL fixpoint's) for two or more
-checkouts of this repo, in turns, on one set of inputs::
+``--predict``, the ``maze-ipp predict`` Runner's; with ``--norms``, the
+GroupNorm kernels' times; with ``--relabel``, K8's; with ``--anchor``, K9's;
+with ``--fixpoint``, the CCL fixpoint's) for two or more checkouts of this
+repo, in turns, on one set of inputs::
 
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] [--workdir DIR]
+    python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --predict [--workdir DIR]
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --norms [--iters N]
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --relabel [--iters N]
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --anchor [--iters N]
@@ -18,6 +20,12 @@ that checkout's package (its kernels built at the first call into its own
 Name the trees in the order they should run, for example parent, change,
 change, parent. One line is printed per run, then a JSON object of the
 walls by tree. Times are taken on the card only.
+
+``--predict`` runs instead ``chip_smoke.py``'s phase 7 tasks: semseg
+(``UNet(2, 32, 4)`` bf16, tiles 256 / 192, the device blend with fused
+measurement) and polytaxo (``ConvClassifier(8)`` bf16) on 480 crops, their
+inputs made once by the running checkout's ``chip_smoke.predict_inputs``;
+each TREE's process runs each task once to warm up and ``WALLS`` times more.
 
 ``--norms`` times instead, in each TREE's process, K5 (``group_norm``) and
 K6 (``group_norm_bwd``) in bfloat16 with G = 8, NCHW and channels_last: K5
@@ -106,6 +114,25 @@ def wall(tag):
 
 wall("warm")
 print("WALLS " + json.dumps([wall(i) for i in range(n)]), flush=True)
+"""
+
+# --predict, in the checkout's process: argv = tasks by name, walls.
+_PREDICT_WORKER = """
+import json, sys, time, torch
+from maze_image_processing_pipeline_tpu_torch.predict.pipeline import Runner
+tasks, n = json.loads(sys.argv[1]), int(sys.argv[2])
+
+def wall(task, tag):
+    t0 = time.perf_counter()
+    Runner._configure_and_run(dict(task, target_dir=f"{task['target_dir']}/{tag}"))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+out = {}
+for name, task in tasks.items():
+    wall(task, "warm")
+    out[name] = [wall(task, i) for i in range(n)]
+print("WALLS " + json.dumps(out), flush=True)
 """
 
 # --norms, in the checkout's process: argv = cases, iters.
@@ -259,6 +286,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts of this repo, in the order they run")
     ap.add_argument("--workdir", default=None, help="inputs and outputs (default: a new temporary directory)")
+    ap.add_argument("--predict", action="store_true", help="time the predict tasks (semseg, polytaxo) instead")
     ap.add_argument("--norms", action="store_true", help="time the GroupNorm kernels instead of the loki task")
     ap.add_argument("--relabel", action="store_true", help="time K8 (small-object removal) instead")
     ap.add_argument("--anchor", action="store_true", help="time K9 (the layout anchor) instead")
@@ -282,6 +310,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(json.dumps(times), flush=True)
         return times
     work = args.workdir or tempfile.mkdtemp(prefix="ab_walls_")
+    if args.predict:
+        return _predict_walls(args.trees, work)
     data = make_loki_tree(os.path.join(work, "data"), n_frames=24, objects_per_frame=20, frame_shape=(1024, 1280),
                           seed=8)
     unet = write_unet(os.path.join(work, "unet"), LOKI_UNET, "bfloat16", seed=6)
@@ -292,6 +322,29 @@ def main(argv: Optional[List[str]] = None) -> dict:
         walls = run_tree(tree, data, unet, os.path.join(work, f"out{i}"))
         results.setdefault(tree, []).append(walls)
         print(f"run {i} {tree}: loki walls {walls}", flush=True)
+    print(json.dumps(results), flush=True)
+    return results
+
+
+def _predict_walls(trees: List[str], work: str) -> dict:
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("smoke_tasks", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    inp = smoke.predict_inputs(work)
+    print(f"device={torch.cuda.get_device_name(0)}", flush=True)
+    results: Dict[str, List[Dict[str, List[float]]]] = {}
+    for i, tree in enumerate(trees):
+        tree = os.path.abspath(tree)
+        tasks = {"semseg": smoke.semseg_task(inp["archive"], inp["unet"], os.path.join(work, f"semseg{i}")),
+                 "polytaxo": smoke.polytaxo_task(inp["archive"], inp["clf"], os.path.join(work, f"poly{i}"),
+                                                 inp["taxonomy"])}
+        walls = run_worker(tree, _PREDICT_WORKER, [json.dumps(tasks), str(WALLS)], "WALLS")
+        results.setdefault(tree, []).append(walls)
+        print(f"run {i} {tree}: " + "; ".join(f"{k} walls {v}" for k, v in walls.items()), flush=True)
     print(json.dumps(results), flush=True)
     return results
 

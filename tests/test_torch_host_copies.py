@@ -390,8 +390,9 @@ def test_parallel_config_and_partition_work_are_copies():
 
 
 def test_make_mesh_checks_are_the_originals():
-    """``make_mesh``'s argument checks and defaults, and ``shard_batch_spec``,
-    against the JAX package's on the same number of devices."""
+    """``make_mesh``'s argument checks and defaults, ``shard_batch_spec`` and
+    ``shard_params``' rule (``model_split``), against the JAX package's on
+    the same number of devices."""
     import jax
 
     from maze_image_processing_pipeline_tpu.parallel import mesh as jm
@@ -410,3 +411,12 @@ def test_make_mesh_checks_are_the_originals():
         assert t_mesh.axis_names == j_mesh.axis_names and t_mesh.devices.shape == j_mesh.devices.shape
         for ndim in (2, 3, 4):
             assert tm.shard_batch_spec(t_mesh, ndim) == tuple(jm.shard_batch_spec(j_mesh, ndim))
+    # shard_params' rule: which arrays the JAX package splits over a model
+    # axis of 2 (its kernels' output channels last, the port's first).
+    j_mesh = jm.make_mesh({"data": 2, "model": 2}, devices=jax.devices()[:4])
+    for shape in ((3, 3, 3, 64), (3, 3, 64, 128), (3, 3, 64, 32), (1, 1, 64, 2), (64,), (128,), (2, 2, 8, 66),
+                  (3, 3, 4, 63), (32, 64)):
+        placed = jm.shard_params({"a": np.zeros(shape, np.float32)}, j_mesh)["a"]
+        split = placed.sharding.spec != jax.sharding.PartitionSpec()
+        port_shape = (shape[-1],) + tuple(shape[:-1])
+        assert tm.model_split(port_shape, 2) == split, shape

@@ -15,7 +15,9 @@ package runs on the 8 virtual CPU devices of ``tests/conftest.py``. At
   (rtol 1e-4 / atol 2e-5: float32 convolutions of two frameworks);
 * the mesh train step on 2 replicas equals the one-device step on the whole
   batch and the JAX step with ``mesh={data: 2}``, on the same weights
-  (``params_from_jax``), within rtol 1e-5 (loss and parameters);
+  (``params_from_jax``), within rtol 1e-5 (loss and parameters); a U-Net
+  that ``model`` splits is sharded instead (``test_torch_sharding.py``
+  holds that step);
 * two ``gloo`` processes joined by ``initialize_distributed`` see ranks 0
   and 1 of 2, and the union of their ``num_shards: 2`` archives equals the
   unsharded run;
@@ -57,6 +59,7 @@ from maze_image_processing_pipeline_tpu_torch.loki.pipeline import Runner as Tor
 from maze_image_processing_pipeline_tpu_torch.models import model_io as t_model_io
 from maze_image_processing_pipeline_tpu_torch.models import train as t_train
 from maze_image_processing_pipeline_tpu_torch.models.inference import DeviceTiledInference, TorchInference
+from maze_image_processing_pipeline_tpu_torch.models.unet import ShardedUNet
 from maze_image_processing_pipeline_tpu_torch.models.unet import UNet as TorchUNet
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -215,17 +218,32 @@ def test_mesh_train_step_matches_one_device_and_jax():
     assert optax  # the JAX step's optimizer
 
 
-def test_mesh_train_step_checks_the_batch_and_the_placement():
-    cfg = dict(out_channels=1, base_features=4, depth=1)
+@pytest.mark.parametrize("width", [4, 64])
+def test_mesh_train_step_checks_the_batch_and_the_placement(width):
+    """``{data: 2, model: 2}``: a U-Net of no conv 64 wide stays a replica on
+    every card (the step splits the batch alone); ``UNet(1, 64, 1)`` is
+    sharded, each card holding half the output channels of its wide convs
+    and the narrow head whole. Either checks the batch against the data
+    axis."""
+    cfg = dict(out_channels=1, base_features=width, depth=1)
     mesh = tp.make_mesh({"data": 2, "model": 2}, devices=[CPU] * 4)
     module = TorchUNet(**cfg, dtype="float32")
     state, opt = t_train.create_train_state(module, (2, 16, 16, 3), mesh=mesh)
-    assert next(module.parameters()).device == CPU
+    if width == 4:
+        assert state.module is module and next(module.parameters()).device == CPU
+    else:
+        assert isinstance(state.module, ShardedUNet) and state.module.groups == 2
+        for (d, s, m), held in state.module.params.items():
+            assert held["ConvBlock_0.Conv_0.weight"].shape == (32, 3, 3, 3)
+            assert held["ConvBlock_1.Conv_1.weight"].shape == (64, 128, 3, 3)
+            assert held["Conv_1.weight"].shape == (1, 64, 1, 1)
+        assert len(opt.param_groups[0]["params"]) == len(state.module.parameters())
     step = t_train.make_train_step(module, opt, mesh=mesh)
     x = np.zeros((3, 16, 16, 3), np.float32)
     with pytest.raises(ValueError, match="data axis of 2"):
         step(state, x, x[..., :1])
-    # Two samples over four replicas: shares of one, two empty.
+    # Two samples over the mesh: a share of one each (over four replicas,
+    # two shares empty).
     state, m = step(state, x[:2], x[:2, ..., :1])
     assert np.isfinite(float(m["loss"])) and state.step == 1
 
