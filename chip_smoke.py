@@ -7,6 +7,7 @@
                                      # idle share
     python3 chip_smoke.py --mesh     # phase 12 alone (a machine of several
                                      # cards)
+    python3 chip_smoke.py --library  # phase 13 alone
 
 Builds the port's CUDA kernels from ``maze_image_processing_pipeline_tpu_torch/
 csrc`` and runs, one line of output per phase:
@@ -176,19 +177,33 @@ csrc`` and runs, one line of output per phase:
     steps (``SHARDED_STEPS``: ``UNet(1, 64, 1)`` on ``{data: 1, space: 2,
     model: 2}``, ``UNet(1, 32, 4)`` at batch 8 of 512² on ``{space: 4}``,
     float32, over the first four cards or, on a machine of fewer, four
-    replicas of card 0) the one-card steps' loss and gradients, each card's
+    replicas of card 0; and phase 9's ``ConvClassifier(8)`` at a batch of
+    16 crops of 256² on both meshes, ``models.classifier.
+    ShardedClassifier``) the one-card steps' loss and gradients, each card's
     peak memory and the bytes its forward saved for the backward printed
     beside the one-card step's, and K5 and K6's split
     launches (partials and apply) on every card, each held to its plain
     version at the shard shapes the steps gave it and timed at the largest;
+    phase 7's polytaxo task in float32 with ``parallel: {mesh: {model:
+    2}}`` (the classifier sharded over two cards, or two replicas of card
+    0) gives the one-card archive;
     ``parallel.dryrun.dryrun_multichip`` on the card count; every kernel of
-    each path launches on every card (``launches_by_device``).
+    each path launches on every card (``launches_by_device``);
+13. the library functions of ``ops/`` at loki's frame shape (8, 1024,
+    1280) on ``make_frames``' masks (``library_inputs``), each against the
+    same call on the CPU: ``fill_holes`` bit-exact (the CCL fixpoint and K2
+    launched), ``regionprops`` of the filled masks' labels at R = 64 with
+    uint8 intensity and the histogram (K3 launched; integer keys and the
+    histogram exact, floats within the CPU test's tolerances),
+    ``isotropic_closing`` at radius 2.5 and ``edt`` at ``max_distance`` 16
+    exact; each call's launches and time by CUDA events.
 
 Kernel launches are counted per phase (counts set to 0 just before each
 timed run, read just after): every kernel but K6, K9 and the CCL passes
 alone (K1, K4) must launch in phases 5, 6 and 12 (its loki run, on every
 card); ``ccl_fixpoint``, K2 and K5
-in phase 7, and not K3 or K7; ``ccl_fixpoint``, K2, K3 and K7 in phase 8;
+in phase 7, and not K3 or K7; ``ccl_fixpoint``, K2 and K3, and no other,
+in phase 13; ``ccl_fixpoint``, K2, K3 and K7 in phase 8;
 K5 and K6, and no other, in phase 9; K1, K4 (the lab's probes of them),
 ``ccl_fixpoint``, K2, K8, K3, K7 and K9, and not K5 or K6, in phase 10; all
 but K9 and K1, K4 alone in phase 11. ``label`` runs K1 and K4 inside
@@ -2672,11 +2687,21 @@ def mesh_train_step(dev, cards: int) -> str:
 
 # The sharded train steps: UNet(1, 64, 1) (tests/test_models.py's sharded
 # step, its 64- and 128-wide convs split over model) on {data: 1, space: 2,
-# model: 2}, and phase 9's batch of UNet(1, 32, 4) over space alone.
+# model: 2}, and phase 9's batch of UNet(1, 32, 4) over space alone; the
+# polytaxo ConvClassifier(8) (its 64- to 256-wide convs and Dense_0 split
+# over model) on a batch of 16 crops of 256² on both meshes.
 SHARDED_STEPS = (
-    (dict(out_channels=1, base_features=64, depth=1), {"data": 1, "space": 2, "model": 2}, (8, 128, 128)),
-    (dict(out_channels=1, base_features=32, depth=4), {"space": 4}, TRAIN_BATCH[:3]),
+    ("unet", dict(out_channels=1, base_features=64, depth=1), {"data": 1, "space": 2, "model": 2}, (8, 128, 128)),
+    ("unet", dict(out_channels=1, base_features=32, depth=4), {"space": 4}, TRAIN_BATCH[:3]),
+    ("classifier", CLASSIFIER, {"data": 1, "space": 2, "model": 2}, (16, 256, 256)),
+    ("classifier", CLASSIFIER, {"space": 4}, (16, 256, 256)),
 )
+
+
+def step_name(kind: str, cfg: dict) -> str:
+    if kind == "unet":
+        return f"UNet({cfg['out_channels']}, {cfg['base_features']}, {cfg['depth']})"
+    return f"ConvClassifier({cfg['n_outputs']}, {tuple(cfg['features'])})"
 
 
 def sharded_cards():
@@ -2688,9 +2713,11 @@ def sharded_cards():
     return [torch.device("cuda", i if n >= 4 else 0) for i in range(4)]
 
 
-def peak_step(dev, cfg, axes, x, y):
-    """One float32 train step of ``UNet(**cfg)`` on one card (``axes`` None)
-    or sharded over ``axes`` on :func:`sharded_cards`: (loss, gradients on
+def peak_step(dev, kind, cfg, axes, x, y):
+    """One float32 train step of ``UNet(**cfg)`` (``kind`` "unet",
+    ``bce_dice_loss``) or ``ConvClassifier(**cfg)`` ("classifier",
+    ``bce_loss``) on one card (``axes`` None) or sharded over ``axes`` on
+    :func:`sharded_cards`: (loss, gradients on
     the CPU, the step's peak memory on each card (bytes above what the card
     held before the state was made), the bytes of the tensors the forward
     saved for the backward on each card (each storage once: what the
@@ -2701,7 +2728,8 @@ def peak_step(dev, cfg, axes, x, y):
     import torch
 
     from maze_image_processing_pipeline_tpu_torch.models import train as tt
-    from maze_image_processing_pipeline_tpu_torch.models.unet import ShardedUNet, UNet
+    from maze_image_processing_pipeline_tpu_torch.models.classifier import ConvClassifier
+    from maze_image_processing_pipeline_tpu_torch.models.unet import ShardedNet, UNet
     from maze_image_processing_pipeline_tpu_torch.parallel import make_mesh
 
     mesh = None if axes is None else make_mesh(axes, devices=sharded_cards()[: math.prod(axes.values())])
@@ -2711,10 +2739,10 @@ def peak_step(dev, cfg, axes, x, y):
     for i in cards:
         torch.cuda.reset_peak_memory_stats(i)
         base[i] = torch.cuda.memory_allocated(i)
-    module = UNet(**cfg, dtype="float32")
+    module = (UNet if kind == "unet" else ConvClassifier)(**cfg, dtype="float32")
     state, opt = tt.create_train_state(module, x.shape, device=dev, seed=3, mesh=mesh)
-    check((mesh is not None) == isinstance(state.module, ShardedUNet), f"the step on {axes} is not sharded")
-    step = tt.make_train_step(module, opt, mesh=mesh)
+    check((mesh is not None) == isinstance(state.module, ShardedNet), f"the step on {axes} is not sharded")
+    step = tt.make_train_step(module, opt, loss_fn=tt.bce_dice_loss if kind == "unet" else tt.bce_loss, mesh=mesh)
     saved, storages = {}, set()
 
     def pack(t):
@@ -2856,27 +2884,31 @@ def sharded_train_steps(dev, limit: str) -> tuple:
     cards = sorted({d.index for d in sharded_cards()})
     unet_mod.sharded_group_norm = spy
     try:
-        for cfg, axes, (B, H, W) in SHARDED_STEPS:
+        for kind, cfg, axes, (B, H, W) in SHARDED_STEPS:
             x, y = next(distill_batches(1, size=H, batch=B, seed=23))
-            loss_1, grads_1, peak_1, saved_1, _, wall_1 = peak_step(dev, cfg, None, x, y)
-            loss_s, grads_s, peak_s, saved_s, launches, wall_s = peak_step(dev, cfg, axes, x, y)
+            if kind == "classifier":  # multi-label targets for the taxonomy nodes
+                y = (np.random.default_rng(24).random((B, cfg["n_outputs"])) > 0.5).astype(np.float32)
+            loss_1, grads_1, peak_1, saved_1, _, wall_1 = peak_step(dev, kind, cfg, None, x, y)
+            loss_s, grads_s, peak_s, saved_s, launches, wall_s = peak_step(dev, kind, cfg, axes, x, y)
             check(math.isfinite(loss_s) and abs(loss_s - loss_1) <= 1e-5 * abs(loss_1),
                   f"sharded loss {loss_s} vs one card {loss_1} on {axes}")
             norm = math.sqrt(sum(float((g ** 2).sum()) for g in grads_1.values()))
-            worst = 0.0
+            worst, worst_k = 0.0, None
             for k, g in grads_1.items():
                 err = float((grads_s[k] - g).abs().max())
                 check(err <= 1e-3 * float(g.norm()) + 1e-5 * norm, f"sharded gradient of {k} differs by {err}")
-                worst = max(worst, err / max(float(g.norm()), 1e-30) if float(g.norm()) > 1e-5 * norm else 0.0)
+                rel = err / max(float(g.norm()), 1e-30) if float(g.norm()) > 1e-5 * norm else 0.0
+                if rel > worst:
+                    worst, worst_k = rel, k
             for name in SPLIT_NORMS:
                 for i in cards:
                     check(launches[name].get(i, 0) > 0, f"{name} did not launch on card {i} in the step on {axes}")
             for name, by_card in launches.items():
                 total[name] = total.get(name, 0) + sum(by_card.values())
-            say(f"  sharded step UNet({cfg['out_channels']}, {cfg['base_features']}, {cfg['depth']}) float32 (TF32 "
+            say(f"  sharded step {step_name(kind, cfg)} float32 (TF32 "
                 f"off), batch {B} of {H}x{W}, on {axes} over cards {[d.index for d in sharded_cards()]}: loss "
                 f"{loss_s:.7f}, one card {loss_1:.7f}; {len(grads_1)} gradients within tolerance (largest "
-                f"difference over its tensor's norm {worst:.3g}); {wall_s:.3f} s, one card {wall_1:.3f} s (first "
+                f"difference over its tensor's norm {worst:.3g}, {worst_k}); {wall_s:.3f} s, one card {wall_1:.3f} s (first "
                 f"steps); peak memory by card { {i: round(v / gib, 4) for i, v in peak_s.items()} } GiB, one card "
                 f"{peak_1[dev.index] / gib:.4f} GiB; saved for the backward by card "
                 f"{ {i: round(v / gib, 4) for i, v in sorted(saved_s.items())} } GiB, one card "
@@ -2886,6 +2918,46 @@ def sharded_train_steps(dev, limit: str) -> tuple:
     finally:
         unet_mod.sharded_group_norm = real
     return total, split_norm_cases(dev, seen)
+
+
+def polytaxo_model_axis(inp: dict, work: str, limit: str) -> str:
+    """Phase 7's polytaxo task with ``parallel: {mesh: {model: 2}}`` (the
+    classifier sharded over two cards, ``models.classifier.
+    ShardedClassifier``, on the first two cards or, on a machine of one,
+    two replicas of it)
+    against the same task on one card: the same archive. Both in float32
+    (TF32 off): the split convs' slices are other cuDNN problems than the
+    whole conv, and in bfloat16 their roundings could move a score."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fn = "crops.polytaxo.zip"
+
+    def task(name):
+        return polytaxo_task(inp["archive"], inp["clf"], os.path.join(work, name), inp["taxonomy"], dtype="float32")
+
+    wall_1 = run_predict(task("model_axis_one"))
+    # The Runner's mesh covers every card of the machine; this one takes the
+    # first two (or two replicas of card 0 on a machine of one).
+    real = mesh_mod.make_mesh
+    mesh_mod.make_mesh = lambda axes=None, devices=None: real(axes, devices or sharded_cards()[:2])
+    reset_launches()
+    try:
+        wall_m = run_predict({**task("model_axis_mesh"), "parallel": {"mesh": {"model": 2}}})
+    finally:
+        mesh_mod.make_mesh = real
+    cards = min(2, torch.cuda.device_count())
+    by_card = read_launches_by_card("phase 12 (polytaxo on model: 2)", ("group_norm",), cards)
+    launches = read_launches("phase 12 (polytaxo on model: 2)", expected=("group_norm",),
+                             absent=tuple(k for k in KERNELS if k != "group_norm"))
+    n = compare_archives(os.path.join(work, "model_axis_one", fn), os.path.join(work, "model_axis_mesh", fn))
+    return (f"predict polytaxo, ConvClassifier(8) float32 (TF32 off), parallel: {{mesh: {{model: 2}}}} over cards "
+            f"{[d.index for d in sharded_cards()[:2]]}: the archive of the one-card run ({n} objects); wall "
+            f"{wall_m:.3f} s on the mesh, {wall_1:.3f} s on one card; K5 launches {launches['group_norm']}, by card "
+            f"{by_card.get('group_norm')} [{limit}]")
 
 
 def phase_mesh(dev, limit: str, work: str) -> dict:
@@ -2938,6 +3010,7 @@ def phase_mesh(dev, limit: str, work: str) -> dict:
             f"on the mesh, {wall_1:.3f} s on one card; launches by card "
             f"{ {k: by_card.get(k) for k in expected} } [{limit}]")
 
+    say(f"  {polytaxo_model_axis(inp, work, limit)}")
     say(f"  {mesh_train_step(dev, cards)}")
     t0 = time.perf_counter()
     sharded, measured = sharded_train_steps(dev, limit)
@@ -2946,6 +3019,121 @@ def phase_mesh(dev, limit: str, work: str) -> dict:
     result = dryrun_multichip(cards, log=lambda line: say(f"  {line}"))
     say(f"  dryrun_multichip({cards}) on {result['mesh']}: {time.perf_counter() - t0:.1f} s")
     return {k: launches[k] + sharded.get(k, 0) for k in launches}, measured
+
+
+# -- phase 13: the library functions on the card ----------------------------
+
+LIBRARY_SHAPE = (8, 1024, 1280)  # loki's frames
+LIBRARY_R = 64
+# The kernels the library calls launch: the CCL fixpoint and K2 (label, in
+# fill_holes and for regionprops' labels), K3 (regionprops' histogram).
+LIBRARY_KERNELS = ("ccl_fixpoint", "cumsum_rows", "region_histogram")
+LIBRARY_EXACT = {"area", "min_row", "min_col", "max_row", "max_col", "intensity_min", "intensity_max", "histogram"}
+
+
+def library_inputs(shape=LIBRARY_SHAPE, seed: int = 31):
+    """Loki-like masks: :func:`make_frames`' vignettes brighter than 50 (20
+    a frame), with 1 % of the pixels knocked out (holes for ``fill_holes``);
+    the intensity: the frames plus noise of 0-39."""
+    B, H, W = shape
+    frames = make_frames(B, H, W, 20, seed)
+    rng = np.random.default_rng(seed + 1)
+    mask = (frames > 50) & ~(rng.random(shape) < 0.01)
+    inten = np.clip(frames.astype(np.int16) + rng.integers(0, 40, shape), 0, 255).astype(np.uint8)
+    return mask, inten
+
+
+def compare_library_props(got: dict, ref: dict) -> dict:
+    """``regionprops`` on the card against the CPU, with the tolerances of
+    ``tests/test_torch_library_ops.py``: the integer keys and the histogram
+    exact; the float keys within rtol 1e-5 / atol 1e-4, skew and kurtosis
+    within rtol 1e-4 / atol 1e-4 (NaN where the CPU has NaN), the
+    orientation modulo pi within 1e-4. Every region is held, the background
+    (id 0, about 1.3 M pixels a frame) too: the port sums in float64, so the
+    order of the card's atomics does not show. Returns the largest absolute
+    difference by float key."""
+    check(set(got) == set(ref), f"regionprops keys differ: {set(got) ^ set(ref)}")
+    worst = {}
+    for k, r in ref.items():
+        r, o = r.numpy(), got[k].cpu().numpy()
+        check(o.shape == r.shape and o.dtype == r.dtype, f"regionprops {k}: {o.shape} {o.dtype} vs {r.shape} {r.dtype}")
+        if k in LIBRARY_EXACT:
+            np.testing.assert_array_equal(o, r, err_msg=k)
+            continue
+        with np.errstate(invalid="ignore"):
+            d = np.abs(o - r)
+        if k == "orientation":
+            d = np.minimum(d % np.pi, np.pi - d % np.pi)
+            check(bool((d <= 1e-4).all()), f"orientation differs by {d.max()}")
+        elif k in ("intensity_skew", "intensity_kurtosis"):
+            np.testing.assert_allclose(o, r, rtol=1e-4, atol=1e-4, err_msg=k)
+        else:
+            np.testing.assert_allclose(o, r, rtol=1e-5, atol=1e-4, err_msg=k)
+        d = d[np.isfinite(d)]  # empty regions: ±inf sentinels on both sides
+        worst[k] = float(d.max()) if d.size else 0.0
+    return worst
+
+
+def phase_library(dev, limit: str) -> dict:
+    """The library functions of ``ops/`` on the card at loki's frame shape
+    (``LIBRARY_SHAPE``), each against the same call on the CPU (the plain
+    versions): ``fill_holes`` bit-exact (``ccl_fixpoint`` and K2 launched);
+    ``regionprops`` of the filled masks' labels (``label`` on the card; the
+    same labels on the CPU) at R = 64 with uint8 intensity and the
+    histogram (K3 launched) within
+    :func:`compare_library_props`' tolerances, ``isotropic_closing`` at
+    radius 2.5 and ``edt`` at ``max_distance`` 16 exact. Each call's launches
+    (counts set to 0 just before it) and its time by CUDA events. Returns
+    the launches of the calls."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops.edt import edt
+    from maze_image_processing_pipeline_tpu_torch.ops.label import label
+    from maze_image_processing_pipeline_tpu_torch.ops.morphology import isotropic_closing
+    from maze_image_processing_pipeline_tpu_torch.ops.regionprops import fill_holes, regionprops
+
+    mask, inten = library_inputs()
+    m_d, i_d = torch.from_numpy(mask).to(dev), torch.from_numpy(inten).to(dev)
+    state = {}
+    calls = (
+        ("fill_holes", lambda: state.update(filled=fill_holes(m_d)), ("ccl_fixpoint", "cumsum_rows")),
+        ("label", lambda: state.update(labels=label(state["filled"])[0]), ("ccl_fixpoint", "cumsum_rows")),
+        ("regionprops", lambda: state.update(props=regionprops(state["labels"], i_d, num_segments=LIBRARY_R,
+                                                               compute_histogram=True)), ("region_histogram",)),
+        ("isotropic_closing", lambda: state.update(closed=isotropic_closing(m_d, 2.5)), ()),
+        ("edt", lambda: state.update(dist=edt(m_d, 16)), ()),
+    )
+    total = dict.fromkeys(KERNELS, 0)
+    parts = []
+    for name, call, expected in calls:
+        reset_launches()
+        call()
+        torch.cuda.synchronize()
+        launches = read_launches(f"phase 13 ({name})", expected=expected,
+                                 absent=tuple(k for k in KERNELS if k not in expected))
+        for k, v in launches.items():
+            total[k] += v
+        ms = cuda_ms(call, iters=5)
+        parts.append(f"{name} {ms:.4f} ms, launches {({k: v for k, v in launches.items() if v})}")
+
+    m_c = torch.from_numpy(mask)
+    t0 = time.perf_counter()
+    filled_c = fill_holes(m_c)
+    t_fill = time.perf_counter() - t0
+    check(torch.equal(state["filled"].cpu(), filled_c), "fill_holes differs from the CPU run")
+    props_c = regionprops(state["labels"].cpu(), torch.from_numpy(inten), num_segments=LIBRARY_R,
+                          compute_histogram=True)
+    worst = compare_library_props(state["props"], props_c)
+    check(torch.equal(state["closed"].cpu(), isotropic_closing(m_c, 2.5)), "isotropic_closing differs from the CPU run")
+    check(torch.equal(state["dist"].cpu(), edt(m_c, 16)), "edt differs from the CPU run")
+    regions = int((props_c["area"][:, 1:] > 0).sum())
+    filled_px = int(filled_c.sum()) - int(m_c.sum())
+    say(f"  at {LIBRARY_SHAPE}: fill_holes ({filled_px} pixels filled) bit-exact; regionprops of the filled masks' "
+        f"labels ({regions} regions), R = {LIBRARY_R}, with the histogram: integer keys and histogram exact, the largest float "
+        f"differences {({k: float(f'{v:.3g}') for k, v in worst.items()})}; isotropic_closing(2.5) and edt(16) "
+        f"exact; against the CPU (fill_holes {t_fill:.2f} s there)")
+    say("  card, CUDA events (5 calls each): " + "; ".join(parts) + f" [{limit}]")
+    return total
 
 
 def main() -> int:
@@ -2974,6 +3162,10 @@ def main() -> int:
         if "--mesh" in sys.argv[1:]:
             say("phase 12 several cards:")
             phase_mesh(dev, limit, work)
+        if "--library" in sys.argv[1:]:
+            say("phase 13 library functions on the card:")
+            phase_library(dev, limit)
+        if {"--library", "--mesh"} & set(sys.argv[1:]):
             say(gpu_name_and_limit())
             say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                    "count": torch.cuda.device_count()}}))
@@ -3031,6 +3223,11 @@ def main() -> int:
         launches[12], split = phase_mesh(dev, limit, work)
         measured.update(split)
         say(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+
+        say("phase 13 library functions on the card:")
+        t0 = time.perf_counter()
+        launches[13] = phase_library(dev, limit)
+        say(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(not any(m == "jax" or m.startswith(("jax.", "maze_image_processing_pipeline_tpu."))

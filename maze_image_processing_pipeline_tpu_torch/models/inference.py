@@ -18,9 +18,11 @@ multiple of the share count, as the JAX package pads it),
 ``DeviceTiledInference`` each bucket of a chunk (a share's cards infer,
 blend and measure it); the results are gathered in order, and outputs do
 not depend on the mesh. A share is one card with a replica of the module,
-or, for a U-Net whose convs the ``model`` axis splits, the ``model`` cards
-of one ``data`` × ``space`` index running it sharded
-(:class:`.unet.ShardedUNet`). The ``space`` cards stay data replicas here:
+or, for a U-Net or a classifier whose layers the ``model`` axis splits, the
+``model`` cards of one ``data`` × ``space`` index running it sharded
+(:class:`.unet.ShardedUNet`, :class:`.classifier.ShardedClassifier`; the
+JAX package's polytaxo node shards the classifier's parameters the same
+way). The ``space`` cards stay data replicas here:
 the JAX package's inference splits the batch over ``data`` only
 (``PartitionSpec("data")``) and replicates it over ``space``.
 
@@ -45,6 +47,7 @@ from ..engine.batch import Batch
 from ..engine.core import Node, Output, RawOrVariable, ReturnOutputs, Stream, closing_if_closable
 from ..engine.tiles import _linear_weight, _tile_starts
 from ..parallel.mesh import mesh_devices, mesh_grid, replicate, sharded_names, split_batch
+from .classifier import ConvClassifier, ShardedClassifier
 from .model_io import LoadedModel
 from .unet import ShardedUNet, UNet
 
@@ -64,13 +67,19 @@ _TORCH_DTYPES = {
 }
 
 
+# The networks that run sharded over a mesh's ``model`` (and, in training,
+# ``space``) cards, and their sharded forms.
+SHARDED = {UNet: ShardedUNet, ConvClassifier: ShardedClassifier}
+
+
 def _placement(module: torch.nn.Module, mesh, device):
     """(devices, forwards): the device that takes a share of each batch and
     the forward that runs it (module docstring)."""
-    if mesh is not None and isinstance(module, UNet) and sharded_names(module, mesh_grid(mesh).shape[2]):
+    sharded_type = SHARDED.get(type(module))
+    if mesh is not None and sharded_type is not None and sharded_names(module, mesh_grid(mesh).shape[2]):
         for d in mesh.devices.flat:
             resolve_device(d)
-        sharded = ShardedUNet(module, mesh, space=False)
+        sharded = sharded_type(module, mesh, space=False)
         groups = range(sharded.groups)
         return [sharded.root(g) for g in groups], [functools.partial(sharded, group=g) for g in groups]
     devices = [resolve_device(d) for d in mesh_devices(mesh, device)]

@@ -12,6 +12,10 @@ and writes it without flax or the ``msgpack`` package:
   port's modules, which carry the flax module names (conv kernels HWIO →
   OIHW, ``kernel``/``scale`` → ``weight``). It is the inverse of the JAX
   package's ``import_torch_state_dict``;
+* :func:`import_torch_state_dict` — a copy of that function: a torch state
+  dict of a module that mirrors the flax architecture layer for layer → the
+  flax tree of ``flax_params``' layout (so a reference TorchScript
+  checkpoint's weights reach the port through :func:`params_from_jax`);
 * :func:`load_model` — meta.json + params.msgpack → :class:`LoadedModel`;
 * :func:`msgpack_serialize`, :func:`params_to_jax` and :func:`save_model`
   — the inverse: a module → a checkpoint directory that the JAX package's
@@ -49,6 +53,7 @@ __all__ = [
     "msgpack_serialize",
     "params_from_jax",
     "params_to_jax",
+    "import_torch_state_dict",
     "adam_state_from_optax",
     "save_model",
     "init_unet_params",
@@ -292,6 +297,97 @@ def params_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
             out[".".join(path + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
 
     walk(params, ())
+    return out
+
+
+def import_torch_state_dict(state_dict: Dict, flax_params: Dict) -> Dict:
+    """Map a torch state dict onto a flax param pytree of the same topology.
+
+    Modules are matched in order: the nested flax params dict is walked in
+    INSERTION order (= flax module call order; ``tree_flatten_with_path``
+    would sort alphabetically, putting ``bias`` before ``kernel`` and
+    ``ConvBlock_10`` before ``ConvBlock_2``), and the torch state dict is
+    grouped by submodule prefix in its own order — so the torch module must
+    mirror the flax architecture layer-for-layer *in definition order*.
+    Within each module, params match by name: torch ``weight`` → flax
+    ``kernel`` (conv OIHW → HWIO, linear (out, in) → (in, out)) or
+    ``scale`` (norm layers), ``bias`` → ``bias``.
+    """
+
+    def walk(d, path=()):
+        for k, v in d.items():
+            if isinstance(v, Mapping) or hasattr(v, "items"):
+                yield from walk(v, path + (k,))
+            else:
+                yield path + (k,), v
+
+    flax_modules: Dict[tuple, Dict[str, np.ndarray]] = {}
+    for path, leaf in walk(flax_params):
+        flax_modules.setdefault(path[:-1], {})[path[-1]] = leaf
+
+    torch_modules: Dict[str, Dict[str, np.ndarray]] = {}
+    for k, v in state_dict.items():
+        if "num_batches_tracked" in k:
+            continue
+        prefix, _, name = k.rpartition(".")
+        torch_modules.setdefault(prefix, {})[name] = np.asarray(v)
+
+    if len(flax_modules) != len(torch_modules):
+        raise ValueError(
+            f"Module count mismatch: flax {len(flax_modules)} "
+            f"({list(flax_modules)}) vs torch {len(torch_modules)} "
+            f"({list(torch_modules)})"
+        )
+
+    out: Dict = {}  # fresh nested dicts: works for FrozenDict inputs too
+
+    def assign(d, path, value):
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = value
+
+    for (fpath, fleaves), (tname, tleaves) in zip(
+        flax_modules.items(), torch_modules.items()
+    ):
+        # Every torch param must be CONSUMED, not just every flax param
+        # satisfied: e.g. a torch BatchNorm ({weight, bias, running_mean,
+        # running_var}) zipped against a flax GroupNorm ({scale, bias})
+        # would otherwise "import" while silently dropping the running
+        # statistics the checkpoint's semantics depend on.
+        consumed = {
+            "weight" if ln in ("kernel", "scale") and "weight" in tleaves else ln
+            for ln in fleaves
+        }
+        unconsumed = set(tleaves) - consumed
+        if unconsumed:
+            raise ValueError(
+                f"Torch module '{tname}' has params {sorted(unconsumed)} "
+                f"with no counterpart in flax module {fpath} "
+                f"({sorted(fleaves)}) — the architectures differ "
+                "(e.g. BatchNorm running stats vs a stateless norm)."
+            )
+        for leaf_name, target in fleaves.items():
+            if leaf_name in ("kernel", "scale") and "weight" in tleaves:
+                arr = tleaves["weight"]
+                if leaf_name == "kernel" and arr.ndim == 4:
+                    arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+                elif leaf_name == "kernel" and arr.ndim == 2:
+                    arr = arr.T  # (out, in) -> (in, out)
+            elif leaf_name in tleaves:
+                arr = tleaves[leaf_name]
+            else:
+                raise ValueError(
+                    f"No torch param for {fpath + (leaf_name,)} in "
+                    f"{tname} ({sorted(tleaves)})"
+                )
+            target = np.asarray(target)
+            if arr.shape != target.shape:
+                raise ValueError(
+                    f"Shape mismatch at {fpath + (leaf_name,)} / {tname}: "
+                    f"{arr.shape} vs {target.shape}"
+                )
+            assign(out, fpath + (leaf_name,), arr.astype(target.dtype))
+
     return out
 
 

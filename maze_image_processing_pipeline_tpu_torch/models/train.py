@@ -20,21 +20,25 @@ Every GroupNorm of the forward runs K5 on the card and its backward K6
 With a ``mesh`` (:func:`..parallel.make_mesh`) the step runs over the
 mesh's cards, as the JAX package's ``mesh`` step, in one of two ways:
 
-* A :class:`.unet.UNet` on a mesh with ``space`` cards, or with ``model``
-  cards and a conv ``parallel.mesh.shard_params`` splits, is sharded:
+* A :class:`.unet.UNet` or :class:`.classifier.ConvClassifier` on a mesh
+  with ``space`` cards, or with ``model`` cards and a layer
+  ``parallel.mesh.shard_params`` splits, is sharded (dp × sp × tp):
   :func:`create_train_state` places its weights as ``shard_params`` does
-  (:class:`.unet.ShardedUNet`; ``state.module`` is that), the batch is split
-  over the ``data`` groups, each group runs its share through its ``space``
-  × ``model`` cards, each share's loss is weighted by its share of the
-  batch, every gradient is summed over the cards that hold the same slice
-  onto its owner, AdamW updates each slice on the card that holds it, and
-  the new values are copied to the other holders.
-* Otherwise (any module on a ``data`` mesh, the classifier whatever the
-  axes) every card is a data replica: the module lies on the mesh's first
-  device and a replica on each other card; the batch is split over the
-  mesh's devices; each replica's loss is weighted by its share of the batch
-  and its gradients are summed onto the first card, where AdamW steps; the
-  parameters are copied to the replicas before the next step's forward.
+  (:class:`.unet.ShardedUNet` / :class:`.classifier.ShardedClassifier`;
+  ``state.module`` is that), the batch is split over the ``data`` groups,
+  each group runs its share through its ``space`` × ``model`` cards (image
+  rows over ``space``, wide output channels over ``model``), each share's
+  loss is weighted by its share of the batch, every gradient is summed over
+  the cards that hold the same slice onto its owner, AdamW updates each
+  slice on the card that holds it, and the new values are copied to the
+  other holders.
+* Otherwise (any module on a ``data`` mesh, a module the ``model`` axis
+  splits nothing of) every card is a data replica: the module lies on the
+  mesh's first device and a replica on each other card; the batch is split
+  over the mesh's devices; each replica's loss is weighted by its share of
+  the batch and its gradients are summed onto the first card, where AdamW
+  steps; the parameters are copied to the replicas before the next step's
+  forward.
 
 The batch must divide by the ``data`` axis, as ``shard_batch_spec`` needs.
 Both losses are means of per-sample terms over whole images (GroupNorm
@@ -54,9 +58,9 @@ from torch import nn
 
 from ..parallel.mesh import mesh_grid, replicate, sharded_names, split_batch
 from .classifier import ConvClassifier
-from .inference import resolve_device
+from .inference import SHARDED, resolve_device
 from .model_io import init_classifier_params, init_unet_params, params_from_jax
-from .unet import ShardedUNet, UNet
+from .unet import ShardedNet, UNet
 
 __all__ = [
     "bce_dice_loss",
@@ -120,11 +124,11 @@ def _init_params(module: nn.Module, in_channels: int, seed: int) -> Dict:
 
 def shards(module, mesh) -> bool:
     """Whether the train step shards ``module`` over ``mesh`` (module
-    docstring): a U-Net, on a mesh with ``space`` cards or with ``model``
-    cards that split one of its convs."""
-    if isinstance(module, ShardedUNet):
+    docstring): a U-Net or a classifier, on a mesh with ``space`` cards or
+    with ``model`` cards that split one of its layers."""
+    if isinstance(module, ShardedNet):
         return True
-    if mesh is None or not isinstance(module, UNet):
+    if mesh is None or type(module) not in SHARDED:
         return False
     _, S, M = mesh_grid(mesh).shape
     return S > 1 or bool(sharded_names(module, M))
@@ -153,7 +157,8 @@ def create_train_state(
         device: the card by default; raises without one unless ``"cpu"``.
         mesh: with a mesh that :func:`shards` the module, its weights are
             placed on the mesh's cards and ``state.module`` is the
-            :class:`.unet.ShardedUNet`; with any other mesh the module goes
+            :class:`.unet.ShardedUNet` or
+            :class:`.classifier.ShardedClassifier`; with any other mesh the module goes
             to the mesh's first device, where :func:`make_train_step` keeps
             the state. ``device`` is not read.
 
@@ -170,7 +175,7 @@ def create_train_state(
     if shards(module, mesh):
         for d in mesh.devices.flat:
             resolve_device(d)
-        module = ShardedUNet(module.train(), mesh)
+        module = SHARDED[type(module)](module.train(), mesh)
     else:
         module.to(dev).train()
     params = module.parameters()
@@ -192,7 +197,7 @@ def make_train_step(
     tensors) go to the module's device as float32. The loss comes back as a
     0-d tensor on that device (reading it waits for the step). With a
     ``mesh`` the step is sharded where :func:`shards` says so (it runs
-    ``state.module``, the :class:`.unet.ShardedUNet`), else data-parallel
+    ``state.module``, the sharded network), else data-parallel
     over the mesh's devices with the module on the mesh's first device
     (module docstring)."""
     if shards(module, mesh):
@@ -268,7 +273,7 @@ def _mesh_step(module: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Cal
 def _sharded_step(optimizer: torch.optim.Optimizer, loss_fn: Callable):
     def step(state: TrainState, images, targets):
         model = state.module
-        if not isinstance(model, ShardedUNet):
+        if not isinstance(model, ShardedNet):
             raise TypeError("make_train_step: a sharded step needs the state of create_train_state(..., mesh=mesh)")
         x = torch.as_tensor(images)
         y = torch.as_tensor(targets)

@@ -14,7 +14,9 @@ by name (:func:`.model_io.params_from_jax`).
 
 :class:`ShardedUNet` runs the same U-Net over a mesh's ``space`` and
 ``model`` cards (one group of them a ``data`` index), with its weights
-placed as ``parallel.mesh.shard_params`` places them.
+placed as ``parallel.mesh.shard_params`` places them; its placement, halo,
+gather and norm helpers (:class:`ShardedNet`) serve the sharded
+classifier too (``models.classifier.ShardedClassifier``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from torch import nn
 from ..parallel.mesh import mesh_grid, place_params, sharded_names, space_rows
 from .layers import GroupNorm, group_norm, sharded_group_norm
 
-__all__ = ["UNet", "ConvBlock", "ShardedUNet"]
+__all__ = ["UNet", "ConvBlock", "ShardedNet", "ShardedUNet"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -132,10 +134,10 @@ class UNet(nn.Module):
 
 
 class _Act:
-    """An activation of a :class:`ShardedUNet` group: ``split`` over
-    ``model`` (``t[s][m]``: shard s's rows, slice m of the channels, on card
-    (s, m)) or whole (``t[s]``: shard s's rows, every channel, on card (s,
-    0)). Whole copies on other cards are made when asked for, once."""
+    """An activation of a sharded network's group: ``split`` over ``model``
+    (``t[s][m]``: shard s's rows, slice m of the channels, on card (s, m))
+    or whole (``t[s]``: shard s's rows, every channel, on card (s, 0)).
+    Whole copies on other cards are made when asked for, once."""
 
     def __init__(self, split: bool, t) -> None:
         self.split = split
@@ -143,54 +145,54 @@ class _Act:
         self.copies: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-class ShardedUNet:
-    """A :class:`UNet` over a mesh: each ``data`` index runs one copy of the
-    network on its group of ``space`` × ``model`` cards.
+class ShardedNet:
+    """A network over a mesh: each ``data`` index runs one copy of it on its
+    group of ``space`` × ``model`` cards. The placement and the activation
+    helpers that :class:`ShardedUNet` and
+    ``models.classifier.ShardedClassifier`` share.
 
     * Placement: ``parallel.mesh.place_params``: every card holds the wide
-      convs' slice of output channels that its ``model`` index takes, and
+      layers' slice of output channels that its ``model`` index takes, and
       every other parameter whole. Each card's tensors are leaves of their
       own; :meth:`parameters` are those of the first ``data`` and ``space``
       index (the owners, one of each slice), :meth:`reduce_grads` sums every
       copy's gradient onto its owner and :meth:`sync` copies the owners'
       values back to the other copies.
-    * ``space``: image rows cut by ``parallel.mesh.space_rows`` (whole
-      multiples of ``2**depth``); before each 3×3 conv a shard takes one
-      halo row from each neighbour, before each up-path 2×2 "SAME" conv one
-      from the shard below; the image's top and bottom stay zero-padded.
-      Pooling, upsampling and the skip concatenation stay on the shard. A
-      shard with no rows takes no part.
-    * ``model``: a split conv's card computes its slice of the output
+    * ``space``: image rows cut into shares, one a ``space`` card; a conv
+      takes halo rows from the neighbouring shares (:meth:`_halo`), zeros at
+      the image's top and bottom. A shard with no rows takes no part.
+    * ``model``: a split layer's card computes its slice of the output
       channels from the whole input; the slices are gathered onto a card
-      where an op needs every channel (a conv, the skip concatenation). A
-      whole conv runs once a row shard, on the card of ``model`` index 0,
-      and its output is copied where a split conv needs it.
+      where an op needs every channel (:meth:`_whole`). A whole layer runs
+      once a row shard, on the card of ``model`` index 0, and its output is
+      copied where a split layer needs it.
     * Norms: a norm whose groups lie whole on one card runs the unsharded
       K5/K6 there; any other (rows over several cards, or a group that
       straddles slices) is ``layers.sharded_group_norm`` over the shards
-      that hold its groups.
+      that hold its groups (:meth:`_norm`).
 
     Halos, gathers and copies are tensor copies between the cards of the
     process; autograd carries the backward through them. The result equals
-    the unsharded U-Net's within float tolerance.
+    the unsharded network's within float tolerance.
 
     Args:
-        unet: the network (its configuration and parameters; the module
-            itself is not changed).
+        module: the network (its configuration and parameters; the module
+            itself is not changed). Its ``dtype`` is the compute dtype,
+            ``norm`` whether its convs are followed by GroupNorms.
         mesh: a ``parallel.mesh.Mesh``.
         space: False folds the ``space`` axis into ``data`` (inference,
             which splits batches only, as the JAX package's).
     """
 
-    def __init__(self, unet: UNet, mesh, space: bool = True) -> None:
+    def __init__(self, module: nn.Module, mesh, space: bool = True) -> None:
         grid = mesh_grid(mesh)
         if not space:
             grid = grid.reshape(-1, 1, grid.shape[2])
-        self.unet = unet
+        self.module = module
         self.grid = grid
-        self.split = set(sharded_names(unet, grid.shape[2]))
-        self.names = [n for n, _ in unet.named_parameters()]
-        self.params = place_params(unet, grid)
+        self.split = set(sharded_names(module, grid.shape[2]))
+        self.names = [n for n, _ in module.named_parameters()]
+        self.params = place_params(module, grid)
         for held in self.params.values():
             for t in held.values():
                 t.requires_grad_(True)
@@ -202,7 +204,7 @@ class ShardedUNet:
         return self.grid.shape[0]
 
     def root(self, group: int = 0) -> torch.device:
-        """The card that takes a group's input and returns its logits."""
+        """The card that takes a group's input and returns its output."""
         return self.grid[group, 0, 0]
 
     def _holders(self, name: str):
@@ -277,42 +279,20 @@ class ShardedUNet:
                 v = torch.as_tensor(state[n])
                 t.copy_(v.chunk(M)[idx[2]] if n in self.split else v)
 
-    # -- the forward ---------------------------------------------------------
-
     def __call__(self, x: torch.Tensor, group: int = 0) -> torch.Tensor:
         return self.forward(x, group)
 
-    def forward(self, x: torch.Tensor, group: int = 0) -> torch.Tensor:
-        """(B, H, W, C) images → (B, H, W, out_channels) float32 logits on
-        :meth:`root`, through group ``group``'s cards."""
-        u = self.unet
+    # -- the activations -----------------------------------------------------
+
+    def _start(self, x: torch.Tensor, group: int, rows: List[slice]) -> _Act:
+        """The group's cards for a forward over the row shares ``rows`` of
+        (B, H, W, C) images ``x``: each share on its card (s, 0), NCHW in
+        the compute dtype."""
         cards = self.grid[group]
-        rows = [r for r in space_rows(x.shape[1], cards.shape[0], u.depth) if r.stop > r.start]
         self._cards = cards[: len(rows)]
         self._held = [[self.params[(group, s, m)] for m in range(cards.shape[1])] for s in range(len(rows))]
-        act = _Act(False, [x[:, r].to(self._cards[s, 0]).to(u.dtype).permute(0, 3, 1, 2) for s, r in enumerate(rows)])
-        skips = []
-        for i in range(u.depth):
-            act = self._block(act, f"ConvBlock_{i}")
-            skips.append(act)
-            act = self._each(act, lambda t: F.max_pool2d(t, 2))
-        act = self._block(act, f"ConvBlock_{u.depth}")
-        for i in reversed(range(u.depth)):
-            act = self._each(act, lambda t: t.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3))
-            act = self._conv(act, f"Conv_{u.depth - 1 - i}", up=True)
-            act = _Act(False, [torch.cat([self._whole(skips[i], s, 0), self._whole(act, s, 0)], dim=1)
-                               for s in range(len(rows))])
-            act = self._block(act, f"ConvBlock_{2 * u.depth - i}")
-        head = f"Conv_{u.depth}"
-        logits = []
-        for s in range(len(rows)):
-            w, b = self._held[s][0][f"{head}.weight"], self._held[s][0][f"{head}.bias"]
-            if f"{head}.weight" in self.split:  # the whole weight on card (s, 0)
-                w = torch.cat([h[f"{head}.weight"].to(self._cards[s, 0]) for h in self._held[s]])
-                b = torch.cat([h[f"{head}.bias"].to(self._cards[s, 0]) for h in self._held[s]])
-            y = F.conv2d(self._whole(act, s, 0).float(), w, b)
-            logits.append(y.permute(0, 2, 3, 1).to(self.root(group)))
-        return torch.cat(logits, dim=1)
+        dt = self.module.dtype
+        return _Act(False, [x[:, r].to(self._cards[s, 0]).to(dt).permute(0, 3, 1, 2) for s, r in enumerate(rows)])
 
     def _each(self, act: _Act, f) -> _Act:
         return _Act(act.split, [[f(t) for t in ts] for ts in act.t] if act.split else [f(t) for t in act.t])
@@ -331,12 +311,11 @@ class ShardedUNet:
             act.copies[(s, m)] = self._rows(act, s, slice(None), self._cards[s, m])
         return act.copies[(s, m)]
 
-    def _conv(self, act: _Act, name: str, up: bool = False) -> _Act:
-        """Conv ``name`` of each shard: a 3×3 conv (padding 1), or with
-        ``up`` the up path's 2×2 "SAME" conv (padding (0, 1) on each axis,
-        as in flax); rows beyond a shard come from its neighbours, zeros at
-        the image's top and bottom."""
-        dt = self.unet.dtype
+    def _conv(self, act: _Act, name: str, conv) -> _Act:
+        """Conv ``name`` of each shard, by ``conv(act, s, x, dev, w, b)`` on
+        shard ``s``'s every channel ``x`` on card ``dev``: on each card of
+        its ``model`` slices where the layer is split, else on (s, 0)."""
+        dt = self.module.dtype
         split = f"{name}.weight" in self.split
         out = []
         for s in range(len(self._cards)):
@@ -344,7 +323,6 @@ class ShardedUNet:
             for m in range(self._cards.shape[1] if split else 1):
                 held = self._held[s][m]
                 w, b = held[f"{name}.weight"].to(dt), held[f"{name}.bias"].to(dt)
-                conv = self._conv_up if up else self._conv3x3
                 outs.append(conv(act, s, self._whole(act, s, m), self._cards[s, m], w, b))
             out.append(outs if split else outs[0])
         return _Act(split, out)
@@ -357,9 +335,10 @@ class ShardedUNet:
         return x.new_zeros(x.shape[:2] + (1, x.shape[3]))
 
     def _conv3x3(self, act: _Act, s: int, x: torch.Tensor, dev, w, b) -> torch.Tensor:
-        """The shard alone with zero rows, then its first and last rows again
-        from three-row windows that take the neighbours' rows. The shard
-        itself is not copied, so autograd keeps one copy of it."""
+        """A stride-1 3×3 conv with one zero row and column on each side of
+        the image: the shard alone with zero rows, then its first and last
+        rows again from three-row windows that take the neighbours' rows.
+        The shard itself is not copied, so autograd keeps one copy of it."""
         S = len(self._cards)
         if S == 1:
             return F.conv2d(x, w, b, padding=1)
@@ -376,12 +355,6 @@ class ShardedUNet:
             last = F.conv2d(torch.cat([x[:, :, -2:], self._halo(act, s + 1, slice(0, 1), x, dev)], dim=2), w, b,
                             padding=(0, 1))
         return torch.cat([first, y[:, :, 1:-1], last], dim=2)
-
-    def _conv_up(self, act: _Act, s: int, x: torch.Tensor, dev, w, b) -> torch.Tensor:
-        """The shard with the first row of the shard below (a zero row at the
-        image's bottom) and a zero column on the right."""
-        x = torch.cat([x, self._halo(act, s + 1, slice(0, 1), x, dev)], dim=2)
-        return F.conv2d(F.pad(x, (0, 1)), w, b)
 
     def _norm(self, act: _Act, name: str) -> _Act:
         """GroupNorm ``name`` (min(8, C) groups) of ``act``."""
@@ -415,11 +388,58 @@ class ShardedUNet:
             return _Act(True, [[out[(s, m)] for m in range(len(act.t[0]))] for s in range(S)])
         return _Act(False, [out[(s, 0)] for s in range(S)])
 
+
+class ShardedUNet(ShardedNet):
+    """A :class:`UNet` over a mesh (:class:`ShardedNet`): image rows cut by
+    ``parallel.mesh.space_rows`` (whole multiples of ``2**depth``); before
+    each 3×3 conv a shard takes one halo row from each neighbour, before
+    each up-path 2×2 "SAME" conv one from the shard below. Pooling,
+    upsampling and the skip concatenation stay on the shard. Built as
+    ``ShardedUNet(unet, mesh, space=True)`` (:class:`ShardedNet`'s
+    arguments).
+    """
+
+    def forward(self, x: torch.Tensor, group: int = 0) -> torch.Tensor:
+        """(B, H, W, C) images → (B, H, W, out_channels) float32 logits on
+        :meth:`root`, through group ``group``'s cards."""
+        u = self.module
+        rows = [r for r in space_rows(x.shape[1], self.grid.shape[1], u.depth) if r.stop > r.start]
+        act = self._start(x, group, rows)
+        skips = []
+        for i in range(u.depth):
+            act = self._block(act, f"ConvBlock_{i}")
+            skips.append(act)
+            act = self._each(act, lambda t: F.max_pool2d(t, 2))
+        act = self._block(act, f"ConvBlock_{u.depth}")
+        for i in reversed(range(u.depth)):
+            act = self._each(act, lambda t: t.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3))
+            act = self._conv(act, f"Conv_{u.depth - 1 - i}", self._conv_up)
+            act = _Act(False, [torch.cat([self._whole(skips[i], s, 0), self._whole(act, s, 0)], dim=1)
+                               for s in range(len(rows))])
+            act = self._block(act, f"ConvBlock_{2 * u.depth - i}")
+        head = f"Conv_{u.depth}"
+        logits = []
+        for s in range(len(rows)):
+            w, b = self._held[s][0][f"{head}.weight"], self._held[s][0][f"{head}.bias"]
+            if f"{head}.weight" in self.split:  # the whole weight on card (s, 0)
+                w = torch.cat([h[f"{head}.weight"].to(self._cards[s, 0]) for h in self._held[s]])
+                b = torch.cat([h[f"{head}.bias"].to(self._cards[s, 0]) for h in self._held[s]])
+            y = F.conv2d(self._whole(act, s, 0).float(), w, b)
+            logits.append(y.permute(0, 2, 3, 1).to(self.root(group)))
+        return torch.cat(logits, dim=1)
+
+    def _conv_up(self, act: _Act, s: int, x: torch.Tensor, dev, w, b) -> torch.Tensor:
+        """The up path's 2×2 "SAME" conv (padding (0, 1) on each axis, as in
+        flax): the shard with the first row of the shard below (a zero row
+        at the image's bottom) and a zero column on the right."""
+        x = torch.cat([x, self._halo(act, s + 1, slice(0, 1), x, dev)], dim=2)
+        return F.conv2d(F.pad(x, (0, 1)), w, b)
+
     def _block(self, act: _Act, prefix: str) -> _Act:
         """A ConvBlock: two (3×3 conv → GroupNorm → ReLU)."""
         for k in range(2):
-            act = self._conv(act, f"{prefix}.Conv_{k}")
-            if self.unet.norm:
+            act = self._conv(act, f"{prefix}.Conv_{k}", self._conv3x3)
+            if self.module.norm:
                 act = self._norm(act, f"{prefix}.GroupNorm_{k}")
             act = self._each(act, F.relu)
         return act

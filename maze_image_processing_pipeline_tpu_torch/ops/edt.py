@@ -9,7 +9,8 @@ Counterpart of ``maze_image_processing_pipeline_tpu/ops/edt.py``:
 
 Within the bound ``r`` the result is the exact squared EDT; beyond it values
 clamp to ``(r+1)²``. Pixels outside the image are never sites. Int32
-throughout.
+throughout; :func:`edt` is the square root of :func:`squared_edt` in
+float32.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["squared_edt"]
+__all__ = ["squared_edt", "edt"]
 
 
 def _row_distance_to_site(sites: torch.Tensor) -> torch.Tensor:
@@ -61,3 +62,8 @@ def squared_edt(sites: torch.Tensor, max_distance: int) -> torch.Tensor:
         right = g2_padded[..., r + dx : r + dx + W]
         result = torch.minimum(result, torch.minimum(left, right) + dx * dx)
     return torch.clamp(result, max=cap)
+
+
+def edt(sites: torch.Tensor, max_distance: int) -> torch.Tensor:
+    """Euclidean distance to the nearest True pixel (float32), bounded."""
+    return torch.sqrt(squared_edt(sites, max_distance).to(torch.float32))

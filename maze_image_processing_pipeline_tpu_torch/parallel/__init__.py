@@ -6,24 +6,25 @@ package's meaning (``parallel.mesh.mesh_grid`` orders the cards as data ×
 space × model, any other axis folded into ``data``):
 
 * ``data``: samples. Each ``data`` index takes a share of every batch.
-* ``space``: image rows, in training. A U-Net's train step
-  (``models.train.make_train_step(..., mesh=)``) cuts each image's rows
-  over the ``space`` cards (``parallel.mesh.space_rows``), with halo rows
-  exchanged before each conv and GroupNorm statistics summed over the
-  shards (``models.layers.sharded_group_norm``: K5/K6's partials and apply
-  launches). Inference splits batches over ``data`` only, as the JAX
-  package's (``PartitionSpec("data")``), so there the ``space`` cards are
-  data replicas.
+* ``space``: image rows, in training. The train step of a U-Net or of
+  the ConvClassifier (``models.train.make_train_step(..., mesh=)``) cuts
+  each image's rows over the ``space`` cards (``parallel.mesh.space_rows``),
+  with halo rows exchanged before each conv and GroupNorm statistics summed
+  over the shards (``models.layers.sharded_group_norm``: K5/K6's partials
+  and apply launches). Inference splits batches over ``data`` only, as the
+  JAX package's (``PartitionSpec("data")``), so there the ``space`` cards
+  are data replicas.
 * ``model``: wide output channels. ``parallel.mesh.shard_params`` splits
-  every conv weight (and its bias) of at least 64 output channels that
+  every conv or dense weight (and its bias) of at least 64 outputs that
   divide by the axis over its cards, as the JAX package's rule; the U-Net
-  (``models.unet.ShardedUNet``) computes each slice on its card and
-  gathers the slices where an op needs every channel, in training and in
-  both inference nodes.
+  (``models.unet.ShardedUNet``) and the classifier
+  (``models.classifier.ShardedClassifier``) compute each slice on its card
+  and gather the slices where an op needs every channel, in training and
+  in inference (both nodes for the U-Net, ``TorchInference`` for the
+  classifier).
 
-Where the axes shard nothing (a ``data`` mesh, a U-Net with no conv wide
-enough, the ConvClassifier, the loki device path) every card is a data
-replica:
+Where the axes shard nothing (a ``data`` mesh, a network with no layer
+wide enough, the loki device path) every card is a data replica:
 
 * inference: a replica of the module on each card; ``TorchInference``
   splits each batch over the cards, ``DeviceTiledInference`` each bucket of

@@ -5,9 +5,9 @@ Counterpart of ``dryrun_multichip`` in the repository's
 and a small LOKI haul through the loki Runner, each on a mesh of ``n``
 devices, the haul's archive held equal to the one-device run's. ``n`` is
 factored into ``data`` × ``space`` × ``model`` axes as the JAX dry run
-factors it; on four or more devices the train step's U-Net is sharded over
-``space`` and ``model`` and the inference U-Net over ``model``
-(:mod:`..parallel`).
+factors it; on four or more devices the train steps of the U-Net and of
+the classifier are sharded over ``space`` and ``model`` and the inference
+U-Net over ``model`` (:mod:`..parallel`).
 
     python -m maze_image_processing_pipeline_tpu_torch.parallel.dryrun [n] [--device cpu]
 
@@ -40,14 +40,15 @@ def factor_axes(n: int) -> Dict[str, int]:
 
 
 def dryrun_multichip(n_devices: Optional[int] = None, device="cuda", log=print) -> Dict[str, object]:
-    """Run the mesh train step, ``TorchInference``, ``DeviceTiledInference``
+    """Run the mesh train steps (a U-Net and a classifier), ``TorchInference``, ``DeviceTiledInference``
     and a small loki haul on an ``n_devices`` mesh of ``device`` (every card
     by default; CPU replicas for ``"cpu"``). Raises where a result is wrong
     or ``n_devices`` exceeds the cards. Returns what it checked."""
     from ..engine import Pipeline, Unpack
     from ..models.inference import DeviceTiledInference, TorchInference, resolve_device
     from ..models.model_io import LoadedModel, init_unet_params, params_from_jax
-    from ..models.train import create_train_state, make_train_step
+    from ..models.classifier import ConvClassifier
+    from ..models.train import bce_loss, create_train_state, make_train_step
     from ..models.unet import UNet
     from .mesh import make_mesh
 
@@ -81,6 +82,19 @@ def dryrun_multichip(n_devices: Optional[int] = None, device="cuda", log=print) 
     out["train_loss"] = loss
     out["train_sharded"] = type(state.module).__name__ == "ShardedUNet"
     log(f"dryrun_multichip train OK: mesh={axes} loss={loss:.4f} sharded={out['train_sharded']}")
+
+    # The classifier's train step (its 64-wide conv and head split over model).
+    clf = ConvClassifier(n_outputs=64, features=(16, 64), dtype="float32")
+    state, opt = create_train_state(clf, (batch, 32, 32, 3), mesh=mesh)
+    step = make_train_step(clf, opt, loss_fn=bce_loss, mesh=mesh)
+    targets = (np.random.default_rng(1).random((batch, 64)) > 0.5).astype(np.float32)
+    state, metrics = step(state, x, targets)
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"dryrun_multichip: classifier train loss {loss}")
+    out["classifier_loss"] = loss
+    out["classifier_sharded"] = type(state.module).__name__ == "ShardedClassifier"
+    log(f"dryrun_multichip classifier train OK: mesh={axes} loss={loss:.4f} sharded={out['classifier_sharded']}")
 
     # Inference over the mesh.
     cfg = dict(out_channels=2, base_features=16, depth=2)

@@ -14,6 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_worker_runs_the_checkouts_loki_task(tmp_path, monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the worker's intra-op threads: the test workers share the cores
     data = make_loki_tree(str(tmp_path / "data"), n_frames=2, objects_per_frame=3, frame_shape=(256, 320), seed=8)
     unet = write_unet(str(tmp_path / "unet"), dict(out_channels=1, base_features=8, depth=2), "float32", seed=0,
                       gain=1000.0)

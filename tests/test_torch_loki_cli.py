@@ -45,6 +45,16 @@ ARCH = "threshold_net_cli"
 ARCHIVE = "LOKI_PS122-1_7.zip"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the parallel test workers share the cores, and
+    torch's per-worker thread pools oversubscribe them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class ThresholdNet(nn.Module):
     threshold: float = 60.0 / 255.0
     scale: float = 500.0
@@ -153,7 +163,7 @@ def test_cli_runs_loki_and_prints_the_config(haul, models, tmp_path):
 
     task_fn = tmp_path / "task.yaml"
     task_fn.write_text(yaml.safe_dump(_task(haul / "data", models["unet"], tmp_path / "out")))
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     cli = [sys.executable, "-m", "maze_image_processing_pipeline_tpu_torch.cli"]
     res = subprocess.run(cli + ["loki", str(task_fn)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)

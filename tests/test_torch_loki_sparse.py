@@ -21,6 +21,7 @@ floats within rtol 1e-5 / atol 1e-3, decoded images and masks equal).
 import os
 
 import pytest
+import torch
 
 import chip_smoke
 from maze_image_processing_pipeline_tpu.loki.pipeline import Runner as JaxRunner
@@ -30,6 +31,16 @@ from maze_image_processing_pipeline_tpu_torch.tools import bench_e2e, synth
 ARCHIVE = "LOKI_PS122-1_7.zip"
 FRAMES, FRAME_SHAPE, SEED = 8, (256, 320), 3
 TILE, STRIDE = 256, 224  # the haul's 1024 / 896, shrunk with the frames
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the parallel test workers share the cores, and
+    torch's per-worker thread pools oversubscribe them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _objects_per_frame(sample: str) -> list:

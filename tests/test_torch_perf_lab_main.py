@@ -18,6 +18,16 @@ import torch
 from maze_image_processing_pipeline_tpu_torch.tools import perf_lab
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the parallel test workers share the cores, and
+    torch's per-worker thread pools oversubscribe them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_lab_main_runs_on_the_cpu(capsys):
     results = perf_lab.main(["--shape", "64x80", "--device", "cpu"])
     assert set(results) == set(perf_lab.EXPERIMENTS) | {f"{e}_fps" for e in perf_lab.EXPERIMENTS

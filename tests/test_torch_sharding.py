@@ -20,6 +20,14 @@ the same weights through ``params_from_jax``):
   splits, each card holds its slice, and each ``space`` card's activations
   its share of rows.
 
+The ``ConvClassifier`` sharded the same way (``models.classifier.
+ShardedClassifier``), at ``features (16, 64)``, ``n_outputs 64`` on 32²
+inputs: its train step on ``{data: 1, space: 2, model: 2}``, ``{model:
+4}`` and ``{model: 3}`` (a slice that cuts a GroupNorm group) against the
+JAX step on the same mesh and the one-device step; odd and uneven rows;
+``TorchInference`` on ``{model: 2}`` against one device; the JAX rule's
+split of its convs and dense layers.
+
 The ``cuda`` tests hold the split K5/K6 launches to their plain versions on
 the card; they skip here. The JAX package is imported inside the tests that
 run it, so that the ``cuda`` tests collect where flax is absent.
@@ -36,7 +44,8 @@ from maze_image_processing_pipeline_tpu_torch.models import layers
 from maze_image_processing_pipeline_tpu_torch.models import model_io as t_model_io
 from maze_image_processing_pipeline_tpu_torch.models import train as t_train
 from maze_image_processing_pipeline_tpu_torch.models import unet as t_unet
-from maze_image_processing_pipeline_tpu_torch.models.unet import ShardedUNet
+from maze_image_processing_pipeline_tpu_torch.models.classifier import ConvClassifier, ShardedClassifier
+from maze_image_processing_pipeline_tpu_torch.models.unet import ShardedNet, ShardedUNet
 from maze_image_processing_pipeline_tpu_torch.models.unet import UNet as TorchUNet
 from maze_image_processing_pipeline_tpu_torch.parallel import mesh as t_mesh
 
@@ -55,26 +64,34 @@ def _batch(rng, B, H, W, out=1):
     return x, y
 
 
-def _port_steps(cfg, init, mesh, x, y, steps):
-    """The port's train step from the parameters ``init`` (a state dict):
-    the losses, the gradients of the last step and the parameters after
-    it."""
-    module = TorchUNet(**cfg, dtype="float32")
+def _port_steps(cfg, init, mesh, x, y, steps, make=TorchUNet, loss_fn=t_train.bce_dice_loss, every_step=False):
+    """The port's train step of ``make(**cfg)`` from the parameters
+    ``init`` (a state dict): the losses, the gradients of the last step and
+    the parameters after it (with ``every_step``, lists of each step's)."""
+    module = make(**cfg, dtype="float32")
     state, opt = t_train.create_train_state(module, x.shape, device="cpu", mesh=mesh)
     state.module.load_state_dict(init)
-    step = t_train.make_train_step(module, opt, mesh=mesh)
-    losses = []
+    step = t_train.make_train_step(module, opt, loss_fn=loss_fn, mesh=mesh)
+    losses, grads, params = [], [], []
     for _ in range(steps):
         state, m = step(state, x, y)
         losses.append(float(m["loss"]))
+        if isinstance(state.module, ShardedNet):
+            grads.append(state.module.grads())
+            params.append(state.module.state_dict())
+        else:
+            grads.append({k: p.grad.clone() for k, p in module.named_parameters()})
+            params.append({k: v.detach().clone() for k, v in module.state_dict().items()})
     assert state.step == steps
-    if isinstance(state.module, ShardedUNet):
-        return losses, state.module.grads(), state.module.state_dict()
-    return losses, {k: p.grad.clone() for k, p in module.named_parameters()}, \
-        {k: v.detach().clone() for k, v in module.state_dict().items()}
+    return (losses, grads, params) if every_step else (losses, grads[-1], params[-1])
 
 
-def _hold_params(params, ref_params, sure_grads, total, steps):
+def _unet_norm_bias(k: str) -> bool:
+    """The U-Net's conv biases that feed a GroupNorm."""
+    return k.startswith("ConvBlock_") and k.endswith(".bias")
+
+
+def _hold_params(params, ref_params, sure_grads, total, steps, noise_bias=_unet_norm_bias):
     """Parameters within rtol 1e-5 wherever every step's reference gradient
     exceeds 1e-2 of its tensor's norm plus 1e-6 of the whole gradient's and
     keeps its sign, plus 1e-2 lr for each step after the first; the others
@@ -91,7 +108,7 @@ def _hold_params(params, ref_params, sure_grads, total, steps):
     every element of them is held within 2 lr a step."""
     assert sorted(params) == sorted(ref_params)
     for k, p in params.items():
-        noise = k.startswith("ConvBlock_") and k.endswith(".bias")
+        noise = noise_bias(k)
         sure = torch.full_like(p, not noise, dtype=torch.bool)
         for grads in sure_grads:
             sure &= grads[k].abs() > 1e-2 * float(grads[k].norm()) + 1e-6 * total
@@ -143,6 +160,98 @@ def test_dp_sp_tp_train_step_matches_jax_and_one_device():
         assert float((grads[k] - g).abs().max()) <= 1e-4 * float(g.norm()) + 1e-6 * total, k
     _hold_params(params, j_params, j_grads, total, 2)
     _hold_params(params, one_params, j_grads, total, 2)
+
+
+def _classifier_norm_bias(k: str) -> bool:
+    """The classifier's conv biases (each feeds a GroupNorm)."""
+    return k.startswith("Conv_") and k.endswith(".bias")
+
+
+@pytest.mark.parametrize("features, axes", [
+    ((16, 64), {"data": 1, "space": 2, "model": 2}),
+    ((16, 64), {"model": 4}),
+    # 72 channels over 3 slices of 24: each slice cuts a group of 9.
+    ((16, 72), {"model": 3}),
+])
+def test_classifier_train_step_matches_jax_and_one_device(features, axes):
+    """``ConvClassifier(64, features)`` float32, a batch of 4 of 32² × 3,
+    ``bce_loss``, from the JAX initial parameters: the port's sharded step
+    on CPU replicas against the JAX step on the same mesh of virtual
+    devices (one step: the loss within rtol 1e-5, the gradients within 1e-4
+    of their tensor's norm plus 1e-6 of the whole, the parameters by
+    :func:`_hold_params`) and against the port's one-device step (two
+    steps: the losses within rtol 1e-5, the first step's gradients within
+    the same bound, the parameters after two steps by
+    :func:`_hold_params`).
+
+    The JAX mesh step is held to its first step: on ``{data: 1, space: 2,
+    model: 2}`` its second step reports a loss 1.9e-5 (relative) from the
+    loss of the parameters it steps from, and its parameters after it miss
+    JAX's one-device step's by 3e-5 where the port's pass. The second
+    step's gradients are not held to the gradient bound either: from JAX's
+    initial parameters the first AdamW step moves elements whose gradients
+    are float noise by up to 1e-4 differently on each path
+    (``_hold_params``' rule), and the second step's first-layer gradients
+    then differ by up to 2.4 times the bound between the port's own sharded
+    and one-device steps."""
+    import jax
+    import jax.numpy as jnp
+
+    from maze_image_processing_pipeline_tpu.models import train as j_train
+    from maze_image_processing_pipeline_tpu.models.classifier import ConvClassifier as JaxClassifier
+    from maze_image_processing_pipeline_tpu.parallel import make_mesh as j_make_mesh
+
+    cfg = dict(n_outputs=64, features=features)
+    rng = np.random.default_rng(7)
+    x = rng.random((4, 32, 32, 3)).astype(np.float32)
+    y = (rng.random((4, 64)) > 0.5).astype(np.float32)
+
+    j_mesh = j_make_mesh(axes, devices=jax.devices()[: math.prod(axes.values())])
+    j_module = JaxClassifier(**cfg, dtype=jnp.float32)
+    j_state, j_opt = j_train.create_train_state(j_module, jax.random.key(0), (2, 32, 32, 3), mesh=j_mesh)
+    init = t_model_io.params_from_jax(jax.tree.map(np.asarray, j_state.params))
+    grad_of = jax.jit(jax.grad(lambda p: j_train.bce_loss(j_module.apply(p, x), y)))
+    j_grads = t_model_io.params_from_jax(jax.tree.map(np.asarray, grad_of(j_state.params)))
+    j_state, m = j_train.make_train_step(j_module, j_opt, loss_fn=j_train.bce_loss, mesh=j_mesh)(j_state, x, y)
+    j_params = t_model_io.params_from_jax(jax.tree.map(np.asarray, j_state.params))
+    total = np.sqrt(sum(float((g.double() ** 2).sum()) for g in j_grads.values()))
+
+    mesh = _cpu_mesh(axes)
+    assert t_train.shards(ConvClassifier(**cfg), mesh)
+    kw = dict(make=ConvClassifier, loss_fn=t_train.bce_loss, every_step=True)
+    losses, grads, params = _port_steps(cfg, init, mesh, x, y, 2, **kw)
+    one_losses, one_grads, one_params = _port_steps(cfg, init, None, x, y, 2, **kw)
+    np.testing.assert_allclose(losses[0], float(m["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(losses, one_losses, rtol=1e-5)
+    for ref in (j_grads, one_grads[0]):
+        for k, g in ref.items():
+            assert float((grads[0][k] - g).abs().max()) <= 1e-4 * float(g.norm()) + 1e-6 * total, k
+    _hold_params(params[0], j_params, [j_grads], total, 1, _classifier_norm_bias)
+    _hold_params(params[1], one_params[1], one_grads, total, 2, _classifier_norm_bias)
+
+
+@pytest.mark.parametrize("H, W, axes", [
+    (37, 29, {"space": 2}),  # odd extents: SAME pads (1, 1), the shard below takes a row from above
+    (64, 24, {"space": 4}),
+    (20, 20, {"space": 3, "model": 2}),  # the rows round up to 24: the last share is cut short, one is empty
+])
+def test_sharded_classifier_on_uneven_rows_gives_the_unsharded_step(H, W, axes):
+    """``ConvClassifier(5, (8, 64))`` float32, one step on rows that are not
+    a multiple of ``2**len(features)`` or that leave a share empty: the
+    one-device step's loss (rtol 1e-5) and gradients (1e-4 of the tensor's
+    norm plus 1e-6 of the whole)."""
+    cfg = dict(n_outputs=5, features=(8, 64))
+    rng = np.random.default_rng(H)
+    x = rng.random((2, H, W, 3)).astype(np.float32)
+    y = (rng.random((2, 5)) > 0.5).astype(np.float32)
+    init = t_model_io.params_from_jax(t_model_io.init_classifier_params(dict(cfg, in_channels=3), seed=5))
+    kw = dict(make=ConvClassifier, loss_fn=t_train.bce_loss)
+    (loss,), grads, _ = _port_steps(cfg, init, _cpu_mesh(axes), x, y, 1, **kw)
+    (ref,), ref_grads, _ = _port_steps(cfg, init, None, x, y, 1, **kw)
+    np.testing.assert_allclose(loss, ref, rtol=1e-5)
+    total = math.sqrt(sum(float((g.double() ** 2).sum()) for g in ref_grads.values()))
+    for k, g in ref_grads.items():
+        assert float((grads[k] - g).abs().max()) <= 1e-4 * float(g.norm()) + 1e-6 * total, k
 
 
 @pytest.mark.parametrize("axes, H, depth, shares", [
@@ -221,6 +330,32 @@ def test_shard_params_splits_what_the_jax_rule_splits():
     assert t_mesh.sharded_names(module, 3) == []
     assert t_mesh.model_split((128, 64, 3, 3), 2) and not t_mesh.model_split((32, 3, 3, 3), 2)
     assert not t_mesh.model_split((128,), 2)  # 1-D parameters stay whole in the JAX rule
+
+
+@pytest.mark.parametrize("size, n_outputs", [(2, 8), (4, 64), (3, 72)])
+def test_shard_params_splits_the_classifier_as_the_jax_rule(size, n_outputs):
+    """``ConvClassifier(n_outputs)`` (features 32-256) under ``{model:
+    size}``: the port splits exactly the conv and dense weights whose JAX
+    kernels ``shard_params`` places over ``model``, with their biases."""
+    import jax
+    from jax.sharding import PartitionSpec
+
+    from maze_image_processing_pipeline_tpu.parallel import make_mesh as j_make_mesh
+    from maze_image_processing_pipeline_tpu.parallel import shard_params as j_shard_params
+
+    cfg = dict(n_outputs=n_outputs, features=(32, 64, 128, 256))
+    flax = t_model_io.init_classifier_params(dict(cfg, in_channels=3), seed=0)
+    j_placed = j_shard_params(flax, j_make_mesh({"model": size}, devices=jax.devices()[:size]))
+    j_split = set()
+    for path, leaf in jax.tree_util.tree_flatten_with_path(j_placed)[0]:
+        if leaf.sharding.spec != PartitionSpec():
+            keys = [p.key for p in path if p.key != "params"]
+            j_split.add(".".join(keys[:-1]))
+    module = ConvClassifier(**cfg)
+    names = t_mesh.sharded_names(module, size)
+    assert set(names) == {f"{n}.{leaf}" for n in j_split for leaf in ("weight", "bias")}
+    if size == 2:
+        assert j_split == {"Conv_2", "Conv_3", "Conv_4", "Conv_5", "Conv_6", "Conv_7", "Dense_0"}
 
 
 def test_each_space_card_holds_its_rows(monkeypatch):
@@ -369,16 +504,48 @@ def test_model_axis_inference_matches_one_device_and_jax(tmp_path):
             for a, b, c in zip(ours, ref, one):
                 np.testing.assert_allclose(a, c, rtol=1e-6, atol=1e-6, err_msg=f"{name} {axes}")
                 np.testing.assert_allclose(a, b, rtol=1e-4, atol=2e-5, err_msg=f"{name} {axes}")
-    # The nodes' shares: one sharded U-Net a data index; a U-Net the model
-    # axis splits nothing, and the classifier, stay replicas.
-    from maze_image_processing_pipeline_tpu_torch.models.classifier import ConvClassifier
+    # The nodes' shares: one sharded U-Net or classifier a data index (the
+    # classifier's 64- to 256-wide convs and Dense_0 split); a U-Net the
+    # model axis splits nothing of stays a replica on each card.
     from maze_image_processing_pipeline_tpu_torch.models.inference import _placement
 
-    devices, forwards = _placement(tm.module, _cpu_mesh({"data": 2, "model": 2}), "cpu")
-    assert len(devices) == 2 and all(isinstance(f.func, ShardedUNet) and f.func.groups == 2 for f in forwards)
-    for narrow in (TorchUNet(out_channels=1, base_features=8, depth=1), ConvClassifier(n_outputs=3)):
-        devices, forwards = _placement(narrow, _cpu_mesh({"data": 2, "model": 2}), "cpu")
-        assert len(devices) == 4 and all(f is narrow for f in forwards)
+    for wide, kind in ((tm.module, ShardedUNet), (ConvClassifier(n_outputs=3), ShardedClassifier)):
+        devices, forwards = _placement(wide, _cpu_mesh({"data": 2, "model": 2}), "cpu")
+        assert len(devices) == 2 and all(isinstance(f.func, kind) and f.func.groups == 2 for f in forwards)
+    narrow = TorchUNet(out_channels=1, base_features=8, depth=1)
+    devices, forwards = _placement(narrow, _cpu_mesh({"data": 2, "model": 2}), "cpu")
+    assert len(devices) == 4 and all(f is narrow for f in forwards)
+
+
+def test_classifier_inference_on_the_model_axis_matches_one_device(tmp_path):
+    """``TorchInference`` of a float32 ``ConvClassifier(64, (16, 64))`` (its
+    64-wide conv, ``Dense_0`` and ``Dense_1`` split) on ``{model: 2}`` CPU
+    replicas, 5 crops of 32² in batches of 2: the one-device node's
+    probabilities within 1e-6."""
+    from fixtures import draw_blob
+    from maze_image_processing_pipeline_tpu_torch import engine as t_engine
+    from maze_image_processing_pipeline_tpu_torch.models.inference import TorchInference
+    from maze_image_processing_pipeline_tpu_torch.tools.synth import write_classifier
+
+    path = write_classifier(str(tmp_path / "clf"), dict(n_outputs=64, features=[16, 64]), "float32", seed=3)
+    model = t_model_io.load_model(path, dtype="float32")
+    rng = np.random.default_rng(4)
+    crops = [draw_blob(rng, shape=(32, 32), r=8) for _ in range(5)]
+    runs = []
+    for mesh in (None, _cpu_mesh({"model": 2})):
+        out = []
+        with t_engine.Pipeline() as p:
+            img = t_engine.Unpack(crops)
+            t_engine.Call(lambda v: out.append(np.asarray(v, np.float32)),
+                          TorchInference(model, img, batch_size=2, mesh=mesh, device="cpu"))
+        p.run()
+        runs.append(out)
+    assert [a.shape for a in runs[1]] == [b.shape for b in runs[0]] == [(64,)] * 5
+    for a, b in zip(*runs):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+    assert set(t_mesh.sharded_names(model.module, 2)) == {f"{n}.{leaf}" for n in ("Conv_2", "Conv_3", "Dense_0", "Dense_1")
+                                                        for leaf in ("weight", "bias")}
+
 
 
 def test_sharded_fit_resumes_and_returns_the_whole_weights(tmp_path):
@@ -410,13 +577,15 @@ def test_sharded_fit_resumes_and_returns_the_whole_weights(tmp_path):
 
 def test_dryrun_shards_on_four_cpu_replicas():
     """``parallel.dryrun`` on 4 CPU replicas factors ``{data: 1, space: 2,
-    model: 2}``: its train step is sharded, its inference nodes run, and its
+    model: 2}``: its train steps (the U-Net's and the classifier's) are
+    sharded, its inference nodes run, and its
     loki haul's archive equals the one-device run's."""
     from maze_image_processing_pipeline_tpu_torch.parallel.dryrun import dryrun_multichip
 
     out = dryrun_multichip(4, device="cpu", log=lambda line: None)
     assert out["mesh"] == {"data": 1, "space": 2, "model": 2}
     assert out["train_sharded"] and np.isfinite(out["train_loss"])
+    assert out["classifier_sharded"] and np.isfinite(out["classifier_loss"])
     assert out["inference_objects"] == 6 and out["loki_rows"] > 0
 
 
@@ -488,4 +657,30 @@ def test_cuda_sharded_unet_step_on_replicas_matches_one_card():
         losses.append(float(m["loss"]))
         if mesh is not None:
             assert layers.group_norm_bwd_apply.launches > before
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+
+
+@cuda
+@pytest.mark.cuda
+def test_cuda_sharded_classifier_step_on_replicas_matches_one_card():
+    """``ConvClassifier(64, (16, 64))`` float32 (TF32 off) on ``{space: 2,
+    model: 2}`` over four replicas of the card, a batch of 4 of 64²: the
+    loss within rtol 1e-5 of the one-card step's, and the split K5/K6
+    launches on the card."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(2)
+    x = rng.random((4, 64, 64, 3)).astype(np.float32)
+    y = (rng.random((4, 64)) > 0.5).astype(np.float32)
+    losses = []
+    for mesh in (None, tp.make_mesh({"space": 2, "model": 2}, devices=[dev] * 4)):
+        module = ConvClassifier(n_outputs=64, features=(16, 64), dtype="float32")
+        state, opt = t_train.create_train_state(module, x.shape, device=dev, mesh=mesh, seed=1)
+        before = (layers.group_norm_apply.launches, layers.group_norm_bwd_apply.launches)
+        state, m = t_train.make_train_step(module, opt, loss_fn=t_train.bce_loss, mesh=mesh)(state, x, y)
+        losses.append(float(m["loss"]))
+        if mesh is not None:
+            assert isinstance(state.module, ShardedClassifier)
+            assert layers.group_norm_apply.launches > before[0] and layers.group_norm_bwd_apply.launches > before[1]
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
