@@ -5,8 +5,8 @@
     python3 chip_smoke.py --stages   # phases 6, 7, 8 and 9's train step only,
                                      # with stage breakdowns and the device's
                                      # idle share
-    python3 chip_smoke.py --mesh     # phase 12 alone (a machine of several
-                                     # cards)
+    python3 chip_smoke.py --mesh     # phases 12 and 14 alone (a machine of
+                                     # several cards)
     python3 chip_smoke.py --library  # phase 13 alone
 
 Builds the port's CUDA kernels from ``maze_image_processing_pipeline_tpu_torch/
@@ -196,7 +196,17 @@ csrc`` and runs, one line of output per phase:
     uint8 intensity and the histogram (K3 launched; integer keys and the
     histogram exact, floats within the CPU test's tolerances),
     ``isotropic_closing`` at radius 2.5 and ``edt`` at ``max_distance`` 16
-    exact; each call's launches and time by CUDA events.
+    exact; each call's launches and time by CUDA events;
+14. a mesh that spans two processes (``PROCESS_STEPS``): two processes of
+    this script (``--process``) joined by ``initialize_distributed`` on a
+    local port, ``gloo`` with both on card 0 (each process's two mesh
+    cards replicas of it) or ``nccl`` with two cards each on a machine of
+    four, run two full-width float32 sharded steps of ``UNet(1, 32, 4)``
+    (batch 8 of 512², ``{space: 4}``: ``space`` crosses the processes) and
+    of ``ConvClassifier(8)`` (batch 16 of 256², ``{model: 2, space: 2}``:
+    ``model`` crosses them); both steps' losses and gradients against the
+    same steps in this process on the same mesh shape, K5's and K6's split
+    launches in each process, the walls.
 
 Kernel launches are counted per phase (counts set to 0 just before each
 timed run, read just after): every kernel but K6, K9 and the CCL passes
@@ -284,7 +294,7 @@ REGION_KERNELS = ("region_histogram", "regionprops_fused")
 CCL_PASSES = ("hpass", "vertical_pass")
 # The sharded norm's partials and apply launches of K5 and K6: only a U-Net
 # sharded over space (or a group straddling model cards) runs them, in
-# phase 12's sharded train steps.
+# phase 12's sharded train steps and phase 14's over two processes.
 SPLIT_NORMS = ("group_norm_partials", "group_norm_apply", "group_norm_bwd_partials", "group_norm_bwd_apply")
 # The kernels inference may launch (all but the GroupNorm backward, K6, the
 # perf lab's anchor, K9, the CCL passes alone and the sharded norm's).
@@ -3136,9 +3146,209 @@ def phase_library(dev, limit: str) -> dict:
     return total
 
 
+# -- phase 14: a mesh that spans two processes ----------------------------------
+
+# Phase 12's full-width sharded steps over two processes: UNet(1, 32, 4) at
+# batch 8 of 512² with its rows over {space: 4} (space crosses the
+# processes), and ConvClassifier(8) at batch 16 of 256² on {model: 2,
+# space: 2} (model crosses them).
+PROCESS_STEPS = (
+    ("unet", UNET, {"space": 4}, TRAIN_BATCH[:3]),
+    ("classifier", CLASSIFIER, {"model": 2, "space": 2}, (16, 256, 256)),
+)
+PROCESS_TIMEOUT = 600  # seconds both processes of phase 14 may take together
+
+
+def process_backend() -> str:
+    """``nccl`` with a card a process (two cards each, four in all), else
+    ``gloo`` with both processes on card 0 (NCCL refuses two ranks on one
+    card)."""
+    import torch
+
+    return "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+
+
+def process_cards(rank: int, backend: str) -> list:
+    """The two cards of process ``rank`` in phase 14's mesh: cards 2r and
+    2r + 1 under nccl, two replicas of card 0 under gloo."""
+    import torch
+
+    return [torch.device("cuda", 2 * rank + i if backend == "nccl" else 0) for i in range(2)]
+
+
+def process_inputs(kind: str, cfg: dict, shape) -> tuple:
+    """The global batch of a phase 14 step: every process takes the same
+    (phase 12's distillation batch; multi-label targets for the
+    classifier)."""
+    B, H, _ = shape
+    x, y = next(distill_batches(1, size=H, batch=B, seed=23))
+    if kind == "classifier":
+        y = (np.random.default_rng(24).random((B, cfg["n_outputs"])) > 0.5).astype(np.float32)
+    return x, y
+
+
+def process_steps(devices, seed: int = 3) -> list:
+    """Two float32 steps of each of ``PROCESS_STEPS`` on a mesh of
+    ``devices`` (this process's; in a process group the mesh spans every
+    process's), TF32 off and cuDNN deterministic: per step the loss, the
+    gradients (whole, on the CPU) and the launches by card, with the wall
+    of both steps."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # cuDNN's deterministic algorithms: two runs of one step may then differ
+    # only where the port sums in another order.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _process_steps(devices, seed)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _process_steps(devices, seed: int) -> list:
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.models import train as tt
+    from maze_image_processing_pipeline_tpu_torch.models.classifier import ConvClassifier
+    from maze_image_processing_pipeline_tpu_torch.models.unet import ShardedNet, UNet
+    from maze_image_processing_pipeline_tpu_torch.parallel import make_mesh
+
+    out = []
+    for kind, cfg, axes, shape in PROCESS_STEPS:
+        x, y = process_inputs(kind, cfg, shape)
+        mesh = make_mesh(axes, devices=devices)
+        module = (UNet if kind == "unet" else ConvClassifier)(**cfg, dtype="float32")
+        state, opt = tt.create_train_state(module, x.shape, seed=seed, mesh=mesh)
+        check(isinstance(state.module, ShardedNet), f"the step on {axes} is not sharded")
+        step = tt.make_train_step(module, opt, loss_fn=tt.bce_dice_loss if kind == "unet" else tt.bce_loss, mesh=mesh)
+        losses, grads = [], []
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, m = step(state, x, y)
+            losses.append(float(m["loss"]))
+            grads.append({k: g.double() for k, g in state.module.grads().items()})
+        for d in mesh.local_devices():
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+        launches = {name: {str(k): v for k, v in getattr(fn, "launches_by_device", {}).items()}
+                    for name, fn in _counted().items() if fn.launches}
+        out.append(dict(losses=losses, grads=grads, launches=launches, wall=wall,
+                        processes=mesh.processes.tolist()))
+        del state, opt, step, module
+    return out
+
+
+def process_worker(argv) -> int:
+    """One process of phase 14 (``chip_smoke.py --process <rank> <address>
+    <backend> <out>``): joins the group, runs :func:`process_steps` on its
+    cards, writes its results to ``<out><rank>.pt`` and prints a JSON
+    line."""
+    import torch
+
+    rank, address, backend, out = int(argv[0]), argv[1], argv[2], argv[3]
+    from maze_image_processing_pipeline_tpu_torch import _build
+    from maze_image_processing_pipeline_tpu_torch.parallel import initialize_distributed
+
+    _build.kernels()  # the libraries the parent built
+    cards = process_cards(rank, backend)
+    torch.cuda.set_device(cards[0])
+    initialize_distributed(address, 2, rank, device="cuda" if backend == "nccl" else "cpu")
+    t0 = time.perf_counter()
+    results = process_steps(cards)
+    torch.save(results, f"{out}{rank}.pt")
+    say(json.dumps({"rank": rank, "wall": time.perf_counter() - t0,
+                    "steps": [{k: v for k, v in r.items() if k != "grads"} for r in results]}))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_processes(dev, limit: str, work: str) -> dict:
+    """``PROCESS_STEPS`` over two processes joined by
+    ``initialize_distributed`` on a local port (``gloo`` with both on card
+    0, each process's two mesh cards replicas of it; ``nccl`` with two
+    cards each on a machine of four), two steps each, against the same
+    steps in this process on :func:`sharded_cards` (the same mesh shape):
+    the losses within rtol 1e-5, every gradient within phase 12's bound
+    (1e-3 of its tensor's norm plus 1e-5 of the whole gradient's); K5's
+    and K6's split launches in both processes. Either process failing,
+    missing the reference or outlasting ``PROCESS_TIMEOUT`` fails the
+    phase (both are killed). Returns the launches of both processes."""
+    import gc
+
+    import torch
+
+    backend = process_backend()
+    t0 = time.perf_counter()
+    refs = process_steps(sharded_cards())
+    ref_wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    with __import__("socket").socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{sock.getsockname()[1]}"
+    out = os.path.join(work, "process")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--process", str(r), address, backend, out],
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    deadline = time.monotonic() + PROCESS_TIMEOUT
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"phase 14: a process outlasted {PROCESS_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, (stdout, stderr)) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"phase 14: process {r} failed ({p.returncode}):\n{stderr[-6000:]}")
+    lines = [json.loads(stdout.strip().splitlines()[-1]) for stdout, _ in logs]
+    got = [torch.load(f"{out}{r}.pt", weights_only=False) for r in (0, 1)]
+    total = {k: 0 for k in KERNELS}
+    for (kind, cfg, axes, (B, H, W)), ref, mine, theirs in zip(PROCESS_STEPS, refs, got[0], got[1]):
+        where = f"{step_name(kind, cfg)} on {axes} over two processes"
+        check(mine["losses"] == theirs["losses"], f"{where}: the processes' losses differ")
+        worst, equal = [0.0, 0.0], [True, True]
+        for i in range(2):
+            a, b = mine["losses"][i], ref["losses"][i]
+            check(math.isfinite(a) and abs(a - b) <= 1e-5 * abs(b), f"{where}: step {i + 1} loss {a} vs {b}")
+            norm = math.sqrt(sum(float((g ** 2).sum()) for g in ref["grads"][i].values()))
+            for k, g in ref["grads"][i].items():
+                err = float((mine["grads"][i][k] - g).abs().max())
+                check(err <= 1e-3 * float(g.norm()) + 1e-5 * norm, f"{where}: step {i + 1} gradient of {k} by {err}")
+                equal[i] &= err == 0.0
+                if float(g.norm()) > 1e-5 * norm:
+                    worst[i] = max(worst[i], err / float(g.norm()))
+        per_process = []
+        for r, res in enumerate((mine, theirs)):
+            counts = {name: sum(res["launches"].get(name, {}).values()) for name in SPLIT_NORMS}
+            for name in SPLIT_NORMS:
+                check(counts[name] > 0, f"{where}: {name} did not launch in process {r}")
+            per_process.append(counts)
+            for name, by_card in res["launches"].items():
+                total[name] += sum(by_card.values())
+        say(f"  {where} ({backend}; float32, TF32 off, batch {B} of {H}x{W}; ranks of the mesh's cards "
+            f"{mine['processes']}): losses {mine['losses']}, one process {ref['losses']}; every gradient within "
+            f"tolerance (largest difference over its tensor's norm by step {[float(f'{w:.3g}') for w in worst]}, "
+            f"every gradient equal to the last bit by step {equal}); split launches by process "
+            f"{per_process}; two steps {mine['wall']:.3f} / {theirs['wall']:.3f} s, one process {ref['wall']:.3f} s "
+            f"[{limit}]")
+    say(f"  two processes ({backend}): {wall:.1f} s from start to exit (process walls "
+        f"{[round(line['wall'], 3) for line in lines]} s), the one-process steps {ref_wall:.1f} s [{limit}]")
+    return total
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--process"]:  # a process of phase 14
+        return process_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     sys.path.insert(0, REPO)
@@ -3162,6 +3372,8 @@ def main() -> int:
         if "--mesh" in sys.argv[1:]:
             say("phase 12 several cards:")
             phase_mesh(dev, limit, work)
+            say("phase 14 a mesh over two processes:")
+            phase_processes(dev, limit, work)
         if "--library" in sys.argv[1:]:
             say("phase 13 library functions on the card:")
             phase_library(dev, limit)
@@ -3228,13 +3440,18 @@ def main() -> int:
         t0 = time.perf_counter()
         launches[13] = phase_library(dev, limit)
         say(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+
+        say("phase 14 a mesh over two processes:")
+        t0 = time.perf_counter()
+        launches[14] = phase_processes(dev, limit, work)
+        say(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(not any(m == "jax" or m.startswith(("jax.", "maze_image_processing_pipeline_tpu."))
                   or m == "maze_image_processing_pipeline_tpu" for m in sys.modules),
           "jax or the JAX package was imported")
 
-    # launches: the main paths' runs of this script (phases 5 to 12) in all.
+    # launches: the main paths' runs of this script (phases 5 to 14) in all.
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
          "launches": sum(launches[p][k] for p in launches),

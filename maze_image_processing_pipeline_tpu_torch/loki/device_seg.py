@@ -66,7 +66,7 @@ from ..ops.label import clear_border, label, remove_small_objects
 from ..ops.merge_labels import merge_labels
 from ..ops.morphology import binary_closing, binary_opening
 from ..ops.regionprops_fused import regionprops_fused
-from ..parallel.mesh import mesh_devices, replicate
+from ..parallel.mesh import mesh_devices, replicate, require_local
 from .meta import format_object_id
 
 __all__ = ["DeviceTiledSegmentation", "DeviceFramePostprocess", "build_torch_segmentation"]
@@ -222,6 +222,7 @@ class DeviceTiledSegmentation(Node):
     ) -> None:
         self.image = image
         super().__init__()
+        require_local(mesh, "DeviceTiledSegmentation")
         self._devices = [_resolve_device(d) for d in mesh_devices(mesh, device)]
         self._modules = {d: m.eval() for d, m in replicate(model.module, self._devices).items()}
         self._cfg = config
@@ -609,6 +610,7 @@ class DeviceFramePostprocess(Node):
         self.config = config
         self.bucket = bucket
         super().__init__()
+        require_local(mesh, "DeviceFramePostprocess")
         self._devices = [_resolve_device(d) for d in mesh_devices(mesh, device)]
         self._chain, self._pack_keys = _build_frame_chain(
             config, compute_filled=config.merge_segments_distance == 0

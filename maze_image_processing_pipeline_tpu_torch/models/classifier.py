@@ -21,7 +21,7 @@ placement, halo, gather and norm helpers of ``unet.ShardedNet``.
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -122,13 +122,12 @@ class ShardedClassifier(ShardedNet):
 
     def forward(self, x: torch.Tensor, group: int = 0) -> torch.Tensor:
         """(B, H, W, C) images → (B, n_outputs) float32 logits on
-        :meth:`root`, through group ``group``'s cards."""
+        :meth:`home` (the root), through group ``group``'s cards."""
         c = self.module
         dt = c.dtype
-        H, W = x.shape[1:3]
+        H = x.shape[1]
         n = len(c.features)
-        padded = -(-H // 2**n) * 2**n
-        rows = [slice(r.start, min(r.stop, H)) for r in space_rows(padded, self.grid.shape[1], n) if r.start < H]
+        rows = self.rows(H)
         act = self._start(x, group, rows)
         extent = H
         for k in range(2 * n):
@@ -140,16 +139,21 @@ class ShardedClassifier(ShardedNet):
             if c.norm:
                 act = self._norm(act, f"GroupNorm_{k}")
             act = self._each(act, F.relu)
-        root = self._cards[0, 0]
         total = None
         for s in range(len(rows)):
             ts = act.t[s] if act.split else [act.t[s]]
-            part = torch.cat([t.float().sum(dim=(2, 3)).to(root) for t in ts], dim=1)
+            sums = [t.float().sum(dim=(2, 3)) for t in ts]
+            part = torch.cat(self._move([(v, (s, m)) for m, v in enumerate(sums)], (0, 0)), dim=1)
             total = part if total is None else total + part
         width = (act.t[0][0] if act.split else act.t[0]).shape[3]
         pooled = (total / (extent * width)).to(dt)  # jnp.mean sums bf16 in float32
         hidden = F.relu(self._dense(pooled, "Dense_0", dt))
-        return self._dense(hidden.float(), "Dense_1", torch.float32)
+        return self._out([self._dense(hidden.float(), "Dense_1", torch.float32)], dim=0)
+
+    def rows(self, H: int) -> List[slice]:
+        n = len(self.module.features)
+        padded = -(-H // 2**n) * 2**n
+        return [slice(r.start, min(r.stop, H)) for r in space_rows(padded, self.grid.shape[1], n) if r.start < H]
 
     def _dense(self, v: torch.Tensor, name: str, dt: torch.dtype) -> torch.Tensor:
         """Dense layer ``name`` of the whole input ``v`` (on the group's
@@ -158,22 +162,23 @@ class ShardedClassifier(ShardedNet):
         split = f"{name}.weight" in self.split
         outs = []
         for m in range(self._cards.shape[1] if split else 1):
-            held, dev = self._held[0][m], self._cards[0, m]
-            y = F.linear(v.to(dev), held[f"{name}.weight"].to(dt), held[f"{name}.bias"].to(dt))
-            outs.append(y.to(self._cards[0, 0]))
+            held = self._held[0][m]
+            y = F.linear(self._move([(v, (0, 0))], (0, m))[0], held[f"{name}.weight"].to(dt),
+                         held[f"{name}.bias"].to(dt))
+            outs.append(self._move([(y, (0, m))], (0, 0))[0])
         return torch.cat(outs, dim=1) if split else outs[0]
 
-    def _conv_down(self, act: _Act, s: int, x: torch.Tensor, dev, w, b, top: int) -> torch.Tensor:
+    def _conv_down(self, act: _Act, s: int, x: torch.Tensor, at, w, b, top: int) -> torch.Tensor:
         """A stride-2 3×3 SAME conv of shard ``s``: ``top`` (flax's top pad
         at this level's extent) rows above it from the shard above (a zero
         row at the image's top), the row below it from the shard below (a
         zero row at the bottom) where an output needs it, and the columns
         padded as flax pads them."""
         last = s == len(self._cards) - 1
-        parts = [self._halo(act, s - 1, slice(-1, None), x, dev)] if top else []
+        parts = [self._halo(act, s - 1, slice(-1, None), x, at)] if top else []
         parts.append(x)
         if not top or last:
-            parts.append(self._halo(act, s + 1, slice(0, 1), x, dev))
+            parts.append(self._halo(act, s + 1, slice(0, 1), x, at))
         left, right = _same_pad(x.shape[3], 2)
         return F.conv2d(F.pad(torch.cat(parts, dim=2), (left, right)), w, b, stride=2)
 

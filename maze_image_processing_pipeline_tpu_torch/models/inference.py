@@ -46,7 +46,8 @@ import torch
 from ..engine.batch import Batch
 from ..engine.core import Node, Output, RawOrVariable, ReturnOutputs, Stream, closing_if_closable
 from ..engine.tiles import _linear_weight, _tile_starts
-from ..parallel.mesh import mesh_devices, mesh_grid, replicate, sharded_names, split_batch
+from ..parallel.mesh import mesh_devices, mesh_grid, replicate, require_local, sharded_names, split_batch
+from ..parallel.multihost import exchange, host_count, host_id, staging_device
 from .classifier import ConvClassifier, ShardedClassifier
 from .model_io import LoadedModel
 from .unet import ShardedUNet, UNet
@@ -75,16 +76,35 @@ SHARDED = {UNet: ShardedUNet, ConvClassifier: ShardedClassifier}
 def _placement(module: torch.nn.Module, mesh, device):
     """(devices, forwards): the device that takes a share of each batch and
     the forward that runs it (module docstring)."""
+    return _shares(module, mesh, device)[:2]
+
+
+def _shares(module: torch.nn.Module, mesh, device):
+    """:func:`_placement`'s (devices, forwards) and the ranks of the
+    processes that compute each share, the one that holds its first card
+    first. On a mesh that spans processes a
+    share of another process's cards has no device or forward here (None),
+    and a sharded share's device is this process's card of it that
+    receives its output (``unet.ShardedNet.home``)."""
     sharded_type = SHARDED.get(type(module))
     if mesh is not None and sharded_type is not None and sharded_names(module, mesh_grid(mesh).shape[2]):
-        for d in mesh.devices.flat:
+        for d in mesh.local_devices():
             resolve_device(d)
         sharded = sharded_type(module, mesh, space=False)
         groups = range(sharded.groups)
-        return [sharded.root(g) for g in groups], [functools.partial(sharded, group=g) for g in groups]
-    devices = [resolve_device(d) for d in mesh_devices(mesh, device)]
-    replicas = {d: m.eval() for d, m in replicate(module, devices).items()}
-    return devices, [replicas[d] for d in devices]
+        owners = [int(sharded.ranks[g, 0, 0]) for g in groups]
+        members = [[o] + sorted(set(sharded.ranks[g].flat) - {o}) for g, o in zip(groups, owners)]
+        here = [host_id() in m for m in members]
+        return ([sharded.home(g, 2**getattr(module, "depth", 0)) if h else None for g, h in zip(groups, here)],
+                [functools.partial(sharded, group=g) if h else None for g, h in zip(groups, here)], members)
+    if mesh is None or not mesh.spans_processes:
+        devices = [resolve_device(d) for d in mesh_devices(mesh, device)]
+        replicas = {d: m.eval() for d, m in replicate(module, devices).items()}
+        return devices, [replicas[d] for d in devices], [[host_id()]] * len(devices)
+    ranks = [int(r) for r in mesh.processes.flat]
+    devices = [resolve_device(d) if r == host_id() else None for d, r in zip(mesh.devices.flat, ranks)]
+    replicas = {d: m.eval() for d, m in replicate(module, [d for d in devices if d is not None]).items()}
+    return devices, [None if d is None else replicas[d] for d in devices], [[r] for r in ranks]
 
 
 def default_device_pre(x: torch.Tensor) -> torch.Tensor:
@@ -177,6 +197,7 @@ class TorchInference(Node):
         self.in_flight = max(1, in_flight)
         self.transfer_dtype = _torch_dtype(transfer_dtype)
         super().__init__()
+        require_local(mesh, "TorchInference")
         self._devices, self._forwards = _placement(model.module, mesh, device)
         # In is_batch mode the batch size is learned from the first group so
         # the tail (partial) BatchedPipeline group is padded to it.
@@ -310,9 +331,11 @@ class DeviceTiledInference(Node):
         self.measure_channels = list(measure_channels) if measure_channels is not None else None
         self.measure_fill_holes = measure_fill_holes
         super().__init__()
-        self._devices, self._forwards = _placement(model.module, mesh, device)
+        self._devices, self._forwards, self._members = _shares(model.module, mesh, device)
         weight = torch.from_numpy(_linear_weight(tile_size, tile_size))[..., None]
-        self._weights = {d: weight.to(d) for d in self._devices}
+        self._weights = {d: weight.to(d) for d in self._devices if d is not None}
+        self._stage = staging_device([d for d in self._devices if d is not None]) if mesh is not None \
+            and mesh.spans_processes else None
 
     def _forward(self, tiles: np.ndarray, k: int) -> torch.Tensor:
         """(N, ts, ts[, C]) host tiles → (N, ts, ts, Cout) float32
@@ -393,7 +416,7 @@ class DeviceTiledInference(Node):
             Hb = max(1 << (max(h, ts) - 1).bit_length(), ts)
             Wb = max(1 << (max(w, ts) - 1).bit_length(), ts, 128)
             buckets.setdefault((Hb, Wb, str(img.dtype), img.shape[2:]), []).append(i)
-        parts, layout = [], []
+        parts, layout, shares = [], [], []
         with torch.inference_mode():
             for key in sorted(buckets, key=str):
                 idxs, (Hb, Wb) = buckets[key], key[:2]
@@ -405,10 +428,45 @@ class DeviceTiledInference(Node):
                 for k, share in enumerate(split_batch(len(idxs), len(self._devices))):
                     if share.start == share.stop:
                         continue
-                    part, lay = self._run_bucket(images, idxs[share], Hb, Wb, (Hq, Wq), k)
+                    if self._devices[k] is None:  # another process's share
+                        part, lay = None, (idxs[share], share.stop - share.start, Hq, self.model.module.out_channels)
+                    else:
+                        part, lay = self._run_bucket(images, idxs[share], Hb, Wb, (Hq, Wq), k)
                     parts.append(part)
                     layout.append(lay)
+                    shares.append((k, Wq))
+        if self._stage is not None:
+            self._share_parts(parts, layout, shares)
         return parts, layout
+
+    def _share_parts(self, parts, layout, shares) -> None:
+        """On a mesh that spans processes: each share's results (``parts``,
+        None where another process computed them) from the process that
+        holds the share's first card to every process that did not compute
+        it, in one exchange a chunk; every process then emits every
+        object, as the JAX package's processes fetch its replicated
+        output."""
+        me, world = host_id(), host_count()
+        here = next(d for d in self._devices if d is not None)
+        dtype = self.transfer_dtype or torch.float32
+        sends, recvs, wanted = {}, {}, []
+        for i, ((idxs, Bo, Hq, C), (k, Wq)) in enumerate(zip(layout, shares)):
+            owner = self._members[k][0]
+            specs = [((Bo, Hq, Wq, C), dtype, here)]
+            if self.measure_channels is not None:
+                specs.append((((4 + 3 * Hq) * C * Bo,), torch.float32, here))
+            for r in range(world):
+                if r in self._members[k]:
+                    continue
+                if me == owner:
+                    sends.setdefault(r, []).extend(t for t in parts[i] if t is not None)
+                elif me == r:
+                    recvs.setdefault(owner, []).extend(specs)
+                    wanted.append((i, owner, len(specs)))
+        got = {p: iter(ts) for p, ts in exchange(sends, recvs, self._stage).items()}
+        for i, owner, n in wanted:
+            ts = [next(got[owner]) for _ in range(n)]
+            parts[i] = (ts[0], ts[1] if n > 1 else None)
 
     def _unpack_chunk(self, parts, layout, images):
         from ..ops.segment_measure import unpack_channel_stats

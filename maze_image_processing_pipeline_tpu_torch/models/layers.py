@@ -37,6 +37,7 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 
 from ..ops.row_scan import count_launch
+from ..parallel.multihost import exchange
 
 __all__ = [
     "GroupNorm",
@@ -794,59 +795,100 @@ def _ordered_sum(parts, device) -> torch.Tensor:
     return total
 
 
+def _sum_shards(parts, ranks, link, device) -> torch.Tensor:
+    """The shards' parts (this process's; None for the others') summed on
+    ``device`` in shard order. Where other processes hold shards
+    (``ranks``), each process sends its parts to the others first, so that
+    every process of the norm sums the same parts in the same order."""
+    if link is not None:
+        me = link.rank
+        mine = [p for p, r in zip(parts, ranks) if r == me]
+        peers = sorted(set(ranks) - {me})
+        shape = mine[0].shape
+        got = exchange({q: mine for q in peers},
+                       {q: [(shape, torch.float32, device) for r in ranks if r == q] for q in peers}, link.stage)
+        seen = dict.fromkeys(peers, 0)
+        parts = list(parts)
+        for i, r in enumerate(ranks):
+            if r != me:
+                parts[i] = got[r][seen[r]]
+                seen[r] += 1
+    return _ordered_sum(parts, device)
+
+
 class _ShardedGroupNorm(torch.autograd.Function):
     """The sharded norm's forward (K5's partials and apply launches) and
-    backward (K6's), over shards on any devices."""
+    backward (K6's), over shards on any devices. With a ``link`` some
+    shards lie in other processes (``ranks``; here they are ``meta``
+    tensors of their shapes): each process launches on its own shards, the
+    per-group sums cross processes (:func:`_sum_shards`), and a token
+    orders the crossing among the others of the forward
+    (``parallel.multihost.Link``): the outputs are then (token, *ys)."""
 
     @staticmethod
-    def forward(ctx, units, num_groups, eps, *tensors):
+    def forward(ctx, units, num_groups, eps, ranks, link, token, *tensors):
         k = len(units)
         xs, ws, bs = tensors[:k], tensors[k:2 * k], tensors[2 * k:]
-        B, G = xs[0].shape[0], num_groups
-        root = xs[0].device
+        G = num_groups
+        mine = [not x.is_meta for x in xs]
+        root = next(x.device for x, m in zip(xs, mine) if m)
         n = torch.zeros(G, dtype=torch.float64)
         for x, u in zip(xs, units):
             spatial = math.prod(x.shape[2:])
             for c0 in range(u.offset, u.offset + u.channels, u.width):
                 n[c0 // u.group_channels] += u.width * spatial
         n = n.clamp(min=1).float().to(root)
-        sums = _ordered_sum([u.fold(group_norm_partials(x, u.count), G) for x, u in zip(xs, units)], root)
+        parts = [u.fold(group_norm_partials(x, u.count), G) if m else None for x, u, m in zip(xs, units, mine)]
+        sums = _sum_shards(parts, ranks, link, root)
         stats = _stats_from_sums(sums, n.view(1, G), eps)  # (2, B, G)
-        local = [u.unfold(stats.to(x.device)) for x, u in zip(xs, units)]
-        ys = [group_norm_apply(x, w, b, st, u.count) for x, w, b, st, u in zip(xs, ws, bs, local, units)]
+        local = [u.unfold(stats.to(x.device)) if m else None for x, u, m in zip(xs, units, mine)]
+        ys = [group_norm_apply(x, w, b, st, u.count) if m else torch.empty_like(x)
+              for x, w, b, st, u, m in zip(xs, ws, bs, local, units, mine)]
         ctx.save_for_backward(*xs, *ws, *local, stats, n)
-        ctx.units, ctx.num_groups = units, G
+        ctx.units, ctx.num_groups, ctx.ranks, ctx.link = units, G, ranks, link
         ctx.meta = [(w.device, w.dtype, b.device, b.dtype) for w, b in zip(ws, bs)]
-        return tuple(ys)
+        return tuple(ys) if link is None else (token.new_zeros(()), *ys)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, *dys):
-        units, G = ctx.units, ctx.num_groups
+    def backward(ctx, *grads):
+        units, G, link = ctx.units, ctx.num_groups, ctx.link
+        dys = grads if link is None else grads[1:]
         k = len(units)
         saved = ctx.saved_tensors
         xs, ws, local, (stats, n) = saved[:k], saved[k:2 * k], saved[2 * k:3 * k], saved[3 * k:]
+        mine = [not x.is_meta for x in xs]
         B = xs[0].shape[0]
-        rows = [group_norm_bwd_partials(x, dy, st, u.count) for x, dy, st, u in zip(xs, dys, local, units)]
+        dys = [dy if dy is not None or not m else torch.zeros_like(x) for dy, x, m in zip(dys, xs, mine)]
+        rows = [group_norm_bwd_partials(x, dy, st, u.count) if m else None
+                for x, dy, st, u, m in zip(xs, dys, local, units, mine)]
         # S2 and S1 of each group: w times the dw and dbias rows, summed over
         # each unit's channels, then over the units of a group and the shards.
         parts = []
         for r, w, u in zip(rows, ws, units):
+            if r is None:
+                parts.append(None)
+                continue
             t = r.view(2, B, u.channels) * w.detach().to(r.device, torch.float32)
             parts.append(u.fold(t.view(2, B, u.count, u.width).sum(-1).view(2, -1), G))
-        coef = _bwd_coefficients(_ordered_sum(parts, stats.device), stats[1], n)
-        dxs = [group_norm_bwd_apply(x, dy, w, st, u.unfold(coef.to(x.device)), u.count)
-               for x, dy, w, st, u in zip(xs, dys, ws, local, units)]
+        coef = _bwd_coefficients(_sum_shards(parts, ctx.ranks, link, stats.device), stats[1], n)
+        dxs = [group_norm_bwd_apply(x, dy, w, st, u.unfold(coef.to(x.device)), u.count) if m else None
+               for x, dy, w, st, u, m in zip(xs, dys, ws, local, units, mine)]
         dws, dbs = [], []
         for r, u, (wd, wt, bd, bt) in zip(rows, units, ctx.meta):
+            if r is None:
+                dws.append(None)
+                dbs.append(None)
+                continue
             r = r.view(2, B, u.channels).sum(1)
             dws.append(r[0].to(wd, wt))
             dbs.append(r[1].to(bd, bt))
-        return (None, None, None, *dxs, *dws, *dbs)
+        dtoken = None if link is None else torch.zeros((), device=link.token_device)
+        return (None, None, None, None, None, dtoken, *dxs, *dws, *dbs)
 
 
 def sharded_group_norm(xs, weights, biases, offsets, num_channels: int, num_groups: int,
-                       eps: float = 1e-6) -> List[torch.Tensor]:
+                       eps: float = 1e-6, ranks=None, link=None) -> List[torch.Tensor]:
     """GroupNorm of activations cut into shards, one tensor a card:
     differentiable in every shard, weight and bias.
 
@@ -869,9 +911,17 @@ def sharded_group_norm(xs, weights, biases, offsets, num_channels: int, num_grou
             channels.
         offsets: the first channel of each shard.
         num_channels, num_groups: C and G of the whole norm.
+        ranks, link: where shards lie in other processes, the rank of each
+            shard's process and the forward's ``parallel.multihost.Link``;
+            another process's shard is a ``meta`` tensor of its shape (and
+            so are its weight and bias). Each process launches on its own
+            shards, every process of the norm sums every shard's partials
+            in shard order, and the sums cross processes through ``link``
+            in the forward and again in the backward.
 
     Returns:
-        y of each shard, in its dtype and layout.
+        y of each shard, in its dtype and layout (``meta`` for another
+        process's shard).
     """
     _check_groups(num_channels, num_groups)
     Cg = num_channels // num_groups
@@ -880,4 +930,11 @@ def sharded_group_norm(xs, weights, biases, offsets, num_channels: int, num_grou
         if o < 0 or o + x.shape[1] > num_channels:
             raise ValueError(f"sharded_group_norm: channels {o}..{o + x.shape[1]} of {num_channels}")
         units.append(_Units(o, x.shape[1], Cg))
-    return list(_ShardedGroupNorm.apply(tuple(units), num_groups, eps, *xs, *weights, *biases))
+    if ranks is None or link is None or all(r == link.rank for r in ranks):
+        return list(_ShardedGroupNorm.apply(tuple(units), num_groups, eps, None, None, None, *xs, *weights, *biases))
+    if link.rank not in ranks:  # no shard here
+        return [torch.empty_like(x) for x in xs]
+    out = _ShardedGroupNorm.apply(tuple(units), num_groups, eps, tuple(ranks), link, link.token, *xs, *weights,
+                                  *biases)
+    link.sync(out[0])
+    return list(out[1:])

@@ -40,6 +40,19 @@ mesh's cards, as the JAX package's ``mesh`` step, in one of two ways:
   steps; the parameters are copied to the replicas before the next step's
   forward.
 
+A mesh may span processes (``parallel.mesh.make_mesh`` in a
+``torch.distributed`` group, as a JAX mesh over every process's devices):
+every process then runs the same step with the same global batch, as every
+JAX process's ``data_iter`` yields it, takes its own cards' shares of it and
+returns the same loss. Sharded, each process holds its cards' shares of the
+weights and its owners' AdamW state (``unet.ShardedNet``: halos, gathers
+and norm sums cross processes, gradients are reduced onto the owners'
+processes and the new values sent back). Data-parallel, each process keeps
+the whole module and AdamW on its first card: every replica's gradients go
+to every process, each sums them in replica order and takes the same AdamW
+step. Either way the step equals the one-process step on a mesh of the
+same shape, summed in the same order.
+
 The batch must divide by the ``data`` axis, as ``shard_batch_spec`` needs.
 Both losses are means of per-sample terms over whole images (GroupNorm
 normalises each sample alone; a sharded group's logits are gathered onto its
@@ -52,11 +65,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import mesh_grid, replicate, sharded_names, split_batch
+from ..parallel.multihost import all_gather_objects, exchange, host_id, staging_device
 from .classifier import ConvClassifier
 from .inference import SHARDED, resolve_device
 from .model_io import init_classifier_params, init_unet_params, params_from_jax
@@ -74,12 +89,14 @@ __all__ = [
 
 @dataclass
 class TrainState:
-    """The module (its parameters), the optimizer (its moments) and the
-    number of steps taken."""
+    """The module (its parameters), the optimizer (its moments), the
+    number of steps taken and the mesh the state lies on (None: one
+    device)."""
 
     module: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    mesh: Optional[object] = None
 
 
 def _sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -160,27 +177,32 @@ def create_train_state(
             :class:`.unet.ShardedUNet` or
             :class:`.classifier.ShardedClassifier`; with any other mesh the module goes
             to the mesh's first device, where :func:`make_train_step` keeps
-            the state. ``device`` is not read.
+            the state. ``device`` is not read. On a mesh that spans
+            processes only this process's shares are built, and the
+            optimizer holds this process's owners (data-parallel: the whole
+            module, on this process's first card of the mesh).
 
     Returns:
         (state, state.optimizer), as the JAX package returns (state,
         optimizer).
     """
-    dev = resolve_device(mesh.devices.flat[0] if mesh is not None else device)
+    dev = resolve_device(mesh.local_devices()[0] if mesh is not None else device)
     first = next(m for m in module.modules() if isinstance(m, nn.Conv2d))
     if input_shape[-1] != first.in_channels:
         raise ValueError(f"create_train_state: input_shape {tuple(input_shape)} has {input_shape[-1]} channels, "
                          f"the module takes {first.in_channels}")
     module.load_state_dict(params_from_jax(_init_params(module, first.in_channels, seed)))
     if shards(module, mesh):
-        for d in mesh.devices.flat:
+        for d in mesh.local_devices():
             resolve_device(d)
         module = SHARDED[type(module)](module.train(), mesh)
     else:
         module.to(dev).train()
-    params = module.parameters()
+    params = list(module.parameters())
+    if not params:  # a process that owns no slice of a sharded module
+        params = [{"params": []}]
     opt = make_adamw(params, learning_rate) if optimizer is None else optimizer(params)
-    return TrainState(module, opt, 0), opt
+    return TrainState(module, opt, 0, mesh), opt
 
 
 def make_train_step(
@@ -220,16 +242,27 @@ def make_train_step(
 
 
 def _mesh_step(module: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable, mesh, dev: torch.device):
-    devices = list(mesh.devices.flat)
-    if devices[0] != dev:
-        raise ValueError(f"make_train_step: the module lies on {dev}, the mesh's first device is {devices[0]} "
+    """The data-parallel step: this process runs the replicas on its cards
+    of the mesh (the module itself on the first), and the gradients of
+    every replica are summed in replica order onto the module, where AdamW
+    steps. Where the mesh spans processes every replica's loss and
+    gradients go to every process (one exchange), and each process takes
+    the same AdamW step, so that every process holds the same
+    parameters."""
+    first = mesh.local_devices()[0]
+    if first != dev:
+        raise ValueError(f"make_train_step: the module lies on {dev}, the mesh's first device is {first} "
                          "(create_train_state(..., mesh=mesh) places it)")
+    devices, ranks, me = list(mesh.devices.flat), list(mesh.processes.flat), host_id()
     data = mesh.shape.get("data", 1)
-    replicas = replicate(module, devices)
+    local = [k for k, r in enumerate(ranks) if r == me]
+    replicas = replicate(module, [devices[k] for k in local])
     params = list(module.parameters())
     others = [m for m in replicas.values() if m is not module]
     for m in others:
         m.train(module.training)
+    stage = staging_device(mesh.local_devices()) if mesh.spans_processes else None
+    peers = sorted(set(ranks) - {me})
 
     def step(state: TrainState, images, targets):
         x = torch.as_tensor(images)
@@ -241,33 +274,62 @@ def _mesh_step(module: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Cal
             for m in others:
                 for p, q in zip(m.parameters(), params):
                     p.copy_(q, non_blocking=True)
-                m.zero_grad(set_to_none=True)
-        optimizer.zero_grad(set_to_none=True)
-        loss = None
-        for share, d in zip(split_batch(B, len(devices)), devices):
-            if share.start == share.stop:
+        shares = split_batch(B, len(devices))
+        live = [k for k, sh in enumerate(shares) if sh.start < sh.stop]
+        parts, grads = {}, {}
+        for k in local:
+            if k not in live:
                 continue
+            d, share = devices[k], shares[k]
+            replica = replicas[d]
+            replica.zero_grad(set_to_none=True)
             xs = x[share].to(d, torch.float32, non_blocking=True)
             ys = y[share].to(d, torch.float32, non_blocking=True)
-            part = loss_fn(replicas[d](xs), ys) * ((share.stop - share.start) / B)
+            part = loss_fn(replica(xs), ys) * ((share.stop - share.start) / B)
             part.backward()
-            part = part.detach().to(dev, non_blocking=True)
-            loss = part if loss is None else loss + part
+            parts[k] = part.detach()
+            grads[k] = [None if q.grad is None else q.grad.detach() for q in replica.parameters()]
+        if stage is not None:
+            _share_replicas(parts, grads, live, ranks, peers, params, dev, stage)
+        optimizer.zero_grad(set_to_none=True)
         with torch.no_grad():
-            for m in others:
-                for p, q in zip(params, m.parameters()):
-                    if q.grad is None:
+            for k in live:
+                for p, g in zip(params, grads[k]):
+                    if g is None:
                         continue
-                    g = q.grad.to(dev, non_blocking=True)
-                    if p.grad is None:
-                        p.grad = g
-                    else:
-                        p.grad.add_(g)
+                    g = g.to(dev, non_blocking=True)
+                    p.grad = g.clone() if p.grad is None else p.grad + g
         optimizer.step()
+        loss = None
+        for k in live:
+            part = parts[k].to(dev, non_blocking=True)
+            loss = part if loss is None else loss + part
         state.step += 1
         return state, {"loss": loss}
 
     return step
+
+
+def _share_replicas(parts, grads, live, ranks, peers, params, dev, stage) -> None:
+    """Every replica's loss and gradients (``parts``, ``grads`` by replica,
+    this process's filled) to every process: first which gradients each
+    replica has, then the values, in replica order."""
+    have = {k: [g is not None for g in gs] for k, gs in grads.items()}
+    for other in all_gather_objects(have, dev):
+        have.update(other)
+    mine = sorted(grads)
+    sent = [parts[k] for k in mine] + [g for k in mine for g in grads[k] if g is not None]
+    specs = {r: [((), torch.float32, dev) for k in live if ranks[k] == r]
+             + [(tuple(p.shape), p.dtype, dev) for k in live if ranks[k] == r for p, h in zip(params, have[k]) if h]
+             for r in peers}
+    got = exchange({r: sent for r in peers}, specs, stage)
+    for r in peers:
+        theirs = iter(got[r])
+        ks = [k for k in live if ranks[k] == r]
+        for k in ks:
+            parts[k] = next(theirs)
+        for k in ks:
+            grads[k] = [next(theirs) if h else None for h in have[k]]
 
 
 def _sharded_step(optimizer: torch.optim.Optimizer, loss_fn: Callable):
@@ -281,16 +343,16 @@ def _sharded_step(optimizer: torch.optim.Optimizer, loss_fn: Callable):
         if B % D:
             raise ValueError(f"make_train_step: a batch of {B} does not split over the mesh's data axis of {D}")
         model.zero_grad()  # every copy's gradient, the owners' (the optimizer's) among them
-        loss = None
+        parts = {}
         for g, share in enumerate(split_batch(B, D)):
-            if share.start == share.stop:
+            if share.start == share.stop or not model.takes_part(g, x.shape[1]):
                 continue
             logits = model(x[share].to(torch.float32), g)  # each row share goes to its cards
-            part = loss_fn(logits, y[share].to(model.root(g), torch.float32, non_blocking=True))
+            part = loss_fn(logits, y[share].to(logits.device, torch.float32, non_blocking=True))
             part = part * ((share.stop - share.start) / B)
             part.backward()
-            part = part.detach().to(model.root(0), non_blocking=True)
-            loss = part if loss is None else loss + part
+            parts[g] = part.detach()
+        loss = _group_loss(model, parts)
         model.reduce_grads()
         optimizer.step()
         model.sync()
@@ -298,3 +360,23 @@ def _sharded_step(optimizer: torch.optim.Optimizer, loss_fn: Callable):
         return state, {"loss": loss}
 
     return step
+
+
+def _group_loss(model: ShardedNet, parts: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """The groups' weighted losses summed in group order on the first
+    group's root, or, where other processes computed some of them, on this
+    process's first card of the mesh, after every process has told the
+    others its groups' losses."""
+    dev = model.root(0)
+    if model.stage is not None:
+        dev = next(model.grid[i] for i in np.ndindex(model.grid.shape) if model.ranks[i] == model.rank)
+        known = {g: float(v) for g, v in parts.items()}
+        for other in all_gather_objects(known, model.stage):
+            for g, v in other.items():
+                known.setdefault(g, v)
+        parts = {g: torch.tensor(v, dtype=torch.float32) for g, v in known.items()}
+    loss = None
+    for g in sorted(parts):
+        part = parts[g].to(dev, non_blocking=True)
+        loss = part if loss is None else loss + part
+    return loss

@@ -13,6 +13,12 @@ Checkpoints are ``torch.save`` files, not orbax directories: one
 ``<checkpoint_dir>/<step>/state.pt`` per saved step holding the model's and
 the optimizer's state dicts and the step, written under a temporary name and
 renamed into place; the newest three are kept (orbax's ``max_to_keep=3``).
+On a mesh that spans processes every process gathers the whole parameters
+and the owners' AdamW state (``unet.ShardedNet.optimizer_state_dict``; a
+data-parallel state is the same on every process), process 0 writes the
+file while the others wait at a barrier, and every process restores its own
+share of it: the file is the one a single process on a mesh of the same
+shape writes.
 orbax and flax are not on the card's machine, so the JAX package's orbax
 checkpoints are not read here: carry a JAX train state over with
 ``model_io.params_from_jax`` and ``model_io.adam_state_from_optax``, and
@@ -31,8 +37,10 @@ from typing import Callable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.multihost import barrier, host_id
 from ..progress import ProgressLogger
 from .train import TrainState, bce_dice_loss, create_train_state, make_train_step
+from .unet import ShardedNet
 
 logger = logging.getLogger(__name__)
 
@@ -51,16 +59,32 @@ def _saved_steps(checkpoint_dir: str) -> List[int]:
     )
 
 
+def _spans(state: TrainState) -> bool:
+    return state.mesh is not None and state.mesh.spans_processes
+
+
 def save_checkpoint(checkpoint_dir: str, state: TrainState, step: int) -> None:
     """Write ``state`` as step ``step`` (replacing a checkpoint of the same
-    step) and delete all but the newest ``MAX_TO_KEEP``."""
+    step) and delete all but the newest ``MAX_TO_KEEP``. On a mesh that
+    spans processes every process calls it; process 0 writes."""
+    model = state.module.state_dict()
+    if isinstance(state.module, ShardedNet):
+        opt = state.module.optimizer_state_dict(state.optimizer)
+    else:
+        opt = state.optimizer.state_dict()
+    if _spans(state):
+        if host_id() == 0:
+            _write(checkpoint_dir, model, opt, step)
+        barrier(state.mesh.local_devices()[0])
+    else:
+        _write(checkpoint_dir, model, opt, step)
+
+
+def _write(checkpoint_dir: str, model: dict, opt: dict, step: int) -> None:
     os.makedirs(checkpoint_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f".{step}-", dir=checkpoint_dir)
     try:
-        torch.save(
-            {"model": state.module.state_dict(), "optimizer": state.optimizer.state_dict(), "step": int(step)},
-            os.path.join(tmp, _FILE),
-        )
+        torch.save({"model": model, "optimizer": opt, "step": int(step)}, os.path.join(tmp, _FILE))
         final = os.path.join(checkpoint_dir, str(int(step)))
         if os.path.isdir(final):
             shutil.rmtree(final)
@@ -74,7 +98,8 @@ def save_checkpoint(checkpoint_dir: str, state: TrainState, step: int) -> None:
 
 def restore_checkpoint(checkpoint_dir: str, state: TrainState) -> Tuple[TrainState, int]:
     """Load the newest checkpoint into ``state`` (its module and optimizer,
-    in place); returns (state, step), step 0 if there is none."""
+    in place; on a mesh that spans processes this process's share);
+    returns (state, step), step 0 if there is none."""
     steps = _saved_steps(checkpoint_dir)
     if not steps:
         return state, 0
@@ -84,7 +109,10 @@ def restore_checkpoint(checkpoint_dir: str, state: TrainState) -> Tuple[TrainSta
     # sync per parameter in every update).
     saved = torch.load(os.path.join(checkpoint_dir, str(steps[-1]), _FILE), map_location="cpu", weights_only=True)
     state.module.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+    if isinstance(state.module, ShardedNet):
+        state.module.load_optimizer_state_dict(state.optimizer, saved["optimizer"])
+    else:
+        state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
     logger.info("Restored checkpoint step %d from %s", state.step, checkpoint_dir)
     return state, state.step
@@ -110,7 +138,8 @@ def fit(
     ``device`` is the card unless ``"cpu"`` (no card raises); with a
     ``mesh`` each step runs over its cards (:func:`.train.make_train_step`;
     a sharded state's trained weights are copied back into ``module`` at
-    the end)."""
+    the end). On a mesh that spans processes every process calls ``fit``
+    with the same batches (module docstring for the checkpoints)."""
     state, optimizer = create_train_state(
         module, input_shape, learning_rate=learning_rate, seed=seed, device=device, mesh=mesh
     )

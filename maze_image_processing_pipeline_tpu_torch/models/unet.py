@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import mesh_grid, place_params, sharded_names, space_rows
+from ..parallel.multihost import Link, Move, all_gather_objects, exchange, host_id, staging_device
 from .layers import GroupNorm, group_norm, sharded_group_norm
 
 __all__ = ["UNet", "ConvBlock", "ShardedNet", "ShardedUNet"]
@@ -137,7 +138,8 @@ class _Act:
     """An activation of a sharded network's group: ``split`` over ``model``
     (``t[s][m]``: shard s's rows, slice m of the channels, on card (s, m))
     or whole (``t[s]``: shard s's rows, every channel, on card (s, 0)).
-    Whole copies on other cards are made when asked for, once."""
+    Whole copies on other cards are made when asked for, once. A tensor of
+    a card of another process is a ``meta`` tensor of its shape."""
 
     def __init__(self, split: bool, t) -> None:
         self.split = split
@@ -175,6 +177,20 @@ class ShardedNet:
     process; autograd carries the backward through them. The result equals
     the unsharded network's within float tolerance.
 
+    A mesh may span processes (``parallel.mesh.make_mesh`` in a
+    ``torch.distributed`` group): every process then runs the same program
+    (SPMD), computes on its own cards only and keeps a ``meta`` tensor, the
+    shape alone, for each tensor of another process's card. A copy between
+    two processes' cards goes through the forward's
+    ``parallel.multihost.Link`` (its backward is the transposed copy), and
+    so do the sharded norm's sums; a group's output is gathered onto every
+    process of the group (:meth:`home`), each of which computes the same
+    loss from it. :meth:`parameters` are this process's owners,
+    :meth:`reduce_grads` sums each slice's copies across processes onto its
+    owner in the same (data, space, model) order, :meth:`sync` sends the
+    owners' values to the other processes' copies, and :meth:`state_dict`
+    and :meth:`grads` gather the whole tensors on every process.
+
     Args:
         module: the network (its configuration and parameters; the module
             itself is not changed). Its ``dtype`` is the compute dtype,
@@ -186,16 +202,24 @@ class ShardedNet:
 
     def __init__(self, module: nn.Module, mesh, space: bool = True) -> None:
         grid = mesh_grid(mesh)
+        ranks = mesh_grid(mesh, of=mesh.processes)
         if not space:
             grid = grid.reshape(-1, 1, grid.shape[2])
+            ranks = ranks.reshape(-1, 1, ranks.shape[2])
         self.module = module
         self.grid = grid
+        self.ranks = ranks
+        self.rank = host_id()
         self.split = set(sharded_names(module, grid.shape[2]))
         self.names = [n for n, _ in module.named_parameters()]
-        self.params = place_params(module, grid)
+        self.params = place_params(module, grid, processes=ranks)
         for held in self.params.values():
             for t in held.values():
-                t.requires_grad_(True)
+                if not t.is_meta:
+                    t.requires_grad_(True)
+        # Where this process stages its traffic to the others (None: the
+        # mesh is this process's alone).
+        self.stage = staging_device(mesh.local_devices()) if mesh.spans_processes else None
 
     # -- the parameters ----------------------------------------------------
 
@@ -207,6 +231,25 @@ class ShardedNet:
         """The card that takes a group's input and returns its output."""
         return self.grid[group, 0, 0]
 
+    def rows(self, H: int) -> List[slice]:
+        """The non-empty ``space`` shares of ``H`` image rows."""
+        raise NotImplementedError
+
+    def takes_part(self, group: int, H: int) -> bool:
+        """Whether this process holds a card of ``group`` that computes on
+        images of ``H`` rows."""
+        return bool((self.ranks[group, : len(self.rows(H))] == self.rank).any())
+
+    def home(self, group: int, H: int) -> torch.device:
+        """The card of this process where a group's output lands: the
+        group's root, or on another process of the group its first card
+        there that computes."""
+        ranks = self.ranks[group, : len(self.rows(H))]
+        return next(self.grid[group][i] for i in np.ndindex(ranks.shape) if ranks[i] == self.rank)
+
+    def _here(self, idx) -> bool:
+        return self.ranks[idx] == self.rank
+
     def _holders(self, name: str):
         """(owner index, [every index holding the same tensor]) for each
         slice of parameter ``name``."""
@@ -215,10 +258,13 @@ class ShardedNet:
             return [((0, 0, m), [(d, s, m) for d in range(D) for s in range(S)]) for m in range(M)]
         return [((0, 0, 0), list(np.ndindex(D, S, M)))]
 
+    def _slices(self):
+        return [(n, o, idxs) for n in self.names for o, idxs in self._holders(n)]
+
     def parameters(self) -> List[torch.Tensor]:
-        """The owners' tensors (what the optimizer updates), in the
-        module's parameter order."""
-        return [self.params[o][n] for n in self.names for o, _ in self._holders(n)]
+        """This process's owners' tensors (what its optimizer updates), in
+        the module's parameter order."""
+        return [self.params[o][n] for n, o, _ in self._slices() if self._here(o)]
 
     def zero_grad(self) -> None:
         for held in self.params.values():
@@ -228,36 +274,77 @@ class ShardedNet:
     @torch.no_grad()
     def reduce_grads(self) -> None:
         """Each owner's gradient := the sum of the gradients of every copy
-        of its tensor, in (data, space, model) order."""
-        for n in self.names:
-            for o, idxs in self._holders(n):
-                owner = self.params[o][n]
-                total = None
+        of its tensor, in (data, space, model) order; a copy on another
+        process sends its gradient to the owner's process first (which
+        copies have one, every process learns from the others)."""
+        me, slices = self.rank, self._slices()
+        present = {(n, i): self.params[i][n].grad is not None for n, _, idxs in slices for i in idxs if self._here(i)}
+        sends, recvs = {}, {}
+        if self.stage is not None:
+            for part in all_gather_objects(dict(present), self.stage):
+                present.update(part)
+            for n, o, idxs in slices:
+                ro = self.ranks[o]
                 for i in idxs:
-                    g = self.params[i][n].grad
-                    if g is None:
+                    ri = self.ranks[i]
+                    if ri == ro or not present[(n, i)]:
                         continue
-                    g = g.to(owner.device)
-                    total = g.clone() if total is None else total + g
+                    if ri == me:
+                        sends.setdefault(ro, []).append(self.params[i][n].grad)
+                    elif ro == me:
+                        owner = self.params[o][n]
+                        recvs.setdefault(ri, []).append((tuple(owner.shape), owner.dtype, owner.device))
+        got = {p: iter(ts) for p, ts in exchange(sends, recvs, self.stage).items()} if sends or recvs else {}
+        for n, o, idxs in slices:
+            total = None
+            if self._here(o):
+                owner = self.params[o][n]
                 for i in idxs:
+                    if not present[(n, i)]:
+                        continue
+                    g = self.params[i][n].grad.to(owner.device) if self._here(i) else next(got[self.ranks[i]])
+                    total = g.clone() if total is None else total + g
+            for i in idxs:
+                if self._here(i):
                     self.params[i][n].grad = None
+            if self._here(o):
                 owner.grad = total
 
     @torch.no_grad()
     def sync(self) -> None:
-        """Copy each owner's values to the other copies of its tensor."""
-        for n in self.names:
-            for o, idxs in self._holders(n):
-                owner = self.params[o][n]
-                for i in idxs:
-                    if i != o:
-                        self.params[i][n].copy_(owner, non_blocking=True)
+        """Copy each owner's values to the other copies of its tensor (on
+        other processes through one exchange)."""
+        me, sends, recvs = self.rank, {}, {}
+        slices = self._slices()
+        for n, o, idxs in slices:
+            ro = self.ranks[o]
+            for r in sorted({self.ranks[i] for i in idxs} - {ro}):
+                if ro == me:
+                    sends.setdefault(r, []).append(self.params[o][n])
+                elif r == me:
+                    first = next(i for i in idxs if self._here(i))
+                    t = self.params[first][n]
+                    recvs.setdefault(ro, []).append((tuple(t.shape), t.dtype, t.device))
+        got = {p: iter(ts) for p, ts in exchange(sends, recvs, self.stage).items()} if self.stage is not None else {}
+        for n, o, idxs in slices:
+            ro = self.ranks[o]
+            mine = [i for i in idxs if i != o and self._here(i)]
+            if not mine:
+                continue
+            value = self.params[o][n] if ro == me else next(got[ro])
+            for i in mine:
+                self.params[i][n].copy_(value, non_blocking=True)
 
     def _gathered(self, attr: str) -> Dict[str, torch.Tensor]:
+        parts = {(n, o): getattr(self.params[o][n], attr) for n, o, _ in self._slices() if self._here(o)}
+        parts = {k: None if v is None else v.detach().cpu() for k, v in parts.items()}
+        if self.stage is not None:
+            for other in all_gather_objects(parts, self.stage):
+                parts.update(other)
         out = {}
         for n in self.names:
-            parts = [getattr(self.params[o][n], attr) for o, _ in self._holders(n)]
-            out[n] = None if parts[0] is None else torch.cat([p.detach().cpu() for p in parts])
+            ps = [parts[(n, o)] for o, _ in self._holders(n)]
+            out[n] = None if ps[0] is None else torch.cat(ps)
         return out
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
@@ -272,12 +359,41 @@ class ShardedNet:
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
-        """Set every card's tensors from whole parameters ``state``."""
+        """Set this process's cards' tensors from whole parameters
+        ``state``."""
         M = self.grid.shape[2]
         for idx, held in self.params.items():
+            if not self._here(idx):
+                continue
             for n, t in held.items():
                 v = torch.as_tensor(state[n])
                 t.copy_(v.chunk(M)[idx[2]] if n in self.split else v)
+
+    def optimizer_state_dict(self, optimizer: torch.optim.Optimizer) -> dict:
+        """``optimizer``'s state (over :meth:`parameters`) as one process
+        over every owner would hold it: each process's owners' moments
+        gathered (on every process), indexed in the module's parameter
+        order."""
+        sd = optimizer.state_dict()
+        if self.stage is None:
+            return sd
+        slices = [(n, o) for n, o, _ in self._slices()]
+        mine = [k for k, (n, o) in enumerate(slices) if self._here(o)]
+        states = {mine[i]: v for i, v in sd["state"].items()}
+        for other in all_gather_objects(states, self.stage):
+            states.update(other)
+        group = {k: v for k, v in sd["param_groups"][0].items() if k != "params"}
+        return {"state": dict(sorted(states.items())), "param_groups": [{**group, "params": list(range(len(slices)))}]}
+
+    def load_optimizer_state_dict(self, optimizer: torch.optim.Optimizer, sd: dict) -> None:
+        """Load the state of :meth:`optimizer_state_dict` into
+        ``optimizer``: this process's owners' share of it."""
+        if self.stage is None:
+            return optimizer.load_state_dict(sd)
+        mine = [k for k, (n, o, _) in enumerate(self._slices()) if self._here(o)]
+        group = {k: v for k, v in sd["param_groups"][0].items() if k != "params"}
+        optimizer.load_state_dict({"state": {i: sd["state"][k] for i, k in enumerate(mine) if k in sd["state"]},
+                                   "param_groups": [{**group, "params": list(range(len(mine)))}]})
 
     def __call__(self, x: torch.Tensor, group: int = 0) -> torch.Tensor:
         return self.forward(x, group)
@@ -287,33 +403,75 @@ class ShardedNet:
     def _start(self, x: torch.Tensor, group: int, rows: List[slice]) -> _Act:
         """The group's cards for a forward over the row shares ``rows`` of
         (B, H, W, C) images ``x``: each share on its card (s, 0), NCHW in
-        the compute dtype."""
+        the compute dtype (a ``meta`` tensor on another process's card)."""
         cards = self.grid[group]
+        self._group = group
         self._cards = cards[: len(rows)]
+        self._ranks = self.ranks[group][: len(rows)]
         self._held = [[self.params[(group, s, m)] for m in range(cards.shape[1])] for s in range(len(rows))]
+        self._link = None
+        if (self._ranks != self.rank).any():
+            self._home = self.home(group, x.shape[1])
+            self._link = Link(self.stage, self._home)
         dt = self.module.dtype
-        return _Act(False, [x[:, r].to(self._cards[s, 0]).to(dt).permute(0, 3, 1, 2) for s, r in enumerate(rows)])
+        return _Act(False, [x[:, r].to(self._cards[s, 0] if self._ranks[s, 0] == self.rank else "meta").to(dt)
+                            .permute(0, 3, 1, 2) for s, r in enumerate(rows)])
 
     def _each(self, act: _Act, f) -> _Act:
         return _Act(act.split, [[f(t) for t in ts] for ts in act.t] if act.split else [f(t) for t in act.t])
 
-    def _rows(self, act: _Act, s: int, rows: slice, dev) -> torch.Tensor:
-        """Rows ``rows`` of shard ``s``, every channel, on ``dev``."""
+    def _move(self, items, at) -> List[torch.Tensor]:
+        """Tensors ``(t, (s, m))`` of the group's cards onto card ``at``:
+        copies within this process, the forward's link between processes;
+        a ``meta`` tensor where ``at`` is another process's card."""
+        me, rd = self.rank, self._ranks[at]
+        out: List = [None] * len(items)
+        moves, sent = [], []
+        for k, (t, src) in enumerate(items):
+            rs = self._ranks[src]
+            if rs == rd:
+                out[k] = t.to(self._cards[at]) if rs == me else t
+            elif me in (rs, rd):
+                moves.append((k, Move(rs, rd, tuple(t.shape), t.dtype, self._cards[at], len(sent))))
+                if rs == me:
+                    sent.append(t)
+            else:
+                out[k] = t
+        if moves:
+            got = self._link.move([mv for _, mv in moves], sent)
+            for j, (k, mv) in enumerate(moves):
+                out[k] = got[j] if rd == me else torch.empty(mv.shape, dtype=mv.dtype, device="meta")
+        return out
+
+    def _out(self, parts: List[torch.Tensor], dim: int) -> torch.Tensor:
+        """The group's output, shard parts on cards (s, 0) joined along
+        ``dim`` on :meth:`home` (the root without other processes)."""
+        group, S = self._group, len(parts)
+        if self._link is None:
+            root = self.root(group)
+            return torch.cat([p.to(root) for p in parts], dim=dim)
+        owners = [int(self._ranks[s, 0]) for s in range(S)]
+        return self._link.gather(owners, sorted(set(self._ranks.flat)), [tuple(p.shape) for p in parts],
+                                 [p for p, r in zip(parts, owners) if r == self.rank], dim, parts[0].dtype,
+                                 self._home)
+
+    def _rows(self, act: _Act, s: int, rows: slice, at) -> torch.Tensor:
+        """Rows ``rows`` of shard ``s``, every channel, on card ``at``."""
         if act.split:
-            return torch.cat([t[:, :, rows].to(dev) for t in act.t[s]], dim=1)
-        return act.t[s][:, :, rows].to(dev)
+            return torch.cat(self._move([(t[:, :, rows], (s, m)) for m, t in enumerate(act.t[s])], at), dim=1)
+        return self._move([(act.t[s][:, :, rows], (s, 0))], at)[0]
 
     def _whole(self, act: _Act, s: int, m: int) -> torch.Tensor:
         """Shard ``s`` with every channel on card (s, m)."""
         if not act.split and m == 0:
             return act.t[s]
         if (s, m) not in act.copies:
-            act.copies[(s, m)] = self._rows(act, s, slice(None), self._cards[s, m])
+            act.copies[(s, m)] = self._rows(act, s, slice(None), (s, m))
         return act.copies[(s, m)]
 
     def _conv(self, act: _Act, name: str, conv) -> _Act:
-        """Conv ``name`` of each shard, by ``conv(act, s, x, dev, w, b)`` on
-        shard ``s``'s every channel ``x`` on card ``dev``: on each card of
+        """Conv ``name`` of each shard, by ``conv(act, s, x, at, w, b)`` on
+        shard ``s``'s every channel ``x`` on card ``at``: on each card of
         its ``model`` slices where the layer is split, else on (s, 0)."""
         dt = self.module.dtype
         split = f"{name}.weight" in self.split
@@ -323,18 +481,18 @@ class ShardedNet:
             for m in range(self._cards.shape[1] if split else 1):
                 held = self._held[s][m]
                 w, b = held[f"{name}.weight"].to(dt), held[f"{name}.bias"].to(dt)
-                outs.append(conv(act, s, self._whole(act, s, m), self._cards[s, m], w, b))
+                outs.append(conv(act, s, self._whole(act, s, m), (s, m), w, b))
             out.append(outs if split else outs[0])
         return _Act(split, out)
 
-    def _halo(self, act: _Act, s: int, rows: slice, x: torch.Tensor, dev) -> torch.Tensor:
-        """Rows ``rows`` of shard ``s`` on ``dev``, or a zero row beyond the
-        image."""
+    def _halo(self, act: _Act, s: int, rows: slice, x: torch.Tensor, at) -> torch.Tensor:
+        """Rows ``rows`` of shard ``s`` on card ``at``, or a zero row beyond
+        the image."""
         if 0 <= s < len(self._cards):
-            return self._rows(act, s, rows, dev).to(x.dtype)
+            return self._rows(act, s, rows, at).to(x.dtype)
         return x.new_zeros(x.shape[:2] + (1, x.shape[3]))
 
-    def _conv3x3(self, act: _Act, s: int, x: torch.Tensor, dev, w, b) -> torch.Tensor:
+    def _conv3x3(self, act: _Act, s: int, x: torch.Tensor, at, w, b) -> torch.Tensor:
         """A stride-1 3×3 conv with one zero row and column on each side of
         the image: the shard alone with zero rows, then its first and last
         rows again from three-row windows that take the neighbours' rows.
@@ -343,16 +501,16 @@ class ShardedNet:
         if S == 1:
             return F.conv2d(x, w, b, padding=1)
         if x.shape[2] == 1:
-            window = torch.cat([self._halo(act, s - 1, slice(-1, None), x, dev), x,
-                                self._halo(act, s + 1, slice(0, 1), x, dev)], dim=2)
+            window = torch.cat([self._halo(act, s - 1, slice(-1, None), x, at), x,
+                                self._halo(act, s + 1, slice(0, 1), x, at)], dim=2)
             return F.conv2d(window, w, b, padding=(0, 1))
         y = F.conv2d(x, w, b, padding=1)
         first, last = y[:, :, :1], y[:, :, -1:]
         if s > 0:
-            first = F.conv2d(torch.cat([self._halo(act, s - 1, slice(-1, None), x, dev), x[:, :, :2]], dim=2), w, b,
+            first = F.conv2d(torch.cat([self._halo(act, s - 1, slice(-1, None), x, at), x[:, :, :2]], dim=2), w, b,
                              padding=(0, 1))
         if s < S - 1:
-            last = F.conv2d(torch.cat([x[:, :, -2:], self._halo(act, s + 1, slice(0, 1), x, dev)], dim=2), w, b,
+            last = F.conv2d(torch.cat([x[:, :, -2:], self._halo(act, s + 1, slice(0, 1), x, at)], dim=2), w, b,
                             padding=(0, 1))
         return torch.cat([first, y[:, :, 1:-1], last], dim=2)
 
@@ -380,9 +538,13 @@ class ShardedNet:
             ws = [self._held[s][m][f"{name}.weight"][o : o + x.shape[1]] for (s, m), o, x in zip(call, offs, xs)]
             bs = [self._held[s][m][f"{name}.bias"][o : o + x.shape[1]] for (s, m), o, x in zip(call, offs, xs)]
             if len(xs) == 1 and offs[0] % Cg == 0 and xs[0].shape[1] % Cg == 0:  # whole groups on one card
-                ys = [group_norm(xs[0], ws[0], bs[0], xs[0].shape[1] // Cg)]
-            else:
+                x = xs[0]
+                ys = [torch.empty_like(x) if x.is_meta else group_norm(x, ws[0], bs[0], x.shape[1] // Cg)]
+            elif self._link is None:
                 ys = sharded_group_norm(xs, ws, bs, offs, C, G)
+            else:
+                ys = sharded_group_norm(xs, ws, bs, offs, C, G, ranks=[int(self._ranks[c]) for c in call],
+                                        link=self._link)
             out.update(zip(call, ys))
         if act.split:
             return _Act(True, [[out[(s, m)] for m in range(len(act.t[0]))] for s in range(S)])
@@ -401,9 +563,9 @@ class ShardedUNet(ShardedNet):
 
     def forward(self, x: torch.Tensor, group: int = 0) -> torch.Tensor:
         """(B, H, W, C) images → (B, H, W, out_channels) float32 logits on
-        :meth:`root`, through group ``group``'s cards."""
+        :meth:`home` (the root), through group ``group``'s cards."""
         u = self.module
-        rows = [r for r in space_rows(x.shape[1], self.grid.shape[1], u.depth) if r.stop > r.start]
+        rows = self.rows(x.shape[1])
         act = self._start(x, group, rows)
         skips = []
         for i in range(u.depth):
@@ -422,17 +584,20 @@ class ShardedUNet(ShardedNet):
         for s in range(len(rows)):
             w, b = self._held[s][0][f"{head}.weight"], self._held[s][0][f"{head}.bias"]
             if f"{head}.weight" in self.split:  # the whole weight on card (s, 0)
-                w = torch.cat([h[f"{head}.weight"].to(self._cards[s, 0]) for h in self._held[s]])
-                b = torch.cat([h[f"{head}.bias"].to(self._cards[s, 0]) for h in self._held[s]])
+                w = torch.cat(self._move([(h[f"{head}.weight"], (s, m)) for m, h in enumerate(self._held[s])], (s, 0)))
+                b = torch.cat(self._move([(h[f"{head}.bias"], (s, m)) for m, h in enumerate(self._held[s])], (s, 0)))
             y = F.conv2d(self._whole(act, s, 0).float(), w, b)
-            logits.append(y.permute(0, 2, 3, 1).to(self.root(group)))
-        return torch.cat(logits, dim=1)
+            logits.append(y.permute(0, 2, 3, 1))
+        return self._out(logits, dim=1)
 
-    def _conv_up(self, act: _Act, s: int, x: torch.Tensor, dev, w, b) -> torch.Tensor:
+    def rows(self, H: int) -> List[slice]:
+        return [r for r in space_rows(H, self.grid.shape[1], self.module.depth) if r.stop > r.start]
+
+    def _conv_up(self, act: _Act, s: int, x: torch.Tensor, at, w, b) -> torch.Tensor:
         """The up path's 2×2 "SAME" conv (padding (0, 1) on each axis, as in
         flax): the shard with the first row of the shard below (a zero row
         at the image's bottom) and a zero column on the right."""
-        x = torch.cat([x, self._halo(act, s + 1, slice(0, 1), x, dev)], dim=2)
+        x = torch.cat([x, self._halo(act, s + 1, slice(0, 1), x, at)], dim=2)
         return F.conv2d(F.pad(x, (0, 1)), w, b)
 
     def _block(self, act: _Act, prefix: str) -> _Act:

@@ -35,13 +35,21 @@ wide enough, the loki device path) every card is a data replica:
   cards, as the JAX package's;
 * training: the batch split over the cards, the gradients summed onto the
   first, AdamW there, the parameters copied back to the replicas;
-* multi-host: samples partitioned per host (``input.num_shards`` /
-  ``shard_index``, :func:`partition_work`), with ``torch.distributed``
-  initialised from the coordinator's address.
+* multi-host inference: samples partitioned per host (``input.num_shards``
+  / ``shard_index``, :func:`partition_work`), each host on a mesh of its own
+  cards, with ``torch.distributed`` initialised from the coordinator's
+  address.
 
-Every path gives the outputs of one device. ``space`` and ``model`` shard
-over the cards of one process (one host); across hosts each host runs its
-own mesh.
+With a coordinator the mesh spans every process's cards, in the
+process-major order of ``jax.devices()`` (``mesh.make_mesh``; ``Mesh.
+processes`` holds each card's rank). Training runs on it as one SPMD
+program, each process on its own cards, the crossings between processes
+through :mod:`.multihost`'s transport (``models.train``). The loki device
+nodes and ``TorchInference`` refuse such a mesh when they are built; semseg's
+``DeviceTiledInference`` runs on it, every process receiving every share.
+
+Every path gives the outputs of one device, or of one process on a mesh of
+the same shape.
 """
 
 from .config import ParallelConfig, setup_parallel

@@ -62,7 +62,10 @@ def setup_parallel(config, device="cuda"):
     (the default) builds the mesh over the CUDA cards and initialises
     ``torch.distributed`` with ``nccl``; ``"cpu"`` builds it from replicas of
     the CPU device, as many as the axes multiply to (one for ``parallel:
-    true``), with ``gloo``.
+    true``), with ``gloo``. With a coordinator the mesh spans every
+    process's cards (``mesh.make_mesh``), and on the CPU each process gives
+    it the same share of the replicas, as ``--xla_force_host_platform_
+    device_count`` gives each JAX process the same count.
     """
     if not config:
         return None
@@ -72,7 +75,7 @@ def setup_parallel(config, device="cuda"):
     import torch
 
     from .mesh import make_mesh
-    from .multihost import initialize_distributed
+    from .multihost import host_count, initialize_distributed
 
     device = torch.device(device)
     initialize_distributed(
@@ -84,8 +87,10 @@ def setup_parallel(config, device="cuda"):
 
     devices = None
     if device.type == "cpu":
-        n = math.prod(config.mesh.values()) if config.mesh else 1
-        devices = [device] * n
+        n = math.prod(config.mesh.values()) if config.mesh else host_count()
+        if n % host_count():
+            raise ValueError(f"setup_parallel: a mesh of {n} CPU replicas does not split over {host_count()} processes")
+        devices = [device] * (n // host_count())
     mesh = make_mesh(config.mesh, devices)
     logger.info(
         "Parallel execution over mesh %s (%d devices)",
