@@ -49,12 +49,15 @@ csrc`` and runs, one line of output per phase:
    K8 ``remove_small_objects`` (``relabel_cases``, min_area 0, 1 and 30
    each): R = 256 on rectangle frames with ids beyond R at the path's and
    the edge shapes, all-background frames, a region covering each frame,
-   R = 1, the largest R the plan takes (and the wrapper's raise one beyond
-   it), H·W not a multiple of 8 or of 4, rows not 16-B aligned, B = 1 and
-   the dense haul's (8, 2048, 2560) (the two-read route), bit-exact, the
-   same bits from two calls, each case's route and cluster size printed;
+   R = 1, the largest R of the cluster route, H·W not a multiple of 8 or
+   of 4, rows not 16-B aligned, B = 1 and the dense haul's (8, 2048, 2560)
+   (the two-read route), bit-exact, the same bits from two calls, each
+   case's route and cluster size printed; the device-memory route one id
+   beyond the cluster route's largest R and at ``RELABEL_C5`` ((8, 1024,
+   1280) with R = 40000, (1, 512, 512) with R = 70000), the same checks;
    its times at (8, 1024, 1280), (8, 1024, 1024) and (8, 2048, 2560) with
-   the queue full, L2 cold (``l2_cold_inputs``) and warm, and host-paced;
+   the queue full, L2 cold (``l2_cold_inputs``) and warm, and host-paced,
+   the device-memory route's at (8, 1024, 1280) with R = 40000;
    K3 ``region_histogram`` and K7 ``regionprops_fused``, one kernel
    (``csrc/region_measure.cu``): its partials (the perimeter units
    included) and histogram bit-exact against the plain versions and the
@@ -67,7 +70,10 @@ csrc`` and runs, one line of output per phase:
    haul's (2, 2048, 2560) with intensity 255, R = 256, and the threshold
    path's buckets (256, 64, 128) and (8, 512, 512) with R = 2; the fused
    launch, the histogram alone, the whole call and its derivation timed at
-   the first shape and the buckets;
+   the first shape and the buckets; the device-memory route at
+   ``MEASURE_C5`` (R = 64 at 14,000 columns, R = 4096 at (2, 256, 1280),
+   R = 40000, 70,000 columns, the histogram alone at R = 2^15), its route
+   printed, the same checks, and timed at ``DEVICE_ROUTE_TIMED``;
    K5 ``group_norm`` at the path's shapes (16, 32, 1024, 1024) (loki level
    0), (64, 32, 256, 256) (semseg level 0) and (256, 32, 128, 128)
    (classifier stage 1), the train step's, the distillation's (8, 32, 128,
@@ -97,7 +103,10 @@ csrc`` and runs, one line of output per phase:
    transposed, at both bool shapes, with what its library calls launch
    (``--anchor``: ``Tensor.clone()`` is a driver device-to-device copy);
 3. the frame chain (morphology → CCL → region measurement (K7, K3) →
-   filled area) on the card against the same chain on the CPU;
+   filled area) on the card against the same chain on the CPU; again at
+   ``max_regions`` 10000 and ``min_area`` 30 on one frame of 1024 × 1280
+   with 9114 planted objects (``dense_frames``), K8 (R = 40000) and the
+   measurement (R = 10000) each launched once on its device-memory route;
 4. the full-width U-Net (out_channels=1, base_features=32, depth=4) and
    ``ConvClassifier(8)`` in float32 on the card (their norms through K5)
    against the CPU;
@@ -220,9 +229,10 @@ but K9 and K1, K4 alone in phase 11. ``label`` runs K1 and K4 inside
 ``ccl_fixpoint``: alone they launch in phase 10 and no other. K9 launches in
 no phase but 10. The split K5/K6 launches (``SPLIT_NORMS``) launch in phase
 12's sharded train steps (counted from just before each sharded step to
-just after it) and in no other phase. The last lines are a JSON object of the
-kernels, the card's name and power limit, and ``{"ok": true, "device":
-{...}}``. Any failure raises and exits non-zero before the last line.
+just after it) and in no other phase. The device-memory routes of K3, K7
+and K8 launch in no phase from 5 to 14 (``device_route_launches``). The
+last lines are a JSON object of the kernels, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero before the last line.
 """
 
 from __future__ import annotations
@@ -244,9 +254,11 @@ import numpy as np
 from maze_image_processing_pipeline_tpu_torch.tools.synth import (  # noqa: F401 (the tests use them from here)
     TAXONOMY_YAML,
     distill_batches,
+    large_id_labels,
     make_crop_archive,
     make_loki_tree,
     make_taxonomy_files,
+    region_labels,
     vignette_batches,
     write_classifier,
     write_unet,
@@ -392,20 +404,6 @@ def serpentine(B: int, H: int, W: int) -> np.ndarray:
         mask[:, y : y + 5, x] = True
     mask[:, -1, :] = False
     return mask
-
-
-def region_labels(shape, R: int, seed: int) -> np.ndarray:
-    """Label frames of rectangles with ids 1..R+44 (so some lie beyond the
-    R-entry table), sizes from 1 to 48 px a side, on background 0."""
-    rng = np.random.default_rng(seed)
-    out = np.zeros(shape, np.int32)
-    H, W = shape[-2:]
-    for f in np.ndindex(shape[:-2]):
-        for i in range(1, R + 45):
-            h, w = rng.integers(1, min(H, 48) + 1), rng.integers(1, min(W, 48) + 1)
-            y, x = rng.integers(0, H - h + 1), rng.integers(0, W - w + 1)
-            out[f + (slice(y, y + h), slice(x, x + w))] = i
-    return out
 
 
 L2_BYTES = 50 * 2**20  # H100 SXM L2 cache
@@ -761,8 +759,8 @@ def relabel_cases(r_max: int, main=(8, 1024, 1280), edges=()) -> list:
     """K8's cases: (where, labels, R, offset). R = 256 (loki's 4 *
     max_regions) on rectangle frames (ids beyond R) at the path's shape and
     ``edges``, all-background frames and a region covering each frame;
-    R = 1; ``r_max``, the largest R the plan takes on this card, at loki's
-    shape and a small one, with ids beyond it and negative; H*W not a
+    R = 1; ``r_max``, the largest R of the cluster route on this card, at
+    loki's shape and a small one, with ids beyond it and negative; H*W not a
     multiple of 8 or of 4 (frames not 16-B aligned); rows not 16-B aligned
     (offset 1); B = 1; the dense haul's (8, 2048, 2560), which takes the
     two-read route."""
@@ -774,7 +772,7 @@ def relabel_cases(r_max: int, main=(8, 1024, 1280), edges=()) -> list:
              (f"{main} R = 1", region_labels(main, 1, seed=7), 1, 0)]
     cases += [(f"{s} rectangles", region_labels(s, R, seed=3), R, 0) for s in edges]
     for shape in ((2, 512, 640), main):
-        cases.append((f"{shape} R = {r_max} (the largest the plan takes), ids beyond R and negative",
+        cases.append((f"{shape} R = {r_max} (the cluster route's largest), ids beyond R and negative",
                       rng.integers(-3, r_max + 50, shape, dtype=np.int32), r_max, 0))
     for s in ((3, 1001, 1277), (4, 33, 1276), (2, 3, 5)):
         cases.append((f"{s} rectangles (H*W % 8 = {s[1] * s[2] % 8})", region_labels(s, R, seed=8), R, 0))
@@ -810,9 +808,10 @@ def relabel_times(lab, R: int, min_area: int) -> dict:
 def phase_relabel(dev, main, edges, record) -> dict:
     """K8 against its plain version on the card at ``relabel_cases``, each
     with min_area 0, 1 and 30: bit-exact, the same bits from two calls, the
-    plan's route and cluster size printed; the wrapper's raise one id beyond
-    the largest R. Times at ``RELABEL_TIMED``; returns those at ``main``
-    with the route."""
+    plan's route and cluster size printed; the device-memory route one id
+    beyond the cluster route's largest R and at ``RELABEL_C5``, the same
+    checks. Times at ``RELABEL_TIMED`` and the device-memory route's at
+    ``RELABEL_C5[0]``; returns those at ``main`` with the route."""
     import torch
 
     from maze_image_processing_pipeline_tpu_torch.ops import label as tl
@@ -833,12 +832,22 @@ def phase_relabel(dev, main, edges, record) -> dict:
         say(f"  {where}: remove_small_objects bit-exact and the same twice at min_area 0, 1, {min_area} "
             f"({plan.route}, clusters of {plan.cluster}; kept per frame at {min_area}: {sorted(set(k_n.tolist()))})")
         del lab, k_out, k_n, again, p_out, p_n
-    try:
-        tl.remove_small_objects(torch.zeros((1, 8, 8), dtype=torch.int32, device=dev), min_area, r_max + 1)
-    except ValueError as e:
-        say(f"  remove_small_objects raises at R = {r_max + 1}: {e}")
-    else:
-        raise AssertionError(f"remove_small_objects took R = {r_max + 1}, beyond the plan's largest")
+    beyond = (f"(2, 512, 640) R = {r_max + 1} (one beyond the cluster route's largest)",
+              large_id_labels((2, 512, 640), r_max + 1, seed=29), r_max + 1)
+    cases = [beyond] + c5_relabel_cases()
+    for where, lab_np, R in cases:
+        lab = on_card(lab_np, dev)
+        say(f"  {where}: remove_small_objects bit-exact and the same twice at min_area 0, 1, {min_area} "
+            f"({check_relabel_c5(lab, R, where)})")
+        del lab
+    (shape, R_c5), lab = RELABEL_C5[0], torch.from_numpy(cases[1][1]).to(dev)  # the first C5 case, timed
+    c5 = relabel_times(lab, R_c5, min_area)
+    c5 = dict(shape=list(shape), R=R_c5, **{k: c5[k] for k in ("ms", "queued_ms", "plain_ms", "bound_ms")},
+              route_bytes_ms=bytes_ms(12 * lab.numel() + 5 * 4 * shape[0] * R_c5))
+    say(f"  remove_small_objects at {shape}, R = {R_c5} (device memory): host-paced {c5['ms']:.4f} ms, queue full "
+        f"{c5['queued_ms']:.4f} ms; plain {c5['plain_ms']:.4f} ms; bound {c5['bound_ms']:.4f} ms (the route's own "
+        f"traffic {c5['route_bytes_ms']:.4f} ms)")
+    del lab, cases
     R = 4 * POSTPROCESS.max_regions
     out = None
     for shape in RELABEL_TIMED:
@@ -851,6 +860,7 @@ def phase_relabel(dev, main, edges, record) -> dict:
         if out is None:
             out = dict(t, plan_route=plan.route, cluster=plan.cluster)
         del lab
+    out["device_memory_route"] = c5
     return out
 
 
@@ -1048,6 +1058,82 @@ def region_cases(main=(8, 1024, 1280)) -> list:
 PARTIAL_NAMES = ("sums", "rowcnt", "rowsumx", "rowminx", "rowmaxx", "colcnt")
 
 
+# C5: frames and id ranges beyond the shared-memory routes of the region
+# measurement (K7 with K3) and of K8, each taken by the device-memory route:
+# (shape, R, histogram alone). R = 64 at 14,000 columns (above 13,468 no
+# strip fits), R = 4096 at loki's width (above 3760), R = 40000 (past 2^15,
+# ids up to 39,999 present), 70,000 columns (past 2^16: a row's x-sum in
+# int64), the histogram alone at R = 2^15.
+MEASURE_C5 = (((1, 64, 14000), 64, False), ((2, 256, 1280), 4096, False), ((1, 256, 256), 40000, False),
+              ((1, 8, 70000), 4, False), ((2, 256, 1280), 1 << 15, True))
+# K8 at R = 40000 (bins and table past a block's shared memory) on loki's
+# frames and at R = 70000 (past uint16).
+RELABEL_C5 = (((8, 1024, 1280), 40000), ((1, 512, 512), 70000))
+
+
+def c5_region_cases() -> list:
+    """(where, labels, intensity, R, histogram alone) of ``MEASURE_C5``."""
+    rng = np.random.default_rng(23)
+    return [(f"{shape} R = {R}" + (", the histogram alone" if alone else ""),
+             large_id_labels(shape, R, seed=24 + i), rng.integers(0, 256, shape, dtype=np.uint8), R, alone)
+            for i, (shape, R, alone) in enumerate(MEASURE_C5)]
+
+
+def check_region_c5(lab, img, R: int, alone: bool, where: str) -> str:
+    """A C5 case on the card: the plan's route must be the device-memory
+    route; the partials (with and without intensity) and the histogram
+    bit-exact against their plain versions and the same in two launches,
+    or the histogram alone; the props within ``compare_props``. Returns the
+    route."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops import region_histogram as rh
+    from maze_image_processing_pipeline_tpu_torch.ops import regionprops_fused as rf
+
+    route = rh.region_measure_plan(lab.shape[-1], R, not alone, True).route
+    check(route == "device memory", f"the region measurement at {where} takes the {route} route")
+    if alone:
+        got, again = rh.region_histogram(lab, img, R), rh.region_histogram(lab, img, R)
+        ref = rh.region_histogram_plain(lab, img, R)
+        check(torch.equal(got, ref), f"region_histogram differs at {where} by {max_err(got, ref)}")
+        check(torch.equal(got, again), f"region_histogram differs between two launches at {where}")
+        return route
+    check_region_kernel(lab, img, R, where)
+    check_region_kernel(lab, None, R, f"{where} without intensity")
+    compare_props(rf.regionprops_fused(lab, img, num_segments=R), rf.regionprops_fused_plain(lab, img, num_segments=R),
+                  where)
+    return route
+
+
+def c5_relabel_cases() -> list:
+    """(where, labels, R) of ``RELABEL_C5``."""
+    return [(f"{shape} R = {R}", large_id_labels(shape, R, seed=30 + i), R)
+            for i, (shape, R) in enumerate(RELABEL_C5)]
+
+
+def check_relabel_c5(lab, R: int, where: str) -> str:
+    """K8 at a C5 case with min_area 0, 1 and 30: the device-memory route,
+    bit-exact against the plain version and the same bits from two calls.
+    Returns the route and the regions kept per frame at 30."""
+    import torch
+
+    from maze_image_processing_pipeline_tpu_torch.ops import label as tl
+
+    route = tl.remove_small_objects_plan(lab, R).route
+    check(route == "device memory", f"remove_small_objects at {where} takes the {route} route")
+    for m in (0, 1, POSTPROCESS.min_area):
+        out, n = tl.remove_small_objects(lab, m, R)
+        again = tl.remove_small_objects(lab, m, R)
+        ref, n_ref = tl.remove_small_objects_plain(lab, m, R)
+        check(torch.equal(out, ref) and torch.equal(n, n_ref),
+              f"remove_small_objects differs at {where} min_area={m} by {max(max_err(out, ref), max_err(n, n_ref))}")
+        check(torch.equal(out, again[0]) and torch.equal(n, again[1]),
+              f"remove_small_objects differs between two calls at {where} min_area={m}")
+    return f"{route}, kept per frame at {POSTPROCESS.min_area}: {sorted(set(n.tolist()))}"
+
+
+
+
 def check_region_kernel(lab, img, r: int, where: str) -> None:
     """The region-measurement kernel's partials and histogram against their
     plain versions, bit for bit, and the same bits in a second launch; the
@@ -1137,6 +1223,14 @@ def phase_region_kernels(dev, main=(8, 1024, 1280)) -> dict:
                 f"partials + histogram {m['plain_fused_ms']:.4f} ms, plain call {m['plain_call_ms']:.4f} ms, "
                 f"bincount {m['bincount_ms']:.4f} ms")
         del lab, img, kp, pp
+    for where, lab_np, img_np, r, alone in c5_region_cases():
+        lab, img = on_card(lab_np, dev), on_card(img_np, dev)
+        route = check_region_c5(lab, img, r, alone, where)
+        say(f"  {where} ({route}): " + ("region_histogram bit-exact and the same twice" if alone else
+            "partials (with and without intensity) and histogram bit-exact, the same twice, region_histogram "
+            "bit-exact; props within tolerance"))
+        del lab, img
+    c5 = device_route_timings(dev)
     m = times[f"{main} blobs"]
     buckets = {k: v for k, v in times.items() if k != f"{main} blobs"}
     return {
@@ -1146,6 +1240,7 @@ def phase_region_kernels(dev, main=(8, 1024, 1280)) -> dict:
             # the timed region: the plain version itself.
             library_ms=m["bincount_ms"], max_abs_err=0, bound_by="bytes",
             at_buckets={k: v["hist_ms"] for k, v in buckets.items()},
+            device_memory_route=c5["region_histogram"],
         ),
         "regionprops_fused": dict(
             ms=m["fused_ms"], plain_ms=m["plain_fused_ms"], bound_ms=m["fused_bound_ms"], library_ms=None,
@@ -1153,8 +1248,50 @@ def phase_region_kernels(dev, main=(8, 1024, 1280)) -> dict:
             plain_call_ms=m["plain_call_ms"], props_max_abs_err=worst,
             at_buckets={k: {n: v[n] for n in ("fused_ms", "call_ms", "derivation_ms", "fused_bound_ms")}
                         for k, v in buckets.items()},
+            device_memory_route=c5["regionprops_fused"],
         ),
     }
+
+
+# The device-memory route's timed shapes: the fused launch (K7 with K3) at
+# R = 4096 on loki's width, the histogram alone (K3) at R = 2^15.
+DEVICE_ROUTE_TIMED = {"regionprops_fused": ((2, 256, 1280), 4096), "region_histogram": ((2, 256, 1280), 1 << 15)}
+
+
+def device_route_timings(dev) -> dict:
+    """CUDA-event times of the region measurement's device-memory route at
+    ``DEVICE_ROUTE_TIMED``, beside the plain versions' and the bounds: the
+    function's (labels and intensity read once, the outputs written once)
+    and the route's own traffic (the row planes written twice, the memset
+    of the summed outputs)."""
+    from maze_image_processing_pipeline_tpu_torch.ops import region_histogram as rh
+    from maze_image_processing_pipeline_tpu_torch.ops import regionprops_fused as rf
+
+    out = {}
+    for name, (shape, R) in DEVICE_ROUTE_TIMED.items():
+        B, H, W = shape
+        lab = on_card(large_id_labels(shape, R, seed=40), dev)
+        img = on_card(np.random.default_rng(41).integers(0, 256, shape, dtype=np.uint8), dev)
+        px = lab.numel()
+        hist_out = B * R * 256 * 4
+        if name == "region_histogram":
+            ms = cuda_ms(lambda: rh.region_histogram(lab, img, R))
+            plain = cuda_ms(lambda: rh.region_histogram_plain(lab, img, R))
+            bound = bytes_ms(5 * px + hist_out)
+            own = bytes_ms(5 * px + 2 * hist_out)  # the memset, then the atomics' lines written back
+        else:
+            rows_out = 4 * B * H * R * 4
+            partials_out = B * R * 5 * 8 + rows_out + B * W * R * 4
+            ms = cuda_ms(lambda: rf.region_props_partials(lab, img, R))
+            plain = cuda_ms(lambda: (rf.region_props_partials_plain(lab, img, R),
+                                     rh.region_histogram_plain(lab, img, R)), iters=3)
+            bound = bytes_ms(5 * px + partials_out + hist_out)
+            own = bytes_ms(5 * px + 2 * (partials_out + hist_out))
+        out[name] = dict(shape=list(shape), R=R, ms=ms, plain_ms=plain, bound_ms=bound, route_bytes_ms=own)
+        say(f"  {name} on the device-memory route at {shape}, R = {R}: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bound:.4f} ms (the route's own traffic {own:.4f} ms)")
+        del lab, img
+    return out
 
 
 def half_ulp(v, mantissa_bits: int):
@@ -1289,14 +1426,27 @@ def norm_ops(*args: str) -> dict:
     return result
 
 
-def phase_norm_ops() -> None:
+# The device operations of a device-memory route's call, each once: K8's
+# memset of its bins and three kernels; the fused measurement's memset, row
+# initialisation and kernel; the histogram alone's memset and kernel (and
+# the wrapper's float32 copy of the histogram).
+DEVICE_ROUTE_OPS = {
+    "remove_small_objects": ("Memset", "count_global_kernel", "scan_global_kernel", "relabel_global_kernel"),
+    "regionprops_fused": ("Memset", "init_rows_kernel", "measure_global_kernel<true, true>"),
+    "region_histogram": ("Memset", "measure_global_kernel<false, true>"),
+}
+
+
+def phase_norm_ops() -> dict:
     """The device operations of one K5 and one K6 call at the path's, the
     train step's and the distillation's shapes, both layouts, of one K8
     call at ``RELABEL_TIMED``, and of one K9 call on the perf lab's and the
     dense haul's masks, contiguous and transposed (``tools/norm_ops.py``
     under ``torch.profiler``, in processes of their own): each must be one
     kernel, with no memset or copy. K9's library calls' operations are
-    printed (what ``Tensor.clone()`` launches)."""
+    printed (what ``Tensor.clone()`` launches). The device-memory routes'
+    operations (``--routes``) must be ``DEVICE_ROUTE_OPS``, each once;
+    returns their device times, {kernel: {shape and R: {operation: us}}}."""
     for case in norm_ops()["cases"]:
         where = f"{tuple(case['shape'])} bfloat16 {case['layout']}"
         for kind, name in (("fwd", "gn_fwd_kernel"), ("bwd", "gn_bwd_kernel")):
@@ -1318,6 +1468,22 @@ def phase_norm_ops() -> None:
         library = "; ".join(f"{n} x {k[:100]}" for k, n in case["library"].items())
         say(f"  {where}: one device operation an anchor call ({kernel}); its library call "
             f"({'Tensor.clone()' if case['view'] == 'contiguous' else '.contiguous()'}) launches: {library}")
+    breakdown = {}
+    for case in norm_ops("--routes")["routes"]:
+        where = f"{tuple(case['shape'])} R = {case['R']}"
+        ops = case["ops"]
+        check(case["route"] == "device memory", f"{case['kernel']} at {where} takes the {case['route']} route")
+        found = {}
+        for name in DEVICE_ROUTE_OPS[case["kernel"]]:
+            hits = [(k, v) for k, v in ops.items() if name in k]
+            check(len(hits) == 1 and hits[0][1][0] == 1, f"{case['kernel']} at {where}: {name} in {ops}")
+            found[name] = hits[0][1][1]
+        rest = {k: v for k, v in ops.items() if not any(name in k for name in found)}
+        check(case["kernel"] == "region_histogram" or not rest, f"{case['kernel']} at {where}: other operations {rest}")
+        breakdown.setdefault(case["kernel"], {})[where] = dict(found, **{k[:60]: v[1] for k, v in rest.items()})
+        say(f"  {case['kernel']} at {where} (device memory): "
+            + "; ".join(f"{k} {us:.2f} us" for k, us in breakdown[case["kernel"]][where].items()))
+    return breakdown
 
 
 def within_f32(got, ref) -> bool:
@@ -1498,19 +1664,43 @@ def phase_anchor(dev) -> dict:
     return out
 
 
-def phase_frame_chain(dev, B=2, H=1024, W=1280) -> str:
-    """The frame chain on the card (kernels) against the CPU (plain)."""
+# The frame chain at a large id range (C5): max_regions = 10000, so K8 runs
+# with R = 40000 and the measurement with R = 10000, both on their
+# device-memory routes, on a frame of thousands of objects.
+POSTPROCESS_C5 = SimpleNamespace(**{**vars(POSTPROCESS), "max_regions": 10000})
+
+
+def dense_frames(n: int, H: int, W: int, seed: int) -> np.ndarray:
+    """Frames of thousands of small objects: a bright rectangle of 4-6 by
+    5-8 px (a third of them below min_area 30) in each cell of an 11 x 13
+    grid, on noise up to 40; gaps of at least 5 px, so that closing at
+    radius 2 merges none."""
+    rng = np.random.default_rng(seed)
+    frames = (rng.random((n, H, W)) * 40).astype(np.uint8)
+    for f in range(n):
+        for y in range(0, H - 10, 11):
+            for x in range(0, W - 12, 13):
+                h, w = rng.integers(4, 7), rng.integers(5, 9)
+                frames[f, y + 1 : y + 1 + h, x + 1 : x + 1 + w] = rng.integers(100, 250)
+    return frames
+
+
+def phase_frame_chain(dev, B=2, H=1024, W=1280, post=POSTPROCESS, frames=None) -> str:
+    """The frame chain on the card (kernels) against the CPU (plain), with
+    ``post``'s settings on ``frames`` (default: ``make_frames``' 20
+    vignettes a frame)."""
     import torch
 
     from maze_image_processing_pipeline_tpu_torch.loki.device_seg import _build_frame_chain
 
     rng = np.random.default_rng(2)
-    image = make_frames(B, H, W, 20, seed=3)
+    image = make_frames(B, H, W, 20, seed=3) if frames is None else frames
+    B = image.shape[0]
     pred = np.where(image > 60, 0.9, 0.1) + 0.1 * rng.standard_normal(image.shape)
     pred = pred.astype(np.float32)
     out = {}
     for d in (dev, torch.device("cpu")):
-        chain, keys = _build_frame_chain(POSTPROCESS)
+        chain, keys = _build_frame_chain(post)
         with torch.inference_mode():
             labels, flat = chain(torch.from_numpy(pred).to(d), torch.from_numpy(image).to(d))
         out[d.type] = (labels.cpu().numpy(), flat.cpu().numpy(), list(keys))
@@ -1518,7 +1708,7 @@ def phase_frame_chain(dev, B=2, H=1024, W=1280) -> str:
     check(keys == keys_c, f"packed keys differ: {keys} vs {keys_c}")
     if not np.array_equal(lg, lc):
         raise AssertionError(f"labels differ on {int((lg != lc).sum())} pixels")
-    R, K = POSTPROCESS.max_regions, len(keys)
+    R, K = post.max_regions, len(keys)
     n_g, n_c = fg_[:B], fc[:B]
     pg = fg_[B : B + K * B * R].reshape(K, B, R)
     pc = fc[B : B + K * B * R].reshape(K, B, R)
@@ -1539,6 +1729,18 @@ def phase_frame_chain(dev, B=2, H=1024, W=1280) -> str:
         f"regions per frame {n_g.astype(int).tolist()}, labels/counts/histograms/integer "
         f"props exact, float props within rtol 1e-5 atol 1e-3 (max relative diff {worst:.3g})"
     )
+
+
+def phase_frame_chain_c5(dev) -> str:
+    """The frame chain at ``POSTPROCESS_C5`` on one frame of loki's shape
+    with thousands of objects, card against CPU: K8 (R = 40000) and the
+    measurement (R = 10000) on their device-memory routes, checked by their
+    route counts, with ids past both old limits in use."""
+    seen = device_route_launches()
+    msg = phase_frame_chain(dev, post=POSTPROCESS_C5, frames=dense_frames(1, 1024, 1280, seed=4))
+    ran = device_route_launches(seen)
+    check(all(v == 1 for v in ran.values()), f"the chain's device-memory route launches: {ran}")
+    return f"{msg}; device-memory route launches {ran}"
 
 
 def phase_unet(dev) -> str:
@@ -1641,6 +1843,24 @@ def _counted():
             "group_norm_bwd": layers.group_norm_bwd, "region_histogram": rh.region_histogram,
             "regionprops_fused": rf.regionprops_fused, "anchor": anchor,
             **{name: getattr(layers, name) for name in SPLIT_NORMS}}
+
+
+# The kernels with a device-memory route beside their shared-memory one.
+DEVICE_ROUTE_KERNELS = ("remove_small_objects",) + REGION_KERNELS
+
+
+def device_route_launches(since=None) -> dict:
+    """The device-memory route's launches of each of
+    ``DEVICE_ROUTE_KERNELS`` (``launches_by_route``, which
+    :func:`reset_launches` leaves), since the counts ``since`` were read,
+    which become the new starting point."""
+    now = {name: fn.__dict__.get("launches_by_route", {}).get("device memory", 0)
+           for name, fn in _counted().items() if name in DEVICE_ROUTE_KERNELS}
+    if since is None:
+        return now
+    out = {k: now[k] - since[k] for k in now}
+    since.update(now)
+    return out
 
 
 def reset_launches() -> None:
@@ -3388,62 +3608,78 @@ def main() -> int:
         measured.update(phase_region_kernels(dev))
         measured.update(phase_group_norm(dev))
         measured.update(phase_group_norm_bwd(dev))
-        phase_norm_ops()
+        for name, ops in phase_norm_ops().items():
+            measured[name]["device_memory_route"]["device_us_by_operation"] = ops
         measured.update(phase_anchor(dev))
 
         t0 = time.perf_counter()
         msg = phase_frame_chain(dev)
         say(f"phase 3 frame chain card vs CPU: {msg} ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        msg = phase_frame_chain_c5(dev)
+        say(f"phase 3 frame chain card vs CPU at max_regions {POSTPROCESS_C5.max_regions}, min_area "
+            f"{POSTPROCESS_C5.min_area}, (1, 1024, 1280): {msg} ({time.perf_counter() - t0:.1f} s)")
 
         say(f"phase 4 U-Net and classifier float32 card vs CPU: {phase_unet(dev)}")
 
         say("phase 5 slice end to end:")
+        route_seen = device_route_launches()
         launches = {5: phase_slice(dev, limit)}
+        route_by_phase = {5: device_route_launches(route_seen)}
 
         say("phase 6 maze-ipp loki through the port's Runner:")
         t0 = time.perf_counter()
         launches[6] = phase_loki(limit, work)
+        route_by_phase[6] = device_route_launches(route_seen)
         say(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
 
         say("phase 7 maze-ipp predict through the port's Runner:")
         t0 = time.perf_counter()
         launches[7] = phase_predict(limit, work)
+        route_by_phase[7] = device_route_launches(route_seen)
         say(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
         say("phase 8 maze-ipp loki with threshold segmentation through the port's Runner:")
         t0 = time.perf_counter()
         launches[8] = phase_threshold(limit, work)
+        route_by_phase[8] = device_route_launches(route_seen)
         say(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
         say("phase 9 training on the card:")
         t0 = time.perf_counter()
         launches[9] = phase_train(dev, limit, work)
+        route_by_phase[9] = device_route_launches(route_seen)
         say(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
         say("phase 10 the frame-chain perf lab:")
         t0 = time.perf_counter()
         launches[10] = phase_lab(dev, limit)
+        route_by_phase[10] = device_route_launches(route_seen)
         say(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
         say("phase 11 the haul driver (loki U-Net, semseg with .h5, polytaxo):")
         t0 = time.perf_counter()
         launches[11] = phase_haul(limit, work)
+        route_by_phase[11] = device_route_launches(route_seen)
         say(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
         say("phase 12 several cards:")
         t0 = time.perf_counter()
         launches[12], split = phase_mesh(dev, limit, work)
+        route_by_phase[12] = device_route_launches(route_seen)
         measured.update(split)
         say(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
         say("phase 13 library functions on the card:")
         t0 = time.perf_counter()
         launches[13] = phase_library(dev, limit)
+        route_by_phase[13] = device_route_launches(route_seen)
         say(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
         say("phase 14 a mesh over two processes:")
         t0 = time.perf_counter()
         launches[14] = phase_processes(dev, limit, work)
+        route_by_phase[14] = device_route_launches(route_seen)
         say(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3458,6 +3694,12 @@ def main() -> int:
          "launches_by_phase": {str(p): launches[p][k] for p in launches}, **measured[k]}
         for k in KERNELS
     ]
+    # The device-memory routes run on no path: 0 launches in phases 5 to 14.
+    for entry in kernels:
+        if entry["name"] in DEVICE_ROUTE_KERNELS:
+            by_phase = {str(p): route_by_phase[p][entry["name"]] for p in route_by_phase}
+            entry["device_memory_route"].update(launches=sum(by_phase.values()), launches_by_phase=by_phase)
+            check(not any(by_phase.values()), f"{entry['name']}'s device-memory route launched on a path: {by_phase}")
     say(json.dumps({"kernels": kernels}))
     say(gpu_name_and_limit())
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,7 @@ SIGNATURES = {
     "ccl_fixpoint_banded_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _u, _vp],
     "ccl_grid_launch": [_vp] * 5 + [_i] * 7 + [_vp],
     "remove_small_objects_launch": [_vp, _vp, _vp, _i, _ll, _i, _i, _i, _ll, _ll, _vp],
+    "remove_small_objects_global_launch": [_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _vp],
     "relabel_capacity": [_vp],
     "group_norm_capacity": [_i, _i, _i, _i, _vp],
     "group_norm_launch": [_vp] * 7 + [_i, _i, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _f, _vp],
@@ -62,7 +63,7 @@ SIGNATURES = {
     "group_norm_apply_launch": [_vp] * 5 + [_i, _i, _i, _ll] + [_i] * 6 + [_vp],
     "group_norm_bwd_partials_launch": [_vp] * 6 + [_i, _i, _i, _ll] + [_i] * 7 + [_vp],
     "group_norm_bwd_apply_launch": [_vp] * 6 + [_i, _i, _i, _ll] + [_i] * 7 + [_vp],
-    "region_measure_launch": [_vp] * 7 + [_ll, _i, _i, _i, _i, _vp],
+    "region_measure_launch": [_vp] * 8 + [_ll, _i, _i, _i, _i, _i, _vp],
     "anchor_launch": [_vp, _vp, _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _vp],
 }
 

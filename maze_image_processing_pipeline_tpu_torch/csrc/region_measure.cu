@@ -26,7 +26,14 @@
 // and the intensity (1 B/px) once and writes the partials and the
 // histogram: 64.0 MB at (8, 1024, 1280) with R = 64, 19.1 us at 3.35 TB/s.
 //
-// Design.
+// Two routes, chosen by the caller's plan before the launch
+// (ops/region_histogram.py:region_measure_plan, a replica of `layout` and
+// `choose_strip`): the shared-memory route (measure_kernel), wherever R <
+// 2^15, W <= 2^16 and a strip of rows fits a block; else the
+// device-memory route (measure_global_kernel, below), which takes any R and
+// W. Every path shape of the port takes the shared-memory route.
+//
+// Design of the shared-memory route.
 // * A frame is cut into strips of TH whole rows. A block measures strips of
 //   one frame: all of them where it owns the frame (a small frame), else
 //   the frame's next strip not yet taken, from a counter in device memory,
@@ -576,6 +583,338 @@ __global__ void __launch_bounds__(kThreads, 2) measure_kernel(Args a) {
   }
 }
 
+// ---- the device-memory route -----------------------------------------------
+//
+// Where no strip fits (a large R or a wide row) or the launcher's limits
+// are passed (R >= 2^15: the column run's 16-bit region; W > 2^16), the
+// accumulators live in device memory and every block adds to them with
+// integer atomics, so any R and W are taken:
+// * A warp takes a task: up to kGlobalRows rows of one span of kSpan
+//   columns of one frame, row by row, each lane 8 consecutive pixels, read
+//   from device memory (the 3x3 neighbourhood of the perimeter from L1 /
+//   L2). A task's rows shrink until the frames give kTaskWarps warps of
+//   tasks an SM (a warp's rows run one after another, so a few tall tasks
+//   would leave most of the card idle).
+// * Equal labels are merged first, as on the shared route: a warp whose
+//   span holds one region adds its row partials with one lane's atomics
+//   (closed-form count and x-sums), else __match_any_sync merges the
+//   threads of one region and mixed threads add their runs. A uniform
+//   span's region sums (intensity, perimeter units) stay in lane 0's
+//   registers while the next rows' spans hold the same region, so the
+//   background, measured too, hits its sums once a task, not once a row.
+// * Each lane keeps its 8 columns' current runs of equal regions in
+//   registers through the task's rows and adds a finished run to the
+//   column counts with one atomic.
+// * Row partials: count and x-min / x-max by 32-bit atomics (x-min and
+//   x-max start at W and -1: init_rows_kernel writes the four row planes
+//   first), the row x-sum 32-bit where W <= 65536 (W (W - 1) / 2 < 2^31),
+//   else 64-bit into its own (B, H, R) buffer; the region sums and the
+//   perimeter units 64-bit; the histogram 32-bit. Integer atomics only:
+//   exact and deterministic.
+// Bound: device memory. It reads the labels and the intensity once and
+// writes the partials: the row planes twice (initialised, then added to),
+// the sums, the column counts and the histogram once, zeroed by the
+// launcher's memset; a row's atomics and its neighbours' reads hit L2.
+
+constexpr int kGlobalRows = 16;       // rows of a warp's task at most
+constexpr int kTaskWarps = 32;        // tasks an SM the task height aims at
+constexpr int kGlobalMaxW = 1 << 16;  // beyond it a row's x-sum needs 64 bits
+
+struct GArgs {
+  const int32_t* lab;
+  const uint8_t* img;
+  unsigned long long* sums;    // (B, R, 5)
+  int32_t* rows;               // (4, B, H, R)
+  unsigned long long* sumx64;  // (B, H, R) row x-sums where W > kGlobalMaxW, else null
+  int32_t* colcnt;             // (B, W, R)
+  unsigned* hist;              // (B, R, 256)
+  long long plane;             // B * H * R
+  long long tasks;             // B * bands * segs
+  int H, W, R;
+  int task_rows;               // rows of a task
+  int bands, segs;             // tasks a frame: ceil(H / task_rows) x ceil(W / kSpan)
+};
+
+__global__ void __launch_bounds__(kThreads) init_rows_kernel(int32_t* rows, long long plane, int W) {
+  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < plane;
+       i += static_cast<long long>(gridDim.x) * kThreads) {
+    rows[i] = 0;
+    rows[plane + i] = 0;
+    rows[2 * plane + i] = W;
+    rows[3 * plane + i] = -1;
+  }
+}
+
+// A run of region r in row y of frame f: its row partials.
+__device__ __forceinline__ void row_add(const GArgs& a, long long fy, int r, int cnt, long long sumx, int minx,
+                                        int maxx) {
+  const long long k = fy * a.R + r;
+  atomicAdd(&a.rows[k], cnt);
+  if (a.sumx64) {
+    atomicAdd(&a.sumx64[k], static_cast<unsigned long long>(sumx));
+  } else {
+    atomicAdd(&a.rows[a.plane + k], static_cast<int>(sumx));
+  }
+  atomicMin(&a.rows[2 * a.plane + k], minx);
+  atomicMax(&a.rows[3 * a.plane + k], maxx);
+}
+
+// Region r's perimeter units and intensity sums (I, I*y, I*x).
+template <bool I>
+__device__ __forceinline__ void region_add(unsigned long long* g, unsigned long long n1, unsigned long long n065,
+                                           unsigned long long si, unsigned long long siy, unsigned long long six) {
+  if (n1) atomicAdd(&g[0], n1);
+  if (n065) atomicAdd(&g[1], n065);
+  if (I && si) {
+    atomicAdd(&g[2], si);
+    atomicAdd(&g[3], siy);
+    atomicAdd(&g[4], six);
+  }
+}
+
+template <bool P, bool I>
+__device__ void measure_task(const GArgs& a, int f, int y0, int xs, int lane) {
+  const int H = a.H, W = a.W, R = a.R;
+  const int y1 = min(H, y0 + a.task_rows);
+  const int xe = min(W, xs + kSpan);
+  const int x0 = xs + lane * kPer;
+  const int n_in = max(0, min(kPer, xe - x0));
+  unsigned long long* gsums = P ? a.sums + static_cast<long long>(f) * R * 5 : nullptr;
+  int32_t* gcol = P ? a.colcnt + static_cast<long long>(f) * W * R : nullptr;
+  unsigned* ghist = I ? a.hist + static_cast<long long>(f) * R * 256 : nullptr;
+
+  int run_r[kPer], run_n[kPer];  // each column's current run: region + 1 (0: none) and length
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) run_r[k] = run_n[k] = 0;
+  // Lane 0: the region sums of uniform spans of region acc_r (-1: none).
+  int acc_r = -1;
+  unsigned long long acc_n1 = 0, acc_n065 = 0, acc_si = 0, acc_siy = 0, acc_six = 0;
+
+  for (int y = y0; y < y1; ++y) {
+    const long long fy = static_cast<long long>(f) * H + y;
+    const int32_t* Lm = a.lab + fy * W;
+    const uint8_t* V = I ? a.img + fy * W : nullptr;
+    int lab[kPer];
+    unsigned iv[kPer];
+    if (n_in == kPer && (reinterpret_cast<uintptr_t>(Lm + x0) & 15) == 0) {
+      const int4 v0 = __ldg(reinterpret_cast<const int4*>(Lm + x0));
+      const int4 v1 = __ldg(reinterpret_cast<const int4*>(Lm + x0 + 4));
+      lab[0] = v0.x, lab[1] = v0.y, lab[2] = v0.z, lab[3] = v0.w;
+      lab[4] = v1.x, lab[5] = v1.y, lab[6] = v1.z, lab[7] = v1.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) lab[k] = k < n_in ? Lm[x0 + k] : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) iv[k] = 0;
+    if (I) {
+      if (n_in == kPer && (reinterpret_cast<uintptr_t>(V + x0) & 7) == 0) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(V + x0));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          iv[k] = v.x >> (8 * k) & 0xff;
+          iv[k + 4] = v.y >> (8 * k) & 0xff;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) iv[k] = k < n_in ? V[x0 + k] : 0u;
+      }
+    }
+    int key[kPer];
+    bool mixed = false;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      key[k] = (k < n_in && lab[k] >= 0 && lab[k] < R) ? lab[k] : -1;
+      if (k < n_in && key[k] != key[0]) mixed = true;
+    }
+    const int t_key = n_in == 0 ? -3 : (mixed ? -2 : key[0]);
+    const int k0 = __shfl_sync(kFull, t_key, 0);
+    const bool uni = __all_sync(kFull, t_key == k0 || t_key == -3) && k0 != -2;
+
+    if (P) {
+      unsigned pu[kPer];
+      bool any_fg = false;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        pu[k] = 0;
+        any_fg |= key[k] > 0;
+      }
+      if (any_fg) {
+        unsigned mid = 0;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) mid |= (k < n_in && lab[k] > 0) ? 2u << k : 0u;
+        if (x0 > 0 && Lm[x0 - 1] > 0) mid |= 1u;
+        if (x0 + kPer < W && Lm[x0 + kPer] > 0) mid |= 1u << (kPer + 1);
+        const unsigned up = y > 0 ? fg_bits(Lm - W, x0, W) : 0u;
+        const unsigned dn = y + 1 < H ? fg_bits(Lm + W, x0, W) : 0u;
+        if (!(up == kRowBits && mid == kRowBits && dn == kRowBits)) {
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            if (key[k] > 0) pu[k] = units(up, mid, dn, k + 1);
+          }
+        }
+      }
+      // The thread's sums, x relative to xs (meaningful where its pixels
+      // hold one key).
+      unsigned si = 0, sid = 0, un = 0;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (k < n_in) {
+          si += iv[k];
+          sid += iv[k] * static_cast<unsigned>(x0 + k - xs);
+          un += pu[k];
+        }
+      }
+      if (uni) {
+        if (k0 >= 0) {
+          unsigned n1 = un & 0xff, n065 = un >> 8;
+          if (I) {
+            si = __reduce_add_sync(kFull, si);
+            sid = __reduce_add_sync(kFull, sid);
+          }
+          if (k0 > 0) {
+            n1 = __reduce_add_sync(kFull, n1);
+            n065 = __reduce_add_sync(kFull, n065);
+          }
+          if (lane == 0) {
+            const int cnt = xe - xs;
+            row_add(a, fy, k0, cnt, static_cast<long long>(xs) * cnt + static_cast<long long>(cnt) * (cnt - 1) / 2,
+                    xs, xe - 1);
+            if (acc_r != k0) {
+              if (acc_r >= 0) region_add<I>(gsums + 5 * static_cast<long long>(acc_r), acc_n1, acc_n065, acc_si,
+                                            acc_siy, acc_six);
+              acc_r = k0;
+              acc_n1 = acc_n065 = acc_si = acc_siy = acc_six = 0;
+            }
+            acc_n1 += n1;
+            acc_n065 += n065;
+            acc_si += si;
+            acc_siy += static_cast<unsigned long long>(y) * si;
+            acc_six += static_cast<unsigned long long>(xs) * si + sid;
+          }
+        }
+      } else {
+        const int mk = t_key >= -1 ? t_key : (t_key == -3 ? -1 : -4 - lane);
+        const unsigned peers = __match_any_sync(kFull, mk);
+        const bool one = t_key >= 0;
+        const int cnt = static_cast<int>(__reduce_add_sync(peers, one ? n_in : 0));
+        const unsigned sxr = __reduce_add_sync(peers, one ? (2 * (x0 - xs) + n_in - 1) * n_in / 2 : 0);
+        const unsigned minx = __reduce_min_sync(peers, static_cast<unsigned>(x0));
+        const unsigned maxx = __reduce_max_sync(peers, static_cast<unsigned>(x0 + n_in - 1));
+        const unsigned gsi = I ? __reduce_add_sync(peers, si) : 0u;
+        const unsigned gsid = I ? __reduce_add_sync(peers, sid) : 0u;
+        const unsigned n1 = __reduce_add_sync(peers, un & 0xff);
+        const unsigned n065 = __reduce_add_sync(peers, un >> 8);
+        if (one && lane == __ffs(peers) - 1) {
+          row_add(a, fy, mk, cnt, static_cast<long long>(xs) * cnt + sxr, static_cast<int>(minx),
+                  static_cast<int>(maxx));
+          region_add<I>(gsums + 5 * static_cast<long long>(mk), n1, n065, gsi, static_cast<unsigned long long>(y) * gsi,
+                        static_cast<unsigned long long>(xs) * gsi + gsid);
+        }
+        if (t_key == -2) {  // the thread's runs of equal keys
+          int from = 0;
+          unsigned rsi = 0, rsid = 0, ru = 0;
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            if (k < n_in) {
+              rsi += iv[k];
+              rsid += iv[k] * static_cast<unsigned>(x0 + k - xs);
+              ru += pu[k];
+              if (k == n_in - 1 || key[k + 1 < kPer ? k + 1 : k] != key[k]) {
+                if (key[k] >= 0) {
+                  const int c = k + 1 - from;
+                  row_add(a, fy, key[k], c, static_cast<long long>(x0 + from) * c + c * (c - 1) / 2, x0 + from,
+                          x0 + k);
+                  region_add<I>(gsums + 5 * static_cast<long long>(key[k]), ru & 0xff, ru >> 8, rsi,
+                                static_cast<unsigned long long>(y) * rsi,
+                                static_cast<unsigned long long>(xs) * rsi + rsid);
+                }
+                from = k + 1;
+                rsi = rsid = ru = 0;
+              }
+            }
+          }
+        }
+      }
+      // The columns' runs.
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (k < n_in) {
+          const int r1 = key[k] + 1;  // 0: not measured
+          if (r1 == run_r[k]) {
+            ++run_n[k];
+          } else {
+            if (run_r[k]) atomicAdd(&gcol[static_cast<long long>(x0 + k) * R + run_r[k] - 1], run_n[k]);
+            run_r[k] = r1;
+            run_n[k] = 1;
+          }
+        }
+      }
+    }
+
+    if (I) {
+      bool done = false;
+      if (uni && k0 >= 0) {  // one region: one intensity too?
+        bool one_bin = true;
+#pragma unroll
+        for (int k = 1; k < kPer; ++k) one_bin &= k >= n_in || iv[k] == iv[0];
+        const int t_bin = n_in == 0 ? -3 : (one_bin ? static_cast<int>(iv[0]) : -2);
+        const int b0 = __shfl_sync(kFull, t_bin, 0);
+        if (__all_sync(kFull, t_bin == b0 || t_bin == -3) && b0 >= 0) {
+          if (lane == 0) atomicAdd(&ghist[static_cast<long long>(k0) * 256 + b0], static_cast<unsigned>(xe - xs));
+          done = true;
+        }
+      }
+      if (!done) {
+        unsigned run = 0;  // the thread's runs of equal (region, intensity)
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          if (k < n_in && key[k] >= 0) {
+            ++run;
+            const int n = k + 1 < kPer ? k + 1 : k;
+            if (k == n_in - 1 || key[n] != key[k] || iv[n] != iv[k]) {
+              atomicAdd(&ghist[static_cast<long long>(key[k]) * 256 + iv[k]], run);
+              run = 0;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if (P) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (run_r[k]) atomicAdd(&gcol[static_cast<long long>(x0 + k) * R + run_r[k] - 1], run_n[k]);
+    }
+    if (lane == 0 && acc_r >= 0) {
+      region_add<I>(gsums + 5 * static_cast<long long>(acc_r), acc_n1, acc_n065, acc_si, acc_siy, acc_six);
+    }
+  }
+}
+
+// Each warp takes tasks (frame, band of rows, span) in turn.
+template <bool P, bool I>
+__global__ void __launch_bounds__(kThreads, 2) measure_global_kernel(GArgs a) {
+  const int lane = threadIdx.x % 32;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long t = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32; t < a.tasks; t += stride) {
+    const int seg = static_cast<int>(t % a.segs);
+    const long long fb = t / a.segs;
+    const int band = static_cast<int>(fb % a.bands);
+    const int f = static_cast<int>(fb / a.bands);
+    measure_task<P, I>(a, f, band * a.task_rows, seg * kSpan, lane);
+  }
+}
+
+template <bool P, bool I>
+int launch_global(const GArgs& a, int sms, cudaStream_t stream) {
+  const long long want = (a.tasks + kWarps - 1) / kWarps;
+  const unsigned grid = static_cast<unsigned>(std::max(1LL, std::min<long long>(want, 8LL * sms)));
+  measure_global_kernel<P, I><<<grid, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Shared-memory offsets of a block for strips of a.TH rows; returns the bytes.
 size_t layout(Args& a, bool P, bool I) {
   const size_t R = a.R, TH = a.TH;
@@ -638,13 +977,19 @@ int launch(const Args& a, int B, size_t smem, cudaStream_t stream) {
 // int32, null exactly when img is. All contiguous. sums, colcnt and hist
 // lie in `zero` (zero_bytes bytes, its last 4 * B bytes the strip
 // counters), which is zeroed here unless each block owns a frame.
+// `strip` is the route the caller's plan chose
+// (ops/region_histogram.py:region_measure_plan): the strip height of the
+// shared-memory route, or 0 for the device-memory route; a route the
+// launcher would not choose itself is refused. On the device-memory route
+// with the partials and W > 65536 the row x-sums go to sumx64 ((B, H, R)
+// int64 in `zero`), else sumx64 is null.
 extern "C" int region_measure_launch(const void* lab, const void* img, void* sums, void* rows, void* colcnt,
-                                     void* hist, void* zero, long long zero_bytes, int B, int H, int W, int R,
-                                     void* stream) {
+                                     void* hist, void* sumx64, void* zero, long long zero_bytes, int B, int H,
+                                     int W, int R, int strip, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return 0;
   const bool P = sums != nullptr, I = img != nullptr;
-  if (R <= 0 || R >= (1 << 15) || W > (1 << 16) || (!P && !I) || I != (hist != nullptr) ||
-      (P && (rows == nullptr || colcnt == nullptr))) {
+  if (R <= 0 || (!P && !I) || I != (hist != nullptr) || (P && (rows == nullptr || colcnt == nullptr)) ||
+      zero == nullptr || zero_bytes < 4LL * B) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{};
@@ -660,8 +1005,44 @@ extern "C" int region_measure_launch(const void* lab, const void* img, void* sum
   a.row_ix = W <= kRowIxMaxW;
   a.lab_slot = round16(4 * static_cast<size_t>(W) + 32);
   a.img_slot = round16(static_cast<size_t>(W) + 32);
-  const size_t smem = choose_strip(a, P, I);
-  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  // The shared-memory route where R and W are within its limits and a
+  // strip fits; else the device-memory route.
+  const size_t smem = R < (1 << 15) && W <= (1 << 16) ? choose_strip(a, P, I) : 0;
+  if (strip != (smem ? a.TH : 0)) return static_cast<int>(cudaErrorInvalidValue);
+
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  if (smem == 0) {
+    if ((sumx64 != nullptr) != (P && W > kGlobalMaxW)) return static_cast<int>(cudaErrorInvalidValue);
+    GArgs g{};
+    g.lab = a.lab, g.img = a.img, g.sums = a.sums, g.rows = a.rows, g.colcnt = a.colcnt, g.hist = a.hist;
+    g.sumx64 = static_cast<unsigned long long*>(sumx64);
+    g.plane = a.plane;
+    g.H = H, g.W = W, g.R = R;
+    g.segs = (W + kSpan - 1) / kSpan;
+    const long long row_tasks = static_cast<long long>(B) * H * g.segs;
+    const long long fill_rows = row_tasks / (static_cast<long long>(kTaskWarps) * sms);
+    g.task_rows = static_cast<int>(std::max(1LL, std::min<long long>(kGlobalRows, fill_rows)));
+    g.bands = (H + g.task_rows - 1) / g.task_rows;
+    g.tasks = static_cast<long long>(B) * g.bands * g.segs;
+    e = cudaMemsetAsync(zero, 0, static_cast<size_t>(zero_bytes), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (P) {
+      const long long want = (a.plane + kThreads - 1) / kThreads;
+      init_rows_kernel<<<static_cast<unsigned>(std::max(1LL, std::min<long long>(want, 8LL * sms))), kThreads, 0,
+                         st>>>(a.rows, a.plane, W);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    if (P && I) return launch_global<true, true>(g, sms, st);
+    if (P) return launch_global<true, false>(g, sms, st);
+    return launch_global<false, true>(g, sms, st);
+  }
+  if (sumx64 != nullptr) return static_cast<int>(cudaErrorInvalidValue);
 
   // Blocks a frame: enough for two an SM over the batch, but no more than
   // one for each kBlockPixels of the frame, and enough to take every strip
@@ -669,10 +1050,6 @@ extern "C" int region_measure_launch(const void* lab, const void* img, void* sum
   // packed table, a block's pixels stay within 65535). At loki's (8, 1024,
   // 1280) 33 blocks a frame share its 128 strips; a crop of the threshold
   // path's (256, 64, 128) bucket is one block's.
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
   a.strips = (H + a.TH - 1) / a.TH;
   a.cap = kPacked / a.TH;
   if (a.hist_shared) a.cap = std::min<int>(a.cap, kPacked / (a.TH * W));
@@ -683,9 +1060,7 @@ extern "C" int region_measure_launch(const void* lab, const void* img, void* sum
   a.blocks = static_cast<int>(blocks);
   if (static_cast<long long>(B) * a.blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
 
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.blocks > 1) {
-    if (zero == nullptr || zero_bytes < 4LL * B) return static_cast<int>(cudaErrorInvalidValue);
     a.next = reinterpret_cast<int*>(static_cast<char*>(zero) + zero_bytes) - B;
     e = cudaMemsetAsync(zero, 0, static_cast<size_t>(zero_bytes), st);
     if (e != cudaSuccess) return static_cast<int>(e);

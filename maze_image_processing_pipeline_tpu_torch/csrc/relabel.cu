@@ -17,10 +17,15 @@
 // at 3.35 TB/s. A frame's relabel needs the areas of the whole frame, the
 // one dependency that splits the work in two.
 //
-// Design: one launch a call, one thread-block cluster a frame (the TPU
-// kernel's two-phase grid over the same strips becomes two phases of one
-// cluster, with the frame held in the cluster's shared memory between
-// them).
+// Two routes, chosen by ops/label.py:relabel_plan before the launch: the
+// cluster route below wherever R's bins and table fit a block's shared
+// memory (every path shape of the port), else the device-memory route
+// (further down: bins and table in device memory, three launches).
+//
+// Design of the cluster route: one launch a call, one thread-block cluster
+// a frame (the TPU kernel's two-phase grid over the same strips becomes two
+// phases of one cluster, with the frame held in the cluster's shared memory
+// between them).
 // 1. Each of the cluster's `cs` blocks takes a share of the frame's pixels
 //    (a multiple of 8), reads it once with 16-B loads (each warp issues its
 //    next four loads before it counts the current four, so that loads stay
@@ -298,6 +303,126 @@ __global__ void __launch_bounds__(kThreads, 1) relabel_cluster_kernel(const Para
   cluster_wait();  // no block leaves while another reads its bins
 }
 
+// ---- the device-memory route ------------------------------------------------
+//
+// Where R's bins and table do not fit a block's shared memory (R above
+// about 38,700 on an H100) or the ids pass uint16 (R > 65536), the bins and
+// the table live in device memory as (B, R) int32, in three launches after
+// the launcher's memset of the bins, with no host synchronisation:
+// 1. count_global_kernel: blocks take chunks of a frame's pixels and count
+//    them into the frame's bins with device-memory atomics, aggregated per
+//    warp as in step 1 above (count4; id 0 and ids outside [0, R) are not
+//    counted);
+// 2. scan_global_kernel: a block a frame turns its bins, in place, into the
+//    table cumsum(keep) * keep and writes n, in rounds of 1024 x kScanPer
+//    bins staged in shared memory (coalesced reads and writes): each thread
+//    counts the kept ids of its kScanPer consecutive bins, the block-wide
+//    scan of step 2 (with its carry) gives each thread its first new id, and
+//    it writes its bins' ids;
+// 3. relabel_global_kernel: blocks take the same chunks and write
+//    table[label] (0 outside [0, R)), the table read through L2.
+// Bound: device memory. It reads the labels twice (12 B/px with the
+// output: the function's own 8 B/px and 4 more) and moves the (B, R) bins
+// about five times (the memset, the count's atomics in L2, the scan's read
+// and write, the gather's reads): about 20 B an id.
+
+constexpr long long kChunk = 32768;  // pixels a block of steps 1 and 3
+constexpr int kScanPer = 8;          // consecutive bins a thread of step 2 takes a round
+
+// The chunk of frame blockIdx.x / chunks that this block takes: [lo, hi).
+__device__ __forceinline__ void chunk_of(long long HW, int chunks, long long& f, long long& lo, long long& hi) {
+  f = blockIdx.x / chunks;
+  lo = min(HW, static_cast<long long>(blockIdx.x % chunks) * kChunk);
+  hi = min(HW, lo + kChunk);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) count_global_kernel(const int32_t* lab, int32_t* bins, long long HW,
+                                                                 int chunks, int R) {
+  long long f, lo, hi;
+  chunk_of(HW, chunks, f, lo, hi);
+  const int32_t* l = lab + f * HW;
+  int32_t* b = bins + f * R;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (kVec) {  // whole 4-pixel vectors (kChunk and HW multiples of 4); warp-uniform trip counts
+    const int4* l4 = reinterpret_cast<const int4*>(l);
+    for (long long w = (lo >> 2) + warp * 32; w < (hi >> 2); w += kThreads) {
+      const long long j = w + lane;
+      const int4 q = j < (hi >> 2) ? __ldg(l4 + j) : make_int4(0, 0, 0, 0);
+      count4(b, in_range(q.x, R), in_range(q.y, R), in_range(q.z, R), in_range(q.w, R));
+    }
+  } else {
+    for (long long w = lo + warp * 32; w < hi; w += kThreads) {
+      const long long i = w + lane;
+      const int v = i < hi ? in_range(l[i], R) : 0;
+      if (__any_sync(kFull, v != 0)) {
+        const unsigned peers = __match_any_sync(kFull, v);
+        if (v > 0 && lane == __ffs(peers) - 1) atomicAdd(&b[v], __popc(peers));
+      }
+    }
+  }
+}
+
+// Bin j of a round's tile in shared memory, padded a word every 32 so that
+// a thread's kScanPer consecutive bins fall in distinct banks.
+__device__ __forceinline__ int tile_slot(int j) { return j + j / 32; }
+
+__global__ void __launch_bounds__(kThreads) scan_global_kernel(int32_t* bins, int32_t* n, int R, int min_area) {
+  constexpr int kRound = kThreads * kScanPer;
+  __shared__ int32_t scratch[kScratchInts];
+  __shared__ int32_t tile[kRound + kRound / 32];
+  int32_t* table = bins + static_cast<long long>(blockIdx.x) * R;
+  int32_t* carry = scratch + kWarps;
+  if (threadIdx.x == 0) *carry = 0;
+  __syncthreads();
+  for (long long base = 0; base < R; base += kRound) {
+    for (int j = threadIdx.x; j < kRound; j += kThreads) tile[tile_slot(j)] = base + j < R ? table[base + j] : 0;
+    __syncthreads();
+    const int first = threadIdx.x * kScanPer;
+    int keep[kScanPer];
+    int kept = 0;
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      const long long i = base + first + k;
+      keep[k] = (i > 0 && i < R && tile[tile_slot(first + k)] >= min_area) ? 1 : 0;
+      kept += keep[k];
+    }
+    int id = block_scan(kept, scratch, carry) - kept;  // kept ids before this thread's; the tile is read
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      id += keep[k];
+      tile[tile_slot(first + k)] = keep[k] ? id : 0;
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < kRound && base + j < R; j += kThreads) table[base + j] = tile[tile_slot(j)];
+    __syncthreads();  // the tile is written out before the next round
+  }
+  if (threadIdx.x == 0) n[blockIdx.x] = *carry;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) relabel_global_kernel(const int32_t* lab, int32_t* out,
+                                                                   const int32_t* table, long long HW, int chunks,
+                                                                   int R) {
+  long long f, lo, hi;
+  chunk_of(HW, chunks, f, lo, hi);
+  const int32_t* l = lab + f * HW;
+  int32_t* o = out + f * HW;
+  const int32_t* t = table + f * R;
+  if (kVec) {
+    const int4* l4 = reinterpret_cast<const int4*>(l);
+    int4* o4 = reinterpret_cast<int4*>(o);
+    for (long long j = (lo >> 2) + threadIdx.x; j < (hi >> 2); j += kThreads) {
+      const int4 q = __ldg(l4 + j);
+      o4[j] = make_int4(__ldg(t + in_range(q.x, R)), __ldg(t + in_range(q.y, R)), __ldg(t + in_range(q.z, R)),
+                        __ldg(t + in_range(q.w, R)));
+    }
+  } else {
+    for (long long i = lo + threadIdx.x; i < hi; i += kThreads) o[i] = __ldg(t + in_range(l[i], R));
+  }
+}
+
 struct Info {
   int smem;  // dynamic shared bytes a block can take
   int sms;
@@ -412,5 +537,42 @@ extern "C" int remove_small_objects_launch(const void* lab, void* out, void* n, 
             : cudaLaunchKernelEx(&cfg, relabel_cluster_kernel<uint16_t, false>, p);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The device-memory route (the plan's where R's bins and table do not fit
+// a block, or R > 65536; refused elsewhere): lab, out (B, H*W) int32,
+// contiguous; n (B,) int32; bins (B, R) int32 scratch, zeroed here.
+extern "C" int remove_small_objects_global_launch(const void* lab, void* out, void* n, void* bins, int B,
+                                                  long long HW, int R, int min_area, void* stream) {
+  if (B <= 0) return 0;
+  Info in{};
+  if (const int err = info(&in)) return err;
+  if (R < 1 || HW < 0 || bins == nullptr || (R <= 65536 && layout(R, 0).total <= static_cast<size_t>(in.smem)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long chunks = std::max(1LL, (HW + kChunk - 1) / kChunk);
+  if (static_cast<long long>(B) * chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* l = static_cast<const int32_t*>(lab);
+  auto* o = static_cast<int32_t*>(out);
+  auto* b = static_cast<int32_t*>(bins);
+  const bool vec = HW % 4 == 0 && reinterpret_cast<uintptr_t>(lab) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const unsigned grid = static_cast<unsigned>(B * chunks);
+  cudaError_t e = cudaMemsetAsync(bins, 0, static_cast<size_t>(B) * R * sizeof(int32_t), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (vec) {
+    count_global_kernel<true><<<grid, kThreads, 0, st>>>(l, b, HW, static_cast<int>(chunks), R);
+  } else {
+    count_global_kernel<false><<<grid, kThreads, 0, st>>>(l, b, HW, static_cast<int>(chunks), R);
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  scan_global_kernel<<<static_cast<unsigned>(B), kThreads, 0, st>>>(b, static_cast<int32_t*>(n), R, min_area);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  if (vec) {
+    relabel_global_kernel<true><<<grid, kThreads, 0, st>>>(l, o, b, HW, static_cast<int>(chunks), R);
+  } else {
+    relabel_global_kernel<false><<<grid, kThreads, 0, st>>>(l, o, b, HW, static_cast<int>(chunks), R);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,8 @@ Region tables (areas, border contact, the id remap) use ``bincount`` and
 :func:`remove_small_objects` is one CUDA launch on the card (K8,
 ``csrc/relabel.cu``: one thread-block cluster a frame, each label read once
 wherever the frame fits the cluster's shared memory; :func:`relabel_plan`
-chooses the cluster size and the staged pixels).
+chooses the cluster size and the staged pixels), or three where R's bins
+and table do not fit a block's shared memory (the device-memory route).
 
 Each kernel's wrapper takes the plain PyTorch version (``*_plain``, in this
 module or :mod:`.row_scan`) for a tensor on the CPU; a CUDA tensor always
@@ -465,11 +466,17 @@ def relabel_max_segments(smem_block: int) -> int:
     return R
 
 
+# The largest R of K8's cluster route: its new ids and staged labels are
+# uint16.
+RELABEL_MAX_CLUSTER_R = 65536
+
+
 @dataclass(frozen=True)
 class RelabelPlan:
     """How K8 runs a call: ``cluster`` blocks a frame, ``share`` pixels a
     block, the first ``stage`` of them staged in its ``smem`` bytes of shared
-    memory."""
+    memory; all 0 on the device-memory route (bins and table in device
+    memory, three launches)."""
 
     cluster: int
     share: int
@@ -479,11 +486,14 @@ class RelabelPlan:
     @property
     def one_read(self) -> bool:
         """Every share is staged: each label is read once from device
-        memory; else the unstaged rest of a share is read twice."""
-        return self.stage == self.share
+        memory; else the unstaged rest of a share (or, on the device-memory
+        route, every label) is read twice."""
+        return self.cluster > 0 and self.stage == self.share
 
     @property
     def route(self) -> str:
+        if self.cluster == 0:
+            return "device memory"
         return "one read" if self.one_read else "two reads"
 
 
@@ -500,14 +510,13 @@ def relabel_plan(B: int, HW: int, R: int, smem_block: int, active: Tuple[int, ..
     wave's overhead (``_RELABEL_WAVE_BYTES``), times the waves of clusters
     the frames need; the cheapest size wins, the smaller on a tie. A share
     fits its block where it is at most what the block stages (uint8 labels
-    where R <= 256, else uint16): then each label is read once.
+    where R <= 256, else uint16): then each label is read once. Where R's
+    bins and table do not fit a block, or R > ``RELABEL_MAX_CLUSTER_R``:
+    the device-memory route.
     """
     fixed = relabel_fixed_bytes(R)
-    if fixed > smem_block:
-        raise ValueError(
-            f"remove_small_objects: R = {R} ids need {fixed} bytes of shared memory a block (bins and table), "
-            f"the card gives {smem_block}"
-        )
+    if fixed > smem_block or R > RELABEL_MAX_CLUSTER_R:
+        return RelabelPlan(0, 0, 0, 0)
     per_px = relabel_stage_bytes(R)
     cap = (smem_block - fixed) // per_px // 8 * 8  # pixels a block can stage
     best = None
@@ -567,8 +576,9 @@ def remove_small_objects(
     Returns:
         (labels, n): int32 (..., H, W) with kept ids renumbered 1..n in id
         order, and int32 (...,) the number kept. On the card one launch
-        (:func:`remove_small_objects_plan` shows its plan); it raises where
-        R's bins and table do not fit a block's shared memory.
+        (:func:`remove_small_objects_plan` shows its plan), or, where R's
+        bins and table do not fit a block's shared memory, three launches
+        of the device-memory route.
     """
     if labels.dtype != torch.int32:
         raise TypeError(f"remove_small_objects: labels must be int32, got {labels.dtype}")
@@ -591,12 +601,19 @@ def remove_small_objects(
 
     with torch.cuda.device(labels.device):
         stream = torch.cuda.current_stream(labels.device).cuda_stream
-        err = kernels().remove_small_objects_launch(
-            labels.data_ptr(), out.data_ptr(), n.data_ptr(), B, H * W, num_segments, int(min_area),
-            plan.cluster, plan.share, plan.stage, stream,
-        )
+        if plan.route == "device memory":
+            bins = torch.empty((B, num_segments), dtype=torch.int32, device=labels.device)
+            err = kernels().remove_small_objects_global_launch(
+                labels.data_ptr(), out.data_ptr(), n.data_ptr(), bins.data_ptr(), B, H * W, num_segments,
+                int(min_area), stream,
+            )
+        else:
+            err = kernels().remove_small_objects_launch(
+                labels.data_ptr(), out.data_ptr(), n.data_ptr(), B, H * W, num_segments, int(min_area),
+                plan.cluster, plan.share, plan.stage, stream,
+            )
     _raise_on("remove_small_objects", err)
-    count_launch(remove_small_objects, labels.device)
+    count_launch(remove_small_objects, labels.device, plan.route)
     return out, n.reshape(batch_shape)
 
 

@@ -13,10 +13,12 @@ On a CUDA tensor :func:`regionprops_fused` computes the partials and the
 histogram with one launch of the region-measurement kernel
 (``csrc/region_measure.cu``: K7, replacing ``regionprops_fused_pallas`` of
 ``attic/pallas_props.py``, and K3, replacing ``region_histogram_pallas`` of
-``attic/pallas_hist.py``, in one read of the labels and the intensity); it
-takes uint8 intensity only, and raises if the kernel does not take its input
-or does not launch. On the CPU it runs :func:`regionprops_fused_plain`,
-which scatters per pixel; :func:`region_props_partials_plain` gives the
+``attic/pallas_hist.py``, in one read of the labels and the intensity; its
+accumulators in shared memory at every shape a path measures, in device
+memory for larger R or wider frames, as
+:func:`.region_histogram.region_measure_plan` chooses); it takes uint8
+intensity only, and raises if the kernel does not launch. On the CPU it
+runs :func:`regionprops_fused_plain`, which scatters per pixel; :func:`region_props_partials_plain` gives the
 kernel's partials the same way (its oracle). ``regionprops_fused.launches``
 counts the kernel's launches that write the partials.
 
@@ -41,7 +43,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .region_histogram import region_histogram_plain, region_measure
+from .region_histogram import _MAX_W, region_histogram_plain, region_measure, region_measure_plan
 from .regionprops import marching_squares_length
 from .row_scan import _check_cuda, _raise_on, count_launch
 
@@ -399,7 +401,8 @@ def region_props_partials(labels: torch.Tensor, intensity: Optional[torch.Tensor
     partials of :func:`region_props_partials_plain` and the (B, R, 256)
     int32 histogram (None without intensity)."""
     partials, hist = region_measure(labels, intensity, num_segments, partials=True)
-    count_launch(regionprops_fused, labels.device)
+    plan = region_measure_plan(labels.shape[-1], num_segments, True, intensity is not None)
+    count_launch(regionprops_fused, labels.device, plan.route)
     return (*partials, hist)
 
 
@@ -410,8 +413,9 @@ def region_props_partials_plain(labels: torch.Tensor, intensity: Optional[torch.
     """Plain version of the kernel's partials, by scatters, on (B, H, W)
     labels and intensity (or None): the (B, R, 5) int64 sums (perimeter
     units n1 and n065, Σ I, Σ I·y, Σ I·x; the last three 0 without
-    intensity), the (B, H, R) int32 row count, x-sum, x-min (W if absent)
-    and x-max (-1 if absent), and the (B, W, R) int32 column count."""
+    intensity), the (B, H, R) int32 row count, x-sum (int64 where W >
+    2^16: a row's x-sum may pass 2^31), x-min (W if absent) and x-max (-1
+    if absent), and the (B, W, R) int32 column count."""
     B, H, W = labels.shape
     R = num_segments
     dev = labels.device
@@ -431,4 +435,6 @@ def region_props_partials_plain(labels: torch.Tensor, intensity: Optional[torch.
     rowmaxx = torch.full_like(rowcnt, -1).scatter_reduce(2, seg, xx, reduce="amax")
     colcnt = torch.zeros(B, W, R + 1, dtype=torch.int64, device=dev)
     colcnt.scatter_add_(2, seg.transpose(1, 2).contiguous(), ones.transpose(1, 2))
-    return (sums[:, :R],) + tuple(t[..., :R].int() for t in (rowcnt, rowsumx, rowminx, rowmaxx, colcnt))
+    rowsumx = rowsumx[..., :R] if W > _MAX_W else rowsumx[..., :R].int()
+    rowcnt, rowminx, rowmaxx, colcnt = (t[..., :R].int() for t in (rowcnt, rowminx, rowmaxx, colcnt))
+    return sums[:, :R], rowcnt, rowsumx, rowminx, rowmaxx, colcnt

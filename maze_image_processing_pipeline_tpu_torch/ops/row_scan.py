@@ -20,6 +20,8 @@ its main path went through the kernels, on each card of a mesh.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 __all__ = ["hpass", "hpass_plain", "cumsum_rows", "cumsum_rows_plain", "count_launch", "INF"]
@@ -30,12 +32,17 @@ WIDE_CHUNK = 4096  # csrc/ccl_banded.cu: kWideChunk
 _CHUNK_SUM_INTS = 8  # csrc/ccl_banded.cu: ChunkSum
 
 
-def count_launch(fn, device: torch.device) -> None:
+def count_launch(fn, device: torch.device, route: Optional[str] = None) -> None:
     """One launch of ``fn``'s kernel on ``device``: ``fn.launches`` counts
-    every launch, ``fn.launches_by_device`` those of each card (by index)."""
+    every launch, ``fn.launches_by_device`` those of each card (by index)
+    and, for a kernel of several routes, ``fn.launches_by_route`` those of
+    each route (by name)."""
     fn.launches += 1
     by_device = fn.__dict__.setdefault("launches_by_device", {})
     by_device[device.index] = by_device.get(device.index, 0) + 1
+    if route is not None:
+        by_route = fn.__dict__.setdefault("launches_by_route", {})
+        by_route[route] = by_route.get(route, 0) + 1
 
 
 def _shift(v: torch.Tensor, d: int, fill, reverse: bool) -> torch.Tensor:

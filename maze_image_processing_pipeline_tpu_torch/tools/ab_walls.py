@@ -1,7 +1,8 @@
 """A/B walls of checkouts: the ``maze-ipp loki`` Runner's wall (or, with
 ``--predict``, the ``maze-ipp predict`` Runner's; with ``--norms``, the
 GroupNorm kernels' times; with ``--relabel``, K8's; with ``--anchor``, K9's;
-with ``--fixpoint``, the CCL fixpoint's) for two or more checkouts of this
+with ``--fixpoint``, the CCL fixpoint's; with ``--region``, the region
+measurement's) for two or more checkouts of this
 repo, in turns, on one set of inputs::
 
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] [--workdir DIR]
@@ -10,6 +11,7 @@ repo, in turns, on one set of inputs::
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --relabel [--iters N]
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --anchor [--iters N]
     python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --fixpoint [--iters N]
+    python -m maze_image_processing_pipeline_tpu_torch.tools.ab_walls TREE [TREE ...] --region [--iters N]
 
 The task is ``chip_smoke.py``'s phase 6: the standard haul's loki task
 (24 frames of 1024×1280, 20 vignettes a frame, a ``UNet(1, 32, 4)`` bf16 of
@@ -67,6 +69,15 @@ on that script's masks (loki-like frames, blob canvases), both
 connectivities, by CUDA events around ``--iters`` calls (a call lasts
 milliseconds), timed by the running checkout's ``chip_smoke.py``; each
 tree's labels and sweep counts are printed as a checksum.
+
+``--region`` times instead, in each TREE's process, the region-measurement
+kernel (K7 with K3) at the paths' shapes, ``REGION_CASES``: loki's (8,
+1024, 1280) with R = 64 on ``chip_smoke.make_frames``' labelled blobs (the
+fused launch, ``region_props_partials``, and the histogram alone,
+``region_histogram``) and the threshold path's (256, 64, 128) bucket with R
+= 2 (the fused launch); queue full and host-paced, the mean of ``--iters``
+calls, timed by the running checkout's ``chip_smoke.py``; each output
+checked bit for bit against the plain versions first.
 """
 
 from __future__ import annotations
@@ -93,6 +104,9 @@ NORM_CASES = [("fwd", s) for s in PATH + TRAIN + DISTILL] + [("bwd", s) for s in
 # --relabel: K8's (B, H, W) on loki's path, in the perf lab and in the dense haul.
 RELABEL_SHAPES = ((8, 1024, 1280), (8, 1024, 1024), (8, 2048, 2560))
 RELABEL_R, RELABEL_MIN_AREA = 256, 30
+# --region: (B, H, W) and R of the region measurement on loki's path and on
+# the threshold path.
+REGION_CASES = (((8, 1024, 1280), 64), ((256, 64, 128), 2))
 # --anchor: K9's (B, H, W) bool masks in the perf lab and in the dense haul.
 ANCHOR_SHAPES = ((8, 1024, 1024), (8, 2048, 2560))
 SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "chip_smoke.py")
@@ -195,6 +209,35 @@ for shape in shapes:
 print("TIMES " + json.dumps(out), flush=True)
 """
 
+# --region, in the checkout's process: argv = chip_smoke.py to time by, cases, iters.
+_REGION_WORKER = """
+import importlib.util, json, sys, torch
+import scipy.ndimage as ndi, numpy as np
+spec = importlib.util.spec_from_file_location("smoke_clock", sys.argv[1])
+clock = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(clock)
+from maze_image_processing_pipeline_tpu_torch.ops import region_histogram as rh
+from maze_image_processing_pipeline_tpu_torch.ops import regionprops_fused as rf
+cases, iters = json.loads(sys.argv[2]), int(sys.argv[3])
+dev = torch.device("cuda", 0)
+out = {}
+for shape, R in cases:
+    frames = clock.make_frames(*shape, 20, seed=15)
+    lab_np = np.stack([ndi.label(f > 60, np.ones((3, 3)))[0] for f in frames]).astype(np.int32)
+    lab, img = torch.from_numpy(lab_np).to(dev), torch.from_numpy(frames).to(dev)
+    got, ref = rf.region_props_partials(lab, img, R), rf.region_props_partials_plain(lab, img, R)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref)), f"the partials differ at {shape}"
+    assert torch.equal(got[-1].float(), rh.region_histogram_plain(lab, img, R)), f"the histogram differs at {shape}"
+    fns = {"fused": lambda: rf.region_props_partials(lab, img, R),
+           "histogram": lambda: rh.region_histogram(lab, img, R)}
+    for name, fn in fns.items():
+        if name == "histogram" and R == 2:
+            continue
+        out[f"{tuple(shape)} R={R} {name}"] = [clock.queued_ms(fn, iters), clock.cuda_ms(fn, iters)]
+    del lab, img, got, ref
+print("TIMES " + json.dumps(out), flush=True)
+"""
+
 # --anchor, in the checkout's process: argv = chip_smoke.py to time by, shapes, iters.
 _ANCHOR_WORKER = """
 import importlib.util, json, sys, torch
@@ -272,6 +315,11 @@ def run_relabel(tree: str, iters: int) -> Dict[str, list]:
     return run_worker(tree, _RELABEL_WORKER, argv, "TIMES")
 
 
+def run_region(tree: str, iters: int) -> Dict[str, list]:
+    """The region measurement's times of one run of ``tree``'s package (``--region``)."""
+    return run_worker(tree, _REGION_WORKER, [SMOKE, json.dumps(REGION_CASES), str(iters)], "TIMES")
+
+
 def run_anchor(tree: str, iters: int) -> Dict[str, list]:
     """K9's times of one run of ``tree``'s package (``--anchor``)."""
     return run_worker(tree, _ANCHOR_WORKER, [SMOKE, json.dumps(ANCHOR_SHAPES), str(iters)], "TIMES")
@@ -291,17 +339,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--relabel", action="store_true", help="time K8 (small-object removal) instead")
     ap.add_argument("--anchor", action="store_true", help="time K9 (the layout anchor) instead")
     ap.add_argument("--fixpoint", action="store_true", help="time the CCL fixpoint instead")
-    ap.add_argument("--iters", type=int, default=50, help="--norms, --relabel, --anchor, --fixpoint: timed calls a case")
+    ap.add_argument("--region", action="store_true", help="time the region measurement (K7 with K3) instead")
+    ap.add_argument("--iters", type=int, default=50,
+                    help="--norms, --relabel, --anchor, --fixpoint, --region: timed calls a case")
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: the walls are taken on the card")
-    if args.norms or args.relabel or args.anchor or args.fixpoint:
+    if args.norms or args.relabel or args.anchor or args.fixpoint or args.region:
         print(f"device={torch.cuda.get_device_name(0)}", flush=True)
         times: Dict[str, List[Dict[str, list]]] = {}
-        run = (run_fixpoint if args.fixpoint else run_anchor if args.anchor else run_relabel if args.relabel
-               else run_norms)
+        run = (run_region if args.region else run_fixpoint if args.fixpoint else run_anchor if args.anchor
+               else run_relabel if args.relabel else run_norms)
         for tree in map(os.path.abspath, args.trees):
             t = run(tree, args.iters)
             times.setdefault(tree, []).append(t)

@@ -1,11 +1,13 @@
 """The device operations one call of K5 (``group_norm``) and of K6
 (``group_norm_bwd``), with ``--relabel`` of K8 (``remove_small_objects``),
-or with ``--anchor`` of K9 (``anchor``) and its library calls, makes on the
-card, counted by ``torch.profiler``.
+with ``--anchor`` of K9 (``anchor``) and its library calls, or with
+``--routes`` of the device-memory routes of K8 and the region measurement
+(K7 with K3), makes on the card, counted by ``torch.profiler``.
 
     python -m maze_image_processing_pipeline_tpu_torch.tools.norm_ops [--shape B,C,H,W ...]
     python -m maze_image_processing_pipeline_tpu_torch.tools.norm_ops --relabel [--shape B,H,W ...]
     python -m maze_image_processing_pipeline_tpu_torch.tools.norm_ops --anchor [--shape B,H,W ...]
+    python -m maze_image_processing_pipeline_tpu_torch.tools.norm_ops --routes
 
 For each shape (default: the norms of the haul's path, of the full-width
 train step and of the distillation's U-Net), in NCHW and channels_last,
@@ -26,8 +28,12 @@ count}}, ...], "blind_sessions": n}``. With ``--anchor``, for each shape
 contiguous and as its transposed view: one call of K9 and one of the
 library call that computes the same (``Tensor.clone()``, ``.contiguous()``)
 under the profiler; prints ``{"anchor": [{"shape", "view", "anchor":
-{activity: count}, "library": {...}}, ...], "blind_sessions": n}``. Ends
-with ``os._exit(0)``: a
+{activity: count}, "library": {...}}, ...], "blind_sessions": n}``. With
+``--routes``, for each of ``ROUTE_CASES`` (the device-memory routes'
+cases that ``chip_smoke.py`` times, on ``synth.large_id_labels``' frames):
+one warm-up call, then one under the profiler; prints ``{"routes":
+[{"kernel", "shape", "R", "route", "ops": {activity: [count, device
+us]}}, ...], "blind_sessions": n}``. Ends with ``os._exit(0)``: a
 process that ran ``torch.profiler`` on the card may not exit by itself.
 """
 
@@ -49,14 +55,25 @@ SHAPES = (
 RELABEL_SHAPES = ((8, 1024, 1280), (8, 1024, 1024), (8, 2048, 2560))
 RELABEL_R, RELABEL_MIN_AREA = 256, 30
 ANCHOR_SHAPES = ((8, 1024, 1024), (8, 2048, 2560))
+# (wrapper, (B, H, W), R, labels' seed) of the device-memory routes: K8 on
+# loki's frames with R = 40000 and at R = 70000, the fused measurement at R
+# = 4096 and the histogram alone at R = 2^15 (chip_smoke.py's
+# RELABEL_C5[0] and DEVICE_ROUTE_TIMED, the same seeds; intensity of seed 41).
+ROUTE_CASES = (
+    ("remove_small_objects", (8, 1024, 1280), 40000, 30),
+    ("remove_small_objects", (1, 512, 512), 70000, 31),
+    ("regionprops_fused", (2, 256, 1280), 4096, 40),
+    ("region_histogram", (2, 256, 1280), 1 << 15, 40),
+)
 
 PAUSE_S = 0.002  # idle time in a session before and after the profiled call
 BLIND_WAIT_S, BLIND_SESSIONS = 5.0, 60  # a session that saw no device activity: wait, run it again
 CONTROL = "spin_kernel"  # the kernel of torch.cuda._sleep, each session's control
 
 
-def device_activities(fn) -> dict:
-    """{name: count} of the device activities while ``fn()`` runs, in one
+def device_activities(fn, timed: bool = False) -> dict:
+    """{name: count} (with ``timed``, {name: [count, device us]}) of the
+    device activities while ``fn()`` runs, in one
     profiler session that also runs a control kernel (``torch.cuda._sleep``)
     before the call. A session whose trace lacks the control recorded
     nothing on the device (the profiler was blind: on the card whole
@@ -76,10 +93,10 @@ def device_activities(fn) -> dict:
             fn()
             torch.cuda.synchronize()
             time.sleep(PAUSE_S)
-        found = {e.key: e.count for e in prof.key_averages()
+        found = {e.key: [e.count, e.device_time_total] for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
         if any(CONTROL in k for k in found):
-            return {k: n for k, n in found.items() if CONTROL not in k}
+            return {k: v if timed else v[0] for k, v in found.items() if CONTROL not in k}
         device_activities.blind += 1
         time.sleep(BLIND_WAIT_S)
     raise RuntimeError(f"torch.profiler recorded no device activity in {BLIND_SESSIONS} sessions")
@@ -155,15 +172,46 @@ def count_anchor(shapes) -> list:
     return cases
 
 
+def count_routes() -> list:
+    import numpy as np
+    import torch
+
+    from ..ops import label as tl
+    from ..ops import region_histogram as rh
+    from ..ops import regionprops_fused as rf
+    from .synth import large_id_labels
+
+    dev = torch.device("cuda", 0)
+    cases = []
+    for kernel, shape, R, seed in ROUTE_CASES:
+        lab = torch.from_numpy(large_id_labels(shape, R, seed)).to(dev)
+        img = torch.from_numpy(np.random.default_rng(41).integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        if kernel == "remove_small_objects":
+            route = tl.remove_small_objects_plan(lab, R).route
+            fn = lambda: tl.remove_small_objects(lab, RELABEL_MIN_AREA, R)  # noqa: E731
+        else:
+            route = rh.region_measure_plan(shape[-1], R, kernel == "regionprops_fused", True).route
+            fn = ((lambda: rf.region_props_partials(lab, img, R)) if kernel == "regionprops_fused"
+                  else (lambda: rh.region_histogram(lab, img, R)))
+        fn()
+        cases.append({"kernel": kernel, "shape": list(shape), "R": R, "route": route,
+                      "ops": device_activities(fn, timed=True)})
+        del lab, img
+    return cases
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shape", action="append", default=None,
                     help="B,C,H,W, or B,H,W with --relabel or --anchor (repeatable)")
     ap.add_argument("--relabel", action="store_true", help="count K8's device operations instead")
     ap.add_argument("--anchor", action="store_true", help="count K9's and its library calls' device operations")
+    ap.add_argument("--routes", action="store_true", help="time the device-memory routes' device operations")
     args = ap.parse_args(argv)
     shapes = [tuple(int(v) for v in s.split(",")) for s in args.shape] if args.shape else None
-    if args.anchor:
+    if args.routes:
+        out = {"routes": count_routes()}
+    elif args.anchor:
         out = {"anchor": count_anchor(shapes or ANCHOR_SHAPES)}
     elif args.relabel:
         out = {"relabel": count_relabel(shapes or RELABEL_SHAPES)}

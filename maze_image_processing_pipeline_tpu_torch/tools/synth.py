@@ -1,7 +1,8 @@
 """Synthetic inputs of the port's haul driver and smoke run, made by the
 port's own code from a seed: LOKI sample trees, EcoTaxa crop archives, the
-polytaxo taxonomy files, the models' distillation batches and seeded
-U-Net and classifier checkpoints.
+polytaxo taxonomy files, the models' distillation batches, seeded U-Net
+and classifier checkpoints, and label frames of rectangles for the region
+kernels.
 
 ``make_loki_tree`` writes the layout of ``tests/fixtures.py:make_loki_sample``
 and draws from the seed in the same order, so the same arguments give the
@@ -30,6 +31,8 @@ __all__ = [
     "vignette_batches",
     "write_classifier",
     "write_unet",
+    "region_labels",
+    "large_id_labels",
 ]
 
 OBJECT_ID_FMT = "{date} {time}  {ms:03d}  {seq:06d} {posx:04d} {posy:04d}"
@@ -231,3 +234,30 @@ def write_unet(path: str, cfg: dict, dtype: str, seed: int, gain=None, channel_n
     module.load_state_dict(params_from_jax(params))
     save_model(path, module, outputs={"pred": {"channel_names": list(channel_names)}})
     return path
+
+
+def region_labels(shape, R: int, seed: int) -> np.ndarray:
+    """Label frames of rectangles with ids 1..R+44 (so some lie beyond the
+    R-entry table), sizes from 1 to 48 px a side, on background 0."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros(shape, np.int32)
+    H, W = shape[-2:]
+    for f in np.ndindex(shape[:-2]):
+        for i in range(1, R + 45):
+            h, w = rng.integers(1, min(H, 48) + 1), rng.integers(1, min(W, 48) + 1)
+            y, x = rng.integers(0, H - h + 1), rng.integers(0, W - w + 1)
+            out[f + (slice(y, y + h), slice(x, x + w))] = i
+    return out
+
+
+def large_id_labels(shape, R: int, seed: int) -> np.ndarray:
+    """``region_labels`` with negative ids on 1% of the pixels and each
+    frame's last pixels holding R - 1, R - 2, ... (the largest ids present):
+    the inputs of the region kernels' device-memory routes at large R."""
+    rng = np.random.default_rng(seed)
+    lab = region_labels(shape, R, seed)
+    lab[rng.random(shape) < 0.01] = -3
+    flat = lab.reshape(-1, shape[-2] * shape[-1])
+    k = min(64, flat.shape[1] // 4, R)
+    flat[:, -k:] = R - 1 - np.arange(k)
+    return lab

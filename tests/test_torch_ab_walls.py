@@ -53,6 +53,14 @@ def test_anchor_and_fixpoint_modes_need_a_card(monkeypatch, mode):
     assert "anchor" in ab_walls._ANCHOR_WORKER and "transpose(1, 2)" in ab_walls._ANCHOR_WORKER
 
 
+def test_region_mode_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ab_walls.main([REPO, "--region"])
+    assert ab_walls.REGION_CASES == (((8, 1024, 1280), 64), ((256, 64, 128), 2))
+    assert "region_props_partials_plain" in ab_walls._REGION_WORKER
+
+
 def test_l2_cold_inputs_exceed_twice_the_l2():
     """--relabel's clock: the copies it rotates over hold distinct storage
     and together exceed twice the L2, and each call takes the next one."""

@@ -7,9 +7,9 @@ kernels in interpret mode (``attic/pallas_label.py``,
 seeded numpy inputs; the results are integers, so equality is exact. The
 wrappers take the plain versions for CPU tensors. The CUDA kernels run only
 on the card (tests marked ``cuda``; ``python3 chip_smoke.py`` covers the
-main path's shapes): K8 also on both of its routes (one read, two reads),
-both staged widths and unaligned frames, one device operation a call, and
-its raise beyond the largest R; K8's plan is tested on the CPU in
+main path's shapes): K8 also on all of its routes (one read, two reads,
+and device memory beyond the largest R of the cluster route), both staged
+widths and unaligned frames, one device operation a call; K8's plan is tested on the CPU in
 ``test_torch_relabel_plan.py``.
 """
 
@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from attic.pallas_label import vertical_pass_pallas
 from attic.pallas_relabel import remove_small_objects_pallas
 from maze_image_processing_pipeline_tpu.ops import label as jl
@@ -203,13 +204,35 @@ def test_cuda_remove_small_objects_routes_match_plain(shape, R, offset):
 
 @pytest.mark.cuda
 def test_cuda_remove_small_objects_raises_beyond_the_largest_r():
+    """One id beyond the largest R of the cluster route the plan takes the
+    device-memory route, and both equal the plain version (C5: this test
+    pinned the raise before)."""
     dev = _card()
+    r_max = tl.relabel_max_segments(tl._relabel_capacity(dev)[0])
     lab = torch.zeros((1, 8, 8), dtype=torch.int32, device=dev)
-    r_max = tl.relabel_max_segments(tl._relabel_capacity(lab.device)[0])
     out, n = tl.remove_small_objects(lab, 0, r_max)
     assert int(n) == r_max - 1 and int(out.abs().max()) == 0
-    with pytest.raises(ValueError, match="shared memory"):
-        tl.remove_small_objects(lab, 0, r_max + 1)
+    labels = torch.from_numpy(_labels((2, 64, 80), r_max + 1, seed=7)).to(dev)
+    for R, route in ((r_max, "two reads"), (r_max + 1, "device memory")):
+        assert tl.remove_small_objects_plan(labels, R).route == route
+        for min_area in (0, 1, 2):
+            out, n = tl.remove_small_objects(labels, min_area, R)
+            ref, n_ref = tl.remove_small_objects_plain(labels, min_area, R)
+            assert torch.equal(out, ref) and torch.equal(n, n_ref), (R, min_area)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,R", [((8, 1024, 1280), 40000), ((1, 512, 512), 70000), ((3, 37, 41), 40000)])
+def test_cuda_remove_small_objects_device_memory_route(shape, R):
+    """The device-memory route (bins and table past a block's shared
+    memory, or ids past uint16), aligned and not (H*W odd), bit-exact
+    against the plain version and the same bits from two calls, with
+    min_area 0, 1 and 30; one launch counted a call, on that route."""
+    dev = _card()
+    lab = torch.from_numpy(chip_smoke.large_id_labels(shape, R, seed=8)).to(dev)
+    n0 = tl.remove_small_objects.__dict__.get("launches_by_route", {}).get("device memory", 0)
+    chip_smoke.check_relabel_c5(lab, R, str(shape))
+    assert tl.remove_small_objects.launches_by_route["device memory"] == n0 + 6
 
 
 @pytest.mark.cuda

@@ -24,7 +24,10 @@ histogram.
   other device, what the kernels do not take. The kernel itself runs on the
   card (tests marked ``cuda``: partials and histogram bit-exact against the
   plain versions and the same twice, one launch a call, no host
-  synchronisation; ``python3 chip_smoke.py`` phase 2).
+  synchronisation; on the shared-memory route at the paths' shapes, on the
+  device-memory route at C5's larger R and wider frames;
+  ``python3 chip_smoke.py`` phase 2). Its plan is tested on the CPU in
+  ``test_torch_region_plan.py``.
 """
 
 import functools
@@ -339,13 +342,43 @@ def test_cuda_regionprops_fused_is_one_launch_without_host_sync():
 
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernel_refuses():
+    """What the shared-memory route refuses (R = 2^15, rows wider than
+    2^16) takes the device-memory route and equals the plain versions (C5:
+    this test pinned the raise before)."""
     dev = _card()
     lab = torch.zeros(1, 4, 5, dtype=torch.int32, device=dev)
-    img = torch.zeros(1, 4, 5, dtype=torch.uint8, device=dev)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        rf.regionprops_fused(lab, img, num_segments=1 << 15)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        rh.region_histogram(lab, img, 1 << 15)
+    lab[0, 1:3, 1:4] = torch.tensor([[1, 1, (1 << 15) - 1], [2, 0, 5]], dtype=torch.int32)
+    img = torch.from_numpy(np.random.default_rng(10).integers(0, 256, (1, 4, 5), dtype=np.uint8)).to(dev)
+    R = 1 << 15
+    chip_smoke.compare_props(rf.regionprops_fused(lab, img, num_segments=R),
+                             rf.regionprops_fused_plain(lab, img, num_segments=R), "R = 2^15")
+    assert torch.equal(rh.region_histogram(lab, img, R), rh.region_histogram_plain(lab, img, R))
     wide = torch.zeros(1, 1, (1 << 16) + 1, dtype=torch.int32, device=dev)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        rf.regionprops_fused(wide, None, num_segments=4)
+    wide[0, 0, 7:70] = 3
+    got = rf.regionprops_fused(wide, None, num_segments=4)
+    chip_smoke.compare_props(got, rf.regionprops_fused_plain(wide, None, num_segments=4), "2^16 + 1 columns")
+
+
+@functools.lru_cache(maxsize=1)
+def _c5_cases():
+    return {c[0]: c for c in chip_smoke.c5_region_cases()}
+
+
+C5_NAMES = [f"{shape} R = {R}" + (", the histogram alone" if alone else "")
+            for shape, R, alone in chip_smoke.MEASURE_C5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", C5_NAMES)
+def test_cuda_device_memory_route_bit_exact(where):
+    """C5's shapes on the device-memory route: the partials (with and
+    without intensity) and the histogram bit-exact against the plain
+    versions and the same bits from two launches; the props within
+    tolerance; one launch counted a call, on that route."""
+    dev = _card()
+    _, lab_np, img_np, R, alone = _c5_cases()[where]
+    lab, img = torch.from_numpy(lab_np).to(dev), torch.from_numpy(img_np).to(dev)
+    n3 = rh.region_histogram.__dict__.get("launches_by_route", {}).get("device memory", 0)
+    assert chip_smoke.check_region_c5(lab, img, R, alone, where) == "device memory"
+    assert rh.region_histogram.launches_by_route["device memory"] > n3
+    torch.cuda.synchronize()

@@ -9,12 +9,15 @@ exactly, are multiples of 8 pixels, stage at most what a block holds, and
 the route is one read exactly where a share fits. At the path's shapes it
 takes clusters of 8 and reads each label once (16 clusters of 16 would need
 two waves of 7), at the dense haul's frames it reads part of each share
-twice, and it raises where R's bins and table do not fit a block.
+twice, and where R's bins and table do not fit a block (R > 38,712 on an
+H100) or the ids pass uint16 it takes the device-memory route.
 
 The kernel's steps (stage each share, count it, sum the cluster's bins,
 build the table, relabel from the staged share and read the rest again) are
 replayed in numpy on the plan's partition and held, bit for bit, against
-the plain version, on both routes and both staged widths.
+the plain version, on both cluster routes and both staged widths; so are
+the device-memory route's (count by chunks into the bins, the table in
+place, gather).
 """
 
 import math
@@ -59,11 +62,11 @@ def _check_plan(plan, B, HW, R, card):
 @pytest.mark.parametrize("R", [1, 256, 257, 4096])
 def test_plan_fits_the_kernel(shape, R, card):
     B, H, W = shape
-    if tl.relabel_fixed_bytes(R) > card[0]:
-        with pytest.raises(ValueError, match="shared memory"):
-            tl.relabel_plan(B, H * W, R, *card)
+    plan = tl.relabel_plan(B, H * W, R, *card)
+    if tl.relabel_fixed_bytes(R) > card[0]:  # bins and table in device memory
+        assert plan.route == "device memory" and (plan.cluster, plan.smem) == (0, 0) and not plan.one_read
         return
-    _check_plan(tl.relabel_plan(B, H * W, R, *card), B, H * W, R, card)
+    _check_plan(plan, B, H * W, R, card)
 
 
 @pytest.mark.parametrize(
@@ -84,15 +87,71 @@ def test_plan_on_h100(shape, R, cluster, route, smem):
 
 
 def test_plan_largest_r_and_the_raise_beyond_it():
+    """The largest R of the cluster route, and beyond it the device-memory
+    route (it raised before); a card that runs no cluster still raises."""
     r_max = tl.relabel_max_segments(H100[0])
     assert tl.relabel_fixed_bytes(r_max) <= H100[0] < tl.relabel_fixed_bytes(r_max + 1)
     assert 256 < r_max < 65536  # uint16 staging holds every id below R
+    assert r_max == 38712
     plan = tl.relabel_plan(8, 1024 * 1280, r_max, *H100)
     assert plan.route == "two reads" and plan.stage < 64
-    with pytest.raises(ValueError, match=f"R = {r_max + 1} ids need"):
-        tl.relabel_plan(8, 1024 * 1280, r_max + 1, *H100)
+    for R in (r_max + 1, 40000, 65536, 65537, 70000, 10**6):
+        assert tl.relabel_plan(8, 1024 * 1280, R, *H100).route == "device memory"
     with pytest.raises(ValueError, match="no cluster"):
         tl.relabel_plan(8, 1024, 256, H100[0], (0, 0, 0, 0, 0))
+
+
+def test_ids_past_uint16_take_the_device_memory_route():
+    """Past R = 65536 the cluster route's uint16 table cannot hold the ids,
+    whatever a card's shared memory: a card of 1 MB a block still takes the
+    device-memory route there."""
+    big = (1 << 20, (8, 4, 2, 1, 0))
+    assert tl.relabel_plan(1, 4096, tl.RELABEL_MAX_CLUSTER_R, *big).route == "one read"
+    assert tl.relabel_plan(1, 4096, tl.RELABEL_MAX_CLUSTER_R + 1, *big).route == "device memory"
+    src = CSRC.read_text()
+    assert "R > 65536" in src and tl.RELABEL_MAX_CLUSTER_R == 65536
+    assert "(R <= 65536 && layout(R, 0).total <= static_cast<size_t>(in.smem))" in src
+
+
+def _device_memory_steps(labels: np.ndarray, min_area: int, R: int) -> tuple:
+    """The device-memory route's steps in numpy, chunk by chunk of
+    csrc/relabel.cu's kChunk pixels: count each chunk into the frame's
+    (R,) bins (id 0 and ids outside [0, R) not counted), turn the bins into
+    the table cumsum(keep) * keep in place (keep: id > 0 and area >=
+    min_area; n the last sum), and gather each chunk's labels from it."""
+    chunk = int(re.search(r"constexpr long long kChunk = (\d+);", CSRC.read_text()).group(1))
+    B = labels.shape[0]
+    flat = labels.reshape(B, -1)
+    HW = flat.shape[1]
+    bins = np.zeros((B, R), np.int32)
+    for f in range(B):
+        for lo in range(0, max(HW, 1), chunk):
+            v = flat[f, lo : lo + chunk]
+            v = v[(v > 0) & (v < R)]
+            np.add.at(bins[f], v, 1)
+    keep = (bins >= min_area) & (np.arange(R) > 0)
+    table = (np.cumsum(keep, axis=1) * keep).astype(np.int32)
+    n = keep.sum(1).astype(np.int32)
+    out = np.empty_like(flat)
+    for f in range(B):
+        for lo in range(0, HW, chunk):
+            v = flat[f, lo : lo + chunk]
+            out[f, lo : lo + chunk] = table[f][np.where((v > 0) & (v < R), v, 0)]
+    return out.reshape(labels.shape), n
+
+
+@pytest.mark.parametrize("shape,R", [((2, 200, 180), 40000), ((1, 37, 41), 70000), ((3, 5, 7), 38713)])
+@pytest.mark.parametrize("min_area", [0, 1, 3])
+def test_device_memory_steps_match_plain(shape, R, min_area):
+    rng = np.random.default_rng(R + min_area)
+    labels = rng.integers(-3, R + 20, shape, dtype=np.int32)
+    labels[rng.random(shape) < 0.3] = 0
+    labels[:, :4, :4] = R - 1  # the largest id, present
+    assert tl.relabel_plan(shape[0], shape[1] * shape[2], R, *H100).route == "device memory"
+    out, n = _device_memory_steps(labels, min_area, R)
+    ref, n_ref = tl.remove_small_objects_plain(torch.from_numpy(labels), min_area, R)
+    np.testing.assert_array_equal(out, ref.numpy())
+    np.testing.assert_array_equal(n, n_ref.numpy())
 
 
 def test_fixed_bytes_follow_the_kernel_source():
