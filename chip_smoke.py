@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py            # the whole smoke run
-    python3 chip_smoke.py --stages   # phases 6, 7, 8 and 9's train step only,
-                                     # with stage breakdowns and the device's
-                                     # idle share
+    python3 chip_smoke.py --stages   # phases 6, 7, 8 and 9's train step only:
+                                     # the program's spans of 6 and 7's semseg,
+                                     # stage breakdowns and the device's idle
+                                     # share of the others
     python3 chip_smoke.py --mesh     # phases 12 and 14 alone (a machine of
                                      # several cards)
     python3 chip_smoke.py --library  # phase 13 alone
@@ -2722,70 +2723,70 @@ def idle_share(run, plain: float, steps: int = 1) -> tuple:
     return busy, events
 
 
+def span_summary(run, title: str, limit: str) -> None:
+    """``run()`` once with the program's spans and counters on (nothing
+    synchronised): each span name's calls, total and self seconds (self:
+    less its children's time), and the counters. A wait's total counts
+    every thread that waited, so it can pass the wall."""
+    from maze_image_processing_pipeline_tpu_torch import tracing
+
+    tracing.reset()
+    tracing.enable()
+    try:
+        wall = run()
+        recorded, counters = tracing.take()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    summary = tracing.summary(recorded, counters)
+    say(f"program spans of {title} (one run, nothing synchronised; wall {wall:.3f} s) [{limit}]:")
+    for name, st in summary["spans"].items():
+        total, own = st["total_ms"] / 1e3, st["self_ms"] / 1e3
+        say(f"  {name}: {st['count']} calls, {total:.3f} s ({100 * total / wall:.1f} % of the wall), self {own:.3f} s")
+    say(f"  counters: {json.dumps(summary['counters'])}")
+
+
 def predict_stage_breakdown(limit: str, work: str) -> None:
-    """Phase 7's semseg and polytaxo tasks with a timer around each stage of
-    the inference nodes, then under ``torch.profiler``."""
+    """Phase 7's semseg task with the program's spans on; its polytaxo task
+    with a timer around each stage of the classifier node, then under
+    ``torch.profiler``."""
     from maze_image_processing_pipeline_tpu_torch.models import inference
-    from maze_image_processing_pipeline_tpu_torch.ops import segment_measure
 
     inp = predict_inputs(work)
-    tasks = {
-        "semseg": lambda out: semseg_task(inp["archive"], inp["unet"], os.path.join(work, out)),
-        "polytaxo": lambda out: polytaxo_task(inp["archive"], inp["clf"], os.path.join(work, out), inp["taxonomy"]),
-    }
-    dti, ti = inference.DeviceTiledInference.node_class, inference.TorchInference.node_class
+
+    def semseg(out):
+        return semseg_task(inp["archive"], inp["unet"], os.path.join(work, out))
+
+    run_predict(semseg("semseg_warm"))
+    span_summary(lambda: run_predict(semseg("semseg_traced")), "phase 7 semseg", limit)
+
+    def polytaxo(out):
+        return polytaxo_task(inp["archive"], inp["clf"], os.path.join(work, out), inp["taxonomy"])
+
+    ti = inference.TorchInference.node_class
     patches = [
-        (dti, "_forward", "U-Net forward (upload, pre, forward, sigmoid)"),
-        (dti, "_run_bucket", "dispatch of a bucket (tile cut, forward, blend, measurement, cast)"),
-        (segment_measure, "measure_channels_packed", "fused measurement (label: ccl_fixpoint, K2; moments, extremes)"),
-        (dti, "_unpack_chunk", "fetch + unpack"),
         (ti, "_dispatch", "classifier dispatch (stack, crop, upload, forward, cast)"),
         (ti, "_fetch", "classifier fetch"),
     ]
-    for name, task in tasks.items():
-        run_predict(task(f"{name}_warm"))
-        plain = run_predict(task(f"{name}_plain"))
-        wall, totals = timed_stages(patches, lambda: run_predict(task(f"{name}_timed")))
-        say(f"stage breakdown of phase 7 {name} (one run with a synchronize around each stage; wall {wall:.3f} s, "
-            f"the same run without timers {plain:.3f} s) [{limit}]:")
-        for stage, t in sorted(totals.items(), key=lambda kv: -kv[1]):
-            say(f"  {stage}: {t:.3f} s, {100 * t / wall:.1f} %")
-        idle_share(lambda: run_predict(task(f"{name}_profiled")), plain)
+    run_predict(polytaxo("polytaxo_warm"))
+    plain = run_predict(polytaxo("polytaxo_plain"))
+    wall, totals = timed_stages(patches, lambda: run_predict(polytaxo("polytaxo_timed")))
+    say(f"stage breakdown of phase 7 polytaxo (one run with a synchronize around each stage; wall {wall:.3f} s, "
+        f"the same run without timers {plain:.3f} s) [{limit}]:")
+    for stage, t in sorted(totals.items(), key=lambda kv: -kv[1]):
+        say(f"  {stage}: {t:.3f} s, {100 * t / wall:.1f} %")
+    idle_share(lambda: run_predict(polytaxo("polytaxo_profiled")), plain)
 
 
 def stage_breakdown(dev, limit: str, work: str) -> None:
-    """Phase 6's task once more with a ``torch.cuda.synchronize()`` timer
-    around each stage of the segmentation node, then once under
-    ``torch.profiler`` for the device's busy time; then phase 7's, phase
-    8's and phase 9's train step."""
-    from maze_image_processing_pipeline_tpu_torch.loki import device_seg
-    from maze_image_processing_pipeline_tpu_torch.ops import fill_holes
-
+    """Phase 6's task once more with the program's spans on
+    (:func:`span_summary`); then phase 7's, phase 8's and phase 9's train
+    step."""
     data = os.path.join(work, "data")
     make_loki_tree(data, n_frames=24, objects_per_frame=20, frame_shape=(1024, 1280), seed=8)
     unet = write_unet(os.path.join(work, "unet"), UNET, "bfloat16", seed=6)
     run_loki(loki_task(data, unet, os.path.join(work, "warm")))
-    plain = run_loki(loki_task(data, unet, os.path.join(work, "plain")))
-
-    node = device_seg.DeviceTiledSegmentation.node_class
-    patches = [
-        (node, "_predict", "tiles + U-Net forward + blend"),
-        (node, "_crops", "crops + RegionInfo assembly"),
-        (device_seg, "label", "label of the objects (K1, K2, K4)"),
-        (fill_holes, "label", "label of the background in region_filled_extra (K1, K2, K4)"),
-        (device_seg, "binary_closing", "closing"),
-        (device_seg, "remove_small_objects", "remove_small_objects (K8)"),
-        (device_seg, "regionprops_fused", "regionprops_fused (K7, K3, the props from their partials)"),
-        (device_seg, "region_filled_extra", "region_filled_extra (all)"),
-        (node, "_dispatch_group", "segmentation node: dispatch (upload, tiles, forward, blend, chain)"),
-        (node, "_finish_group", "segmentation node: fetch (stats, crops, RegionInfo assembly)"),
-    ]
-    timed_wall, totals = timed_stages(patches, lambda: run_loki(loki_task(data, unet, os.path.join(work, "timed"))))
-    say(f"stage breakdown of phase 6 (one run with a synchronize around each stage; wall {timed_wall:.3f} s, "
-        f"the same run without timers {plain:.3f} s) [{limit}]:")
-    for name, t in sorted(totals.items(), key=lambda kv: -kv[1]):
-        say(f"  {name}: {t:.3f} s, {100 * t / timed_wall:.1f} %")
-    idle_share(lambda: run_loki(loki_task(data, unet, os.path.join(work, "profiled"))), plain)
+    span_summary(lambda: run_loki(loki_task(data, unet, os.path.join(work, "traced"))), "phase 6", limit)
     predict_stage_breakdown(limit, work)
     threshold_stage_breakdown(limit, work)
     train_stage_breakdown(dev, limit)

@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..engine.core import Node, RawOrVariable, Stream, closing_if_closable
 
 __all__ = ["HDF5Writer"]
@@ -72,6 +73,7 @@ def _shuffle_bytes(arr: np.ndarray) -> bytes:
     return flat.T.tobytes()
 
 
+@tracing.span("h5.pack")
 def _pack(arr: np.ndarray, level: int, shuffle: bool) -> bytes:
     """Shuffle (optional) + DEFLATE one chunk, as HDF5's filters decode it:
     the native one-call path, else the numpy shuffle with the native or the
@@ -306,9 +308,12 @@ class _File:
         stored size."""
         raw = np.ascontiguousarray(data)
         comp = raw.tobytes() if level is None else _pack(raw, level, ds.shuffle)
+        tracing.count("h5.raw_bytes", raw.nbytes)
+        tracing.count("h5.stored_bytes", len(comp))
         ds.chunk_index.append((tuple(offset), len(comp), self.out.put(comp)))
         return len(comp)
 
+    @tracing.span("h5.close")
     def close(self) -> None:
         out = self.out
         try:
@@ -475,6 +480,7 @@ class HDF5Writer(Node):
             self._ratio_ema = ratio if self._ratio_ema is None else 0.7 * self._ratio_ema + 0.3 * ratio
             self._stored_since_probe = 0
 
+    @tracing.span("h5.create")
     def _create(self, h5: _File, name: str, value: np.ndarray) -> None:
         level = self._level
         shuffle = self.shuffle and level is not None
@@ -484,6 +490,8 @@ class HDF5Writer(Node):
             def write():
                 if value.size:
                     data = np.ascontiguousarray(value).tobytes()
+                    tracing.count("h5.raw_bytes", len(data))
+                    tracing.count("h5.stored_bytes", len(data))
                     ds.contiguous = (h5.out.put(data), len(data))
 
             h5.add(name, ds, write)

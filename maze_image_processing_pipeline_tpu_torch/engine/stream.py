@@ -6,15 +6,17 @@ Capability parity targets (see ``SURVEY.md`` §2b): ``Unpack``, ``Filter``,
 
 Copy of ``maze_image_processing_pipeline_tpu/engine/stream.py`` for the PyTorch port,
 which imports nothing of the JAX package; only imports differ.
-``tests/test_torch_host_copies.py`` holds the two equal.
+``tests/test_torch_host_copies.py`` holds the two equal. ``queue`` is
+:data:`..tracing.queue`: ``StreamBuffer``'s queue records its blocking waits
+as program spans while tracing is on.
 """
 
 from __future__ import annotations
 
-import queue
 import threading
 from typing import Any, Callable, Iterable, Optional, Tuple, Union
 
+from ..tracing import queue
 from .core import (
     Node,
     RawOrVariable,

@@ -40,6 +40,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..dataio import EcotaxaWriter
 from ..engine import DataParallelPipeline, Filter, Stitch, StreamBuffer, TiledPipeline
 from ..engine.core import (
@@ -240,6 +241,7 @@ class DeviceTiledSegmentation(Node):
 
     # -- one frame group -------------------------------------------------
 
+    @tracing.span("loki.forward")
     def _predict(self, frames: torch.Tensor, jobs, hs, ws, device) -> torch.Tensor:
         """Tile forward + linear-ramp blend on ``device`` → (B, Hb, Wb)
         float32 scores."""
@@ -264,24 +266,33 @@ class DeviceTiledSegmentation(Node):
         ws_t = torch.as_tensor(ws, device=device)[:, None, None]
         return torch.where((rows < hs_t) & (cols < ws_t), pred, 0.0)
 
+    @tracing.span("loki.dispatch")
     def _dispatch_group(self, imgs: np.ndarray, hs, ws, dims, device) -> SimpleNamespace:
         """Launch one (B, Hb, Wb) frame group on ``device``: upload, tile
         forward and blend, the frame chain. Nothing is read back."""
         ts, stride = self._cfg.tile_size, self._cfg.tile_stride
         B, Hb, Wb = imgs.shape
-        offsets = [(y, x) for y in _tile_starts(Hb, ts, stride) for x in _tile_starts(Wb, ts, stride)]
-        jobs = [
-            (b, oy, ox)
-            for b in range(B)
-            for oy, ox in offsets
-            if not self._skip_empty or imgs[b, oy : oy + ts, ox : ox + ts].any()
-        ]
+        with tracing.span("loki.tile_select"):
+            offsets = [(y, x) for y in _tile_starts(Hb, ts, stride) for x in _tile_starts(Wb, ts, stride)]
+            jobs = [
+                (b, oy, ox)
+                for b in range(B)
+                for oy, ox in offsets
+                if not self._skip_empty or imgs[b, oy : oy + ts, ox : ox + ts].any()
+            ]
+        tracing.count("frame_groups")
+        tracing.count("frames", len(dims))
+        tracing.count("tiles", len(jobs))
+        tracing.count("tiles_skipped", B * len(offsets) - len(jobs))  # empty, or a partial group's padding
         with torch.inference_mode():
-            frames = torch.from_numpy(imgs).to(device)
+            with tracing.span("loki.upload"):
+                frames = torch.from_numpy(imgs).to(device)
             pred = self._predict(frames, jobs, hs, ws, device)
-            labels, flat = self._chain(pred, frames)
+            with tracing.span("loki.chain"):
+                labels, flat = self._chain(pred, frames)
         return SimpleNamespace(imgs=imgs, dims=dims, frames=frames, labels=labels, flat=flat, device=device)
 
+    @tracing.span("loki.finish")
     def _finish_group(self, g: SimpleNamespace):
         """Fetch a dispatched group → per frame ``(labels, props, n_regions,
         regions)``: in crops mode the labels stay on the device (None) and
@@ -290,11 +301,16 @@ class DeviceTiledSegmentation(Node):
         ``regions`` is None."""
         B = g.imgs.shape[0]
         with torch.inference_mode():
-            stats = _unpack_stats_batch(g.flat.cpu().numpy(), B, self._pack_keys)
+            with tracing.span("loki.fetch_wait"):
+                flat = g.flat.cpu().numpy()
+            stats = _unpack_stats_batch(flat, B, self._pack_keys)
             if self._crops_mode:
                 regions = self._crops(g.labels, g.frames, g.imgs, stats, g.dims)
+                tracing.count("objects", sum(map(len, regions)))
             else:
-                labels_host = g.labels.cpu().numpy()
+                with tracing.span("loki.fetch_wait"):
+                    labels_host = g.labels.cpu().numpy()
+                tracing.count("objects", sum(n for n, _ in stats))
         results = []
         for b, (H, W) in enumerate(g.dims):
             n, props = stats[b]
@@ -352,6 +368,7 @@ class DeviceTiledSegmentation(Node):
             region_plans.append(plans)
         return buckets, region_plans
 
+    @tracing.span("loki.crops")
     def _crops(self, labels, frames, frames_host, stats, dims) -> List[list]:
         """Cut every region's 2-bit mask window on the device (one copy to
         the host for all of them), slice intensity from the host frames and
@@ -371,7 +388,11 @@ class DeviceTiledSegmentation(Node):
                     size_h=Sh, size_w=Sw, include_intensity=False, pack_bits=True,
                 )
             )
-        flat = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.uint8)
+        flat = np.zeros(0, np.uint8)
+        if parts:
+            packed = torch.cat(parts)
+            with tracing.span("loki.fetch_wait"):
+                flat = packed.cpu().numpy()
         views = {}
         o = 0
         for key in keys:
@@ -383,7 +404,8 @@ class DeviceTiledSegmentation(Node):
         R = self._post_cfg.max_regions
         labels_host = None
         if any(stats[b][0] > R - 1 for b in range(len(dims))):
-            labels_host = labels.cpu().numpy()
+            with tracing.span("loki.fetch_wait"):
+                labels_host = labels.cpu().numpy()
 
         regions_per_frame = []
         for b, plans in enumerate(region_plans):

@@ -26,6 +26,7 @@ import numpy as np
 import pandas as pd
 
 from .. import __version__ as _version
+from .. import tracing
 from ..common import find_files_glob as _find_files_glob, natsorted
 from ..config import generate_yaml_example  # noqa: F401  (re-exported for docs)
 from ..dataio import Archive, EcotaxaWriter, ImageReader, Telemetry, read_tsv
@@ -480,6 +481,18 @@ def task_device(config: SegmentationConfig) -> str:
 class Runner(PipelineRunner):
     @staticmethod
     def _configure_and_run(config_dict):
+        with tracing.unit("loki"):
+            with tracing.span("unit.build"):
+                built = Runner._build(config_dict)
+            if built is not None:
+                p, obj = built
+                p.run(iter([obj]))
+
+    @staticmethod
+    def _build(config_dict):
+        """Validate the task, set up the mesh and build the pipeline;
+        returns (pipeline, its first stream object), or None where the task
+        does not validate (the errors are logged)."""
         import pydantic
 
         from .config_schema import SegmentationPipelineConfig
@@ -488,7 +501,7 @@ class Runner(PipelineRunner):
             pipeline_config = SegmentationPipelineConfig.model_validate(config_dict)
         except pydantic.ValidationError as exc:
             logger.error(str(exc))
-            return
+            return None
         apply_platform(pipeline_config)
 
         if sys.stdout.isatty():
@@ -606,4 +619,4 @@ class Runner(PipelineRunner):
 
         obj = StreamObject(n_remaining_hint=1)
         obj[process_meta_var] = process_meta
-        p.run(iter([obj]))
+        return p, obj

@@ -43,6 +43,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..engine.batch import Batch
 from ..engine.core import Node, Output, RawOrVariable, ReturnOutputs, Stream, closing_if_closable
 from ..engine.tiles import _linear_weight, _tile_starts
@@ -337,6 +338,7 @@ class DeviceTiledInference(Node):
         self._stage = staging_device([d for d in self._devices if d is not None]) if mesh is not None \
             and mesh.spans_processes else None
 
+    @tracing.span("predict.forward")
     def _forward(self, tiles: np.ndarray, k: int) -> torch.Tensor:
         """(N, ts, ts[, C]) host tiles → (N, ts, ts, Cout) float32
         predictions on share ``k``'s device, in batches of ``batch_size``
@@ -361,18 +363,22 @@ class DeviceTiledInference(Node):
         ts, stride = self.tile_size, self.tile_stride
         Hq, Wq = window
         jobs, tiles = [], []
-        for bi, i in enumerate(idxs):
-            img = images[i]
-            h, w = img.shape[:2]
-            for y in _tile_starts(h, ts, stride):
-                for x in _tile_starts(w, ts, stride):
-                    tile = img[y : y + ts, x : x + ts]
-                    if tile.shape[:2] != (ts, ts):
-                        pad = [(0, ts - tile.shape[0]), (0, ts - tile.shape[1])] + [(0, 0)] * (img.ndim - 2)
-                        tile = np.pad(tile, pad)
-                    jobs.append((bi, y, x))
-                    tiles.append(tile)
-        pred = self._forward(np.stack(tiles), k)
+        with tracing.span("predict.tile_cut"):
+            for bi, i in enumerate(idxs):
+                img = images[i]
+                h, w = img.shape[:2]
+                for y in _tile_starts(h, ts, stride):
+                    for x in _tile_starts(w, ts, stride):
+                        tile = img[y : y + ts, x : x + ts]
+                        if tile.shape[:2] != (ts, ts):
+                            pad = [(0, ts - tile.shape[0]), (0, ts - tile.shape[1])] + [(0, 0)] * (img.ndim - 2)
+                            tile = np.pad(tile, pad)
+                        jobs.append((bi, y, x))
+                        tiles.append(tile)
+            tiles = np.stack(tiles)
+        tracing.count("tiles", len(jobs))
+        tracing.count("canvases", len(idxs))
+        pred = self._forward(tiles, k)
         Cout = pred.shape[-1]
         if self.measure_channels is not None and len(self.measure_channels) != Cout:
             raise ValueError(
@@ -406,9 +412,11 @@ class DeviceTiledInference(Node):
             out = cast_for_transfer(out, self.transfer_dtype)
         return (out, stats), (idxs, Bo, Hq, Cout)
 
+    @tracing.span("predict.chunk")
     def _run_chunk(self, images):
         """Dispatch one chunk, bucket by bucket, each bucket's objects split
         over the shares; returns (parts, layout)."""
+        tracing.count("chunks")
         buckets = {}
         ts = self.tile_size
         for i, img in enumerate(images):
@@ -468,15 +476,18 @@ class DeviceTiledInference(Node):
             ts = [next(got[owner]) for _ in range(n)]
             parts[i] = (ts[0], ts[1] if n > 1 else None)
 
+    @tracing.span("predict.unpack")
     def _unpack_chunk(self, parts, layout, images):
         from ..ops.segment_measure import unpack_channel_stats
 
         results = [None] * len(images)
         stats_out = [None] * len(images)
         for (out, stats), (idxs, Bo, Hq, Cout) in zip(parts, layout):
-            block = out.cpu().numpy()
+            with tracing.span("predict.fetch_wait"):
+                block = out.cpu().numpy()
+                packed = None if stats is None else stats.cpu().numpy()
             if stats is not None:
-                small, extremes = unpack_channel_stats(stats.cpu().numpy(), Bo, Hq, Cout)
+                small, extremes = unpack_channel_stats(packed, Bo, Hq, Cout)
             for bi, i in enumerate(idxs):
                 h, w = images[i].shape[:2]
                 results[i] = np.ascontiguousarray(block[bi, :h, :w])

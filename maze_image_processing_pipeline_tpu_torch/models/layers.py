@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from .. import tracing
 from ..ops.row_scan import count_launch
 from ..parallel.multihost import exchange
 
@@ -495,7 +496,9 @@ def group_norm(
     Returns:
         y in x's dtype and layout.
     """
-    return _GroupNormFunction.apply(x, weight, bias, num_groups, eps)
+    tracing.count("group_norm.bytes", 2 * x.numel() * x.element_size())  # x read once, y written once
+    with tracing.span("group_norm"):
+        return _GroupNormFunction.apply(x, weight, bias, num_groups, eps)
 
 
 group_norm.launches = 0

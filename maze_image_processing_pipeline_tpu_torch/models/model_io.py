@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from .classifier import ConvClassifier
 from .unet import _DTYPES, UNet
 
@@ -526,6 +527,7 @@ def init_classifier_params(config: Mapping, seed: int = 0) -> Dict:
     return {"params": p}
 
 
+@tracing.span("model.load")
 def load_model(model_fn: str, dtype: Optional[str] = None) -> LoadedModel:
     """Load a checkpoint directory (or its params.msgpack path).
 

@@ -53,6 +53,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from .. import tracing
 from .row_scan import INF, _check_cuda, _raise_on, count_launch, cumsum_rows, hpass_plain
 
 __all__ = [
@@ -344,6 +345,7 @@ def _fixpoint(lab0: torch.Tensor, fg: torch.Tensor, connectivity: int, max_iters
 _fixpoint.launches = 0
 
 
+@tracing.span("label")
 def label(
     mask: torch.Tensor, connectivity: int = 2, max_iters: int = 256
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -363,6 +365,8 @@ def label(
         raise ValueError("connectivity must be 1 or 2")
     H, W = mask.shape[-2:]
     batch_shape = mask.shape[:-2]
+    # The mask read once, the int32 labels and counts written once.
+    tracing.count("label.bytes", mask.numel() * (mask.element_size() + 4) + 4 * math.prod(batch_shape))
     fg = mask.bool().reshape(-1, H, W).contiguous()
     dev = fg.device
 

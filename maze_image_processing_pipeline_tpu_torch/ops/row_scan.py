@@ -14,8 +14,9 @@ A tensor on the CPU goes through the plain PyTorch version; a CUDA tensor
 always launches the kernel, and the wrapper raises if the kernel does not
 take it or does not launch. Each wrapper counts its kernel launches in a
 plain integer attribute (``hpass.launches``, ``cumsum_rows.launches``; by
-card in ``launches_by_device``, :func:`count_launch`) so a run can show that
-its main path went through the kernels, on each card of a mesh.
+card in ``launches_by_device``, :func:`count_launch`; ``launches.<kernel>``
+among the program counters of :mod:`..tracing`) so a run can show that its
+main path went through the kernels, on each card of a mesh.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from .. import tracing
 
 __all__ = ["hpass", "hpass_plain", "cumsum_rows", "cumsum_rows_plain", "count_launch", "INF"]
 
@@ -36,8 +39,10 @@ def count_launch(fn, device: torch.device, route: Optional[str] = None) -> None:
     """One launch of ``fn``'s kernel on ``device``: ``fn.launches`` counts
     every launch, ``fn.launches_by_device`` those of each card (by index)
     and, for a kernel of several routes, ``fn.launches_by_route`` those of
-    each route (by name)."""
+    each route (by name). While tracing is on, the program counter
+    ``launches.<fn's name>`` counts it too."""
     fn.launches += 1
+    tracing.count("launches." + fn.__name__)
     by_device = fn.__dict__.setdefault("launches_by_device", {})
     by_device[device.index] = by_device.get(device.index, 0) + 1
     if route is not None:

@@ -31,6 +31,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .label import _per_frame_bincount, label
 
 __all__ = [
@@ -141,6 +142,7 @@ def measure_largest_component(
     return props, raw_area, extremes, overflow
 
 
+@tracing.span("measure")
 def measure_channels_packed(
     canvas: torch.Tensor,
     hs: Sequence[int],

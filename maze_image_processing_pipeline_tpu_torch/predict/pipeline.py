@@ -32,6 +32,7 @@ import scipy.ndimage as ndi
 import torch
 import yaml
 
+from .. import tracing
 from ..common import (
     find_files_glob as _find_files_glob,
     natsorted,
@@ -600,13 +601,25 @@ def _measure_on_device(flag, device: torch.device) -> bool:
 class Runner(PipelineRunner):
     @staticmethod
     def _configure_and_run(config_dict):
+        with tracing.unit("predict"):
+            with tracing.span("unit.build"):
+                built = Runner._build(config_dict)
+            if built is not None:
+                p, obj = built
+                p.run(iter([obj]))
+
+    @staticmethod
+    def _build(config_dict):
+        """Validate the task, set up the mesh, load the model and build the
+        pipeline; returns (pipeline, its first stream object), or None where
+        the task does not validate (the errors are logged)."""
         import pydantic
 
         try:
             config = PredictionPipelineConfig.model_validate(config_dict)
         except pydantic.ValidationError as exc:
             logger.error(str(exc))
-            return
+            return None
         apply_platform(config)
 
         if sys.stdout.isatty():
@@ -951,4 +964,4 @@ class Runner(PipelineRunner):
 
         obj = StreamObject(n_remaining_hint=1)
         obj[process_meta_var] = process_meta
-        p.run(iter([obj]))
+        return p, obj

@@ -10,8 +10,16 @@ PyTorch port, with its environment hooks:
 * ``MAZE_IPP_PROFILE_DIR=<dir>`` traces the whole ``_configure_and_run``
   with ``torch.profiler`` (CPU activities, and CUDA ones when a card is
   present) and writes a Chrome trace, ``<task>-<time>.pt.trace.json``, into
-  the directory (:func:`profile_trace`); the JAX package writes a
-  ``jax.profiler`` trace there;
+  the directory (:func:`profile_trace`); the program's spans
+  (:mod:`.tracing`) show in it as ``maze::<name>`` annotations; the JAX
+  package writes a ``jax.profiler`` trace there;
+* ``MAZE_IPP_TRACE_DIR=<dir>`` turns the program's spans and counters on
+  (:mod:`.tracing`) and, at the end of each unit (one
+  ``_configure_and_run``), writes its spans, one JSON object a line, to
+  ``<task>-<time>-unit<n>.spans.jsonl`` and their summary (each span name's
+  count, total and self milliseconds, and the counters) to
+  ``<task>-<time>-unit<n>.summary.json`` in the directory, then drops them
+  from memory (:func:`.tracing.export_units`);
 * ``MAZE_IPP_PLATFORM`` picks the device of every ``device:`` field of the
   validated task (:func:`apply_platform`, which both Runners call right
   after validation): ``cpu`` runs the task on the CPU whatever its fields
@@ -32,6 +40,8 @@ import os
 import sys
 
 import yaml
+
+from . import tracing
 
 __all__ = ["PipelineRunner", "apply_platform", "profile_trace", "PLATFORMS"]
 
@@ -75,9 +85,11 @@ def apply_platform(config):
 @contextlib.contextmanager
 def profile_trace(profile_dir, name: str):
     """Trace the block with ``torch.profiler`` when ``profile_dir`` is set:
-    CPU activities, and CUDA ones when a card is present. The trace stops in
-    ``finally`` and goes to ``<profile_dir>/<name>.pt.trace.json`` (Chrome
-    trace format: chrome://tracing, Perfetto)."""
+    CPU activities of every thread, and CUDA ones when a card is present;
+    every program span of the block is a ``maze::<name>`` annotation in it.
+    The trace stops in ``finally`` and goes to
+    ``<profile_dir>/<name>.pt.trace.json`` (Chrome trace format:
+    chrome://tracing, Perfetto)."""
     if not profile_dir:
         yield None
         return
@@ -89,10 +101,13 @@ def profile_trace(profile_dir, name: str):
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"{name}.pt.trace.json")
     logger.info("Capturing a torch.profiler trace to %s", path)
-    prof = torch.profiler.profile(activities=activities)
+    # The pipeline's stages run in threads of their own: trace them all.
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    prof = torch.profiler.profile(activities=activities, experimental_config=every_thread)
     prof.start()
     try:
-        yield path
+        with tracing.annotating():
+            yield path
     finally:
         prof.stop()
         prof.export_chrome_trace(path)
@@ -115,9 +130,10 @@ class PipelineRunner(abc.ABC):
         root_logger.addHandler(stdout_handler)
 
         # Read before the chdir below, so a relative directory is the caller's.
-        profile_dir = os.environ.get("MAZE_IPP_PROFILE_DIR")
-        if profile_dir:
-            profile_dir = os.path.abspath(profile_dir)
+        profile_dir, trace_dir = (
+            os.path.abspath(d) if d else None
+            for d in (os.environ.get("MAZE_IPP_PROFILE_DIR"), os.environ.get("MAZE_IPP_TRACE_DIR"))
+        )
 
         sys.path.insert(0, os.path.realpath(os.curdir))
         os.chdir(os.path.dirname(task_fn) or ".")
@@ -155,7 +171,8 @@ class PipelineRunner(abc.ABC):
             config_dict = yaml.safe_load(f)
 
         stamp = datetime.datetime.now().strftime("%Y%m%dT%H%M%S")
-        with profile_trace(profile_dir, f"{task_name}-{stamp}"):
+        name = f"{task_name}-{stamp}"
+        with tracing.export_units(trace_dir, name), profile_trace(profile_dir, name):
             cls._configure_and_run(config_dict)
 
         root_logger.info("Finished processing.")
