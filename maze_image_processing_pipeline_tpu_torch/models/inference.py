@@ -337,23 +337,30 @@ class DeviceTiledInference(Node):
         self._weights = {d: weight.to(d) for d in self._devices if d is not None}
         self._stage = staging_device([d for d in self._devices if d is not None]) if mesh is not None \
             and mesh.spans_processes else None
+        # While tracing is on, per dispatched chunk whose work may still be
+        # queued on a card, an event recorded after it on each card's stream
+        # (``_run_chunk``).
+        self._queued = []
 
     @tracing.span("predict.forward")
-    def _forward(self, tiles: np.ndarray, k: int) -> torch.Tensor:
-        """(N, ts, ts[, C]) host tiles → (N, ts, ts, Cout) float32
-        predictions on share ``k``'s device, in batches of ``batch_size``
-        (the tail padded with zero tiles so every forward has the same
-        shape)."""
+    def _forward(self, tiles: torch.Tensor, k: int) -> torch.Tensor:
+        """(N, ts, ts[, C]) host tiles (page-locked where the device is a
+        card, :meth:`_run_bucket`) → (N, ts, ts, Cout) float32 predictions
+        on share ``k``'s device, in batches of ``batch_size`` (the tail
+        padded with zero tiles so every forward has the same shape). The
+        upload does not block: it is queued on the device's current
+        stream."""
         bs = self.batch_size
-        pad = (-len(tiles)) % bs
-        if pad:
-            tiles = np.concatenate([tiles, np.zeros((pad,) + tiles.shape[1:], tiles.dtype)])
-        x_all = torch.from_numpy(_host_widen(tiles)).to(self._devices[k])
+        n = len(tiles)
+        pad = (-n) % bs
+        x_all = torch.empty((n + pad,) + tuple(tiles.shape[1:]), dtype=tiles.dtype, device=self._devices[k])
+        x_all[:n].copy_(tiles, non_blocking=True)
+        x_all[n:].zero_()
         module = self._forwards[k]
         preds = []
         for o in range(0, len(x_all), bs):
             preds.append(sigmoid_post(module(default_device_pre(x_all[o : o + bs]))).float())
-        return torch.cat(preds)[: len(tiles) - pad]
+        return torch.cat(preds)[:n]
 
     def _run_bucket(self, images, idxs, Hb: int, Wb: int, window, k: int):
         """Infer, blend (and measure) the objects ``idxs`` of one bucket of a
@@ -362,20 +369,23 @@ class DeviceTiledInference(Node):
         device = self._devices[k]
         ts, stride = self.tile_size, self.tile_stride
         Hq, Wq = window
-        jobs, tiles = [], []
         with tracing.span("predict.tile_cut"):
-            for bi, i in enumerate(idxs):
-                img = images[i]
-                h, w = img.shape[:2]
-                for y in _tile_starts(h, ts, stride):
-                    for x in _tile_starts(w, ts, stride):
-                        tile = img[y : y + ts, x : x + ts]
-                        if tile.shape[:2] != (ts, ts):
-                            pad = [(0, ts - tile.shape[0]), (0, ts - tile.shape[1])] + [(0, 0)] * (img.ndim - 2)
-                            tile = np.pad(tile, pad)
-                        jobs.append((bi, y, x))
-                        tiles.append(tile)
-            tiles = np.stack(tiles)
+            imgs = [_host_widen(images[i]) for i in idxs]
+            jobs = [(bi, y, x) for bi, img in enumerate(imgs)
+                    for y in _tile_starts(img.shape[0], ts, stride) for x in _tile_starts(img.shape[1], ts, stride)]
+            # The tiles are cut straight into page-locked memory on a card,
+            # so that their upload need not wait for the work queued before
+            # it; the caching host allocator keeps the block until the copy
+            # has read it.
+            dtype = torch.from_numpy(np.empty(0, imgs[0].dtype)).dtype
+            tiles = torch.empty((len(jobs), ts, ts) + imgs[0].shape[2:], dtype=dtype, pin_memory=device.type == "cuda")
+            out_tiles = tiles.numpy()
+            for j, (bi, y, x) in enumerate(jobs):
+                tile, dst = imgs[bi][y : y + ts, x : x + ts], out_tiles[j]
+                th, tw = tile.shape[:2]
+                dst[:th, :tw] = tile
+                dst[th:] = 0
+                dst[:th, tw:] = 0
         tracing.count("tiles", len(jobs))
         tracing.count("canvases", len(idxs))
         pred = self._forward(tiles, k)
@@ -415,8 +425,20 @@ class DeviceTiledInference(Node):
     @tracing.span("predict.chunk")
     def _run_chunk(self, images):
         """Dispatch one chunk, bucket by bucket, each bucket's objects split
-        over the shares; returns (parts, layout)."""
+        over the shares; returns (parts, layout).
+
+        Nothing here waits for a card (the fetch in :meth:`_unpack_chunk`
+        is the node's only wait), so up to ``in_flight`` chunks queue on
+        it while the host cuts and launches the next. The counter
+        ``predict.chunks_ahead`` adds the chunks dispatched before whose
+        work the card has not finished (0 on the CPU): over ``chunks``, the
+        mean depth of the card's queue when a chunk starts. Its events are
+        recorded and queried only while tracing is on."""
         tracing.count("chunks")
+        traced = tracing.enabled()
+        if traced:
+            self._queued = [evs for evs in self._queued if not all(e.query() for e in evs)]
+            tracing.count("predict.chunks_ahead", len(self._queued))
         buckets = {}
         ts = self.tile_size
         for i, img in enumerate(images):
@@ -443,6 +465,9 @@ class DeviceTiledInference(Node):
                     parts.append(part)
                     layout.append(lay)
                     shares.append((k, Wq))
+        cards = {d for d in self._devices if d is not None and d.type == "cuda"}
+        if traced and cards:
+            self._queued.append([torch.cuda.current_stream(d).record_event() for d in cards])
         if self._stage is not None:
             self._share_parts(parts, layout, shares)
         return parts, layout

@@ -27,8 +27,9 @@ same results:
 On the card :func:`label` makes no host synchronisation: ``n_regions``
 stays a device tensor.
 
-Region tables (areas, border contact, the id remap) use ``bincount`` and
-``gather`` over the region axis instead of one-hot compares.
+Region tables (areas, border contact, the id remap) count with
+:func:`_per_frame_bincount` and ``gather`` over the region axis instead of
+one-hot compares; on the card the count reads nothing back to the host.
 :func:`remove_small_objects` is one CUDA launch on the card (K8,
 ``csrc/relabel.cu``: one thread-block cluster a frame, each label read once
 wherever the frame fits the cluster's shared memory; :func:`relabel_plan`
@@ -71,6 +72,7 @@ __all__ = [
     "CclRoute",
     "clear_border",
     "region_areas",
+    "per_frame_bincount_plain",
 ]
 
 # Widest band one block of the fixpoint or of the 8-connected pass walks
@@ -388,9 +390,10 @@ def label(
     return compact.reshape(batch_shape + (H, W)), n_regions.reshape(batch_shape)
 
 
-def _per_frame_bincount(values: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """(B, N) int ids → (B, num_segments) int32 counts; ids outside
-    [0, num_segments) are not counted."""
+def per_frame_bincount_plain(values: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Plain version of :func:`_per_frame_bincount`: one ``bincount`` over
+    the frames' ids offset into a bin range each, ids outside
+    [0, num_segments) into a dump bin."""
     B = values.shape[0]
     v = values.reshape(B, -1).long()
     ok = (v >= 0) & (v < num_segments)
@@ -398,6 +401,31 @@ def _per_frame_bincount(values: torch.Tensor, num_segments: int) -> torch.Tensor
     idx = torch.where(ok, v, num_segments) + offs
     counts = torch.bincount(idx.reshape(-1), minlength=B * (num_segments + 1))
     return counts.reshape(B, num_segments + 1)[:, :num_segments].to(torch.int32)
+
+
+def _per_frame_bincount(values: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(B, N) int ids → (B, num_segments) int32 counts; ids outside
+    [0, num_segments) are not counted.
+
+    On the card one ``torch.histc`` over the ids offset into a bin range a
+    frame (ids out of range below its range), whose bounds are given, so
+    nothing is read back to the host (``torch.bincount`` reads its input's
+    minimum and maximum to size its output). On the CPU, where ``histc``
+    takes no integers, :func:`per_frame_bincount_plain`."""
+    B = values.shape[0]
+    v = values.reshape(B, -1)
+    if v.device.type == "cpu":
+        return per_frame_bincount_plain(v, num_segments)
+    bins = B * num_segments
+    if bins == 0:
+        return torch.zeros((B, num_segments), dtype=torch.int32, device=v.device)
+    if v.dtype not in (torch.int32, torch.int64):
+        v = v.long()  # as the plain version reads them
+    ok = (v >= 0) & (v < num_segments)
+    kt = torch.int32 if bins < 2**31 else torch.int64
+    offs = torch.arange(B, device=v.device, dtype=kt)[:, None] * num_segments
+    keys = torch.where(ok, v.to(kt) + offs, -1)
+    return torch.histc(keys.reshape(-1), bins=bins, min=0, max=bins).reshape(B, num_segments).to(torch.int32)
 
 
 def region_areas(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -426,8 +454,11 @@ def remove_small_objects_plain(
     labels: torch.Tensor, min_area: int, num_segments: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K8: drop regions below ``min_area`` pixels;
-    re-compact ids."""
-    keep = region_areas(labels, num_segments) >= min_area
+    re-compact ids. The areas come from :func:`per_frame_bincount_plain`
+    (``torch.bincount``) on every device."""
+    H, W = labels.shape[-2:]
+    areas = per_frame_bincount_plain(labels.reshape(-1, H * W), num_segments)
+    keep = areas.reshape(labels.shape[:-2] + (num_segments,)) >= min_area
     keep[..., 0] = False
     return _relabel_keep(labels, keep), keep.sum(-1).to(torch.int32)
 

@@ -19,13 +19,16 @@ device that holds them:
   where the JAX package does.
 
 Labels come from :func:`.label.label` (the CCL kernels K1, K2 and K4 on the
-card). Per-id tables use ``bincount`` instead of the JAX package's one-hot
-reductions; the moment sums accumulate in float64 and are returned as
-float32.
+card). Per-id tables use :func:`.label._per_frame_bincount` instead of the
+JAX package's one-hot reductions; the moment sums accumulate in float64 and
+are returned as float32. On the card nothing here waits for the device:
+the extents go up from page-locked memory without blocking, and the border
+pixels are picked by a cached index rather than a boolean mask.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -43,11 +46,16 @@ __all__ = [
 ]
 
 
-def _border(H: int, W: int, device) -> torch.Tensor:
-    border = torch.zeros((H, W), dtype=torch.bool, device=device)
-    border[0, :] = border[-1, :] = True
-    border[:, 0] = border[:, -1] = True
-    return border
+@functools.lru_cache(maxsize=64)
+def _border_index(H: int, W: int, device: torch.device) -> torch.Tensor:
+    """int64 flat positions of an (H, W) frame's border pixels in raster
+    order: the pixels a boolean border mask selects, made on ``device``
+    from ranges alone (a mask selection reads its count back to the host)."""
+    if H <= 2 or W <= 2:  # every pixel lies on the border
+        return torch.arange(H * W, device=device)
+    rows = torch.arange(1, H - 1, device=device) * W
+    sides = torch.stack([rows, rows + (W - 1)], dim=1).reshape(-1)
+    return torch.cat([torch.arange(W, device=device), sides, torch.arange((H - 1) * W, H * W, device=device)])
 
 
 def measure_largest_component(
@@ -83,7 +91,7 @@ def measure_largest_component(
     n_bg = None
     if fill_holes:
         bg_lab, n_bg = label(~masks, connectivity=1)
-        border_ids = bg_lab[:, _border(H, W, dev)]  # (N, border pixels)
+        border_ids = bg_lab.reshape(N, H * W).index_select(1, _border_index(H, W, dev))  # (N, border pixels)
         touches = _per_frame_bincount(border_ids, n_bg_segments) > 0  # (N, n_bg_segments)
         inside = bg_lab < n_bg_segments
         # Components beyond the bound stay unfilled (as in the JAX package).
@@ -169,8 +177,10 @@ def measure_channels_packed(
     """
     Bo, Hb, Wb, C = canvas.shape
     dev = canvas.device
-    hs_t = torch.as_tensor(np.asarray(hs), dtype=torch.int64, device=dev)
-    ws_t = torch.as_tensor(np.asarray(ws), dtype=torch.int64, device=dev)
+    # Page-locked and asynchronous on the card: a copy from pageable memory
+    # would wait for the work queued before it.
+    host = torch.tensor([list(hs), list(ws)], dtype=torch.int64, pin_memory=dev.type == "cuda")
+    hs_t, ws_t = host.to(dev, non_blocking=True)
     extent = (torch.arange(Hb, device=dev)[None, :, None] < hs_t[:, None, None]) & (
         torch.arange(Wb, device=dev)[None, None, :] < ws_t[:, None, None]
     )

@@ -14,7 +14,8 @@
 * A tiny loki haul (``device: cpu``) and a tiny semseg archive with
   ``save_raw_h5`` through the Runners record every named span, and the
   counters of frames, tiles, objects, canvases and ``.h5`` bytes equal the
-  counts the inputs give.
+  counts the inputs give; the predict node counts ``predict.chunks_ahead``,
+  0 on the CPU.
 * A torch operator inside a span has its profiler event inside the span's
   interval once :func:`tracing.clock_offset_ns` is added (within 1 ms).
 * ``MAZE_IPP_PROFILE_DIR``'s Chrome trace holds every span as a ``maze::``
@@ -320,6 +321,25 @@ def test_semseg_archive_with_h5_records_every_span_and_counts(tmp_path):
     measure_ids = {s.id for s in spans if s.name == "measure"}
     assert measure_ids and all(s.parent in chunk_ids for s in spans if s.name in ("measure", "predict.tile_cut"))
     assert all(s.parent in measure_ids for s in spans if s.name == "label")
+
+
+def test_predict_node_counts_chunks_ahead_zero_on_the_cpu():
+    """``predict.chunks_ahead`` is counted at every chunk; on the CPU no
+    work is ever queued ahead."""
+    from maze_image_processing_pipeline_tpu_torch.models.inference import DeviceTiledInference
+    from maze_image_processing_pipeline_tpu_torch.models.model_io import LoadedModel
+
+    crops = [np.full(s, 9, np.uint8) for s in CROPS]
+    out = []
+    tracing.enable()
+    with engine.Pipeline() as p:
+        pred, _ = DeviceTiledInference(LoadedModel(torch.nn.Identity(), {}), engine.Unpack(crops), tile_size=64,
+                                       tile_stride=48, batch_size=2, chunk_size=2, device="cpu")
+        engine.Call(out.append, pred)
+    p.run()
+    counters = tracing.counters()
+    assert len(out) == len(CROPS) and counters["chunks"] == 3
+    assert "predict.chunks_ahead" in counters and counters["predict.chunks_ahead"] == 0
 
 
 def test_a_torch_op_lies_inside_its_span_on_the_profiler_clock():
