@@ -2,8 +2,9 @@
 
 Everything that belongs to one configuration, traffic mix or metric is a
 file found by its name: ``configs/<config>.json`` (its ``kind`` names the
-driver ``kinds/<kind>.py``), ``traffic/<traffic>.json`` and
-``metrics/<metric>.py``, else, for a metric of one kind of cell such as
+driver ``kinds/<kind>.py``, its ``model.arch`` the architecture
+``archs/<arch>.py``: weights, checkpoint, FLOPs), ``traffic/<traffic>.json``
+and ``metrics/<metric>.py``, else, for a metric of one kind of cell such as
 ``mfu.loki``, the reader shared by the name before the first dot
 (``metrics/mfu.py``), which takes what differs from the kind's module.
 :func:`run_cell` takes a cell as ``BENCHMARK.json`` gives it and returns
@@ -96,8 +97,8 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
              controls=()) -> dict:
     """Run one cell once; returns the result object (``correct``,
     ``attempted``, ``failed``, ``metrics``, ``device``, [``breakdown``],
-    ``first_run``: whether set-up distilled the weights or built the
-    kernels, ``checks``). Each mode of ``controls`` (``"fp8"``, ``"bfloat16"``)
+    ``first_run``: whether set-up made the weights or built the kernels,
+    ``checks``). Each mode of ``controls`` (``"fp8"``, ``"bfloat16"``)
     also judges the reference in that mode in the program's place, on the
     same captures, under ``result["controls"][mode]`` (the calibration's
     upper readings; the benchmark's runs ask for none)."""
@@ -120,8 +121,8 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
         torch.cuda.reset_peak_memory_stats(dev)
 
     built_before = built_files()
-    weights = ensure_weights(config, CACHE, dev)
-    log(f"weights: {'distilled' if weights['made'] else 'cached'} in {weights['seconds']:.3f} s"
+    weights = ensure_weights(config, CACHE, dev, dirs)
+    log(f"weights: {'made' if weights['made'] else 'cached'} in {weights['seconds']:.3f} s"
         + (f", last loss {weights['loss']}" if weights["loss"] is not None else ""))
     workdir = tempfile.mkdtemp(prefix="maze-bench-")
     written = 0
@@ -151,9 +152,10 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         setup_s = time.perf_counter() - t_start
-        # A checkout's first run distils and builds inside its set-up; the
-        # line says whether this run was one, so its set-up can be kept apart.
-        first_run = {"weights_distilled": weights["made"], "kernels_built": bool(built_files() - built_before),
+        # A checkout's first run makes the weights and builds inside its
+        # set-up; the line says whether this run was one, so its set-up can be
+        # kept apart.
+        first_run = {"weights_made": weights["made"], "kernels_built": bool(built_files() - built_before),
                      "weights_s": weights["seconds"], "warm_up_s": warm_s}
         log(f"set-up: {setup_s:.3f} s; {first_run}")
         prof = None
@@ -219,7 +221,7 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
 
         run = SimpleNamespace(setup_s=setup_s, window_s=w1 - w0, work=work, spans=rec.spans, shapes=rec.shapes,
                               counters=counters, trace=tr, config=config, traffic=traffic, cell=cell,
-                              window=(w0, w1), kind=kind)
+                              window=(w0, w1), kind=kind, arch=weights["arch"])
         log(f"card: {power_limit()}")
         metrics = {}
         for m in (layer if trace else e2e):

@@ -1,11 +1,10 @@
 """mfu.<kind>: % of the card's bf16 dense peak (989 TFLOP/s, H100 SXM) that
-the U-Net forwards of the window reach over its wall time. The FLOPs are
-the convolutions' multiply-adds of every tile the device node ran (the
-kind's ``TILE_CALL``: loki's ``_predict`` jobs, predict's ``_forward``
-tiles, the batch's zero padding left out), from the kind's tile size and
-the configuration's widths (:func:`benchmark.unet_ref.forward_flops`)."""
-
-from benchmark.unet_ref import forward_flops
+the model's forwards of the window reach over its wall time. The FLOPs are
+those of every tile the device node ran (the kind's ``TILE_CALL``: loki's
+``_predict`` jobs, predict's ``_forward`` tiles, the batch's zero padding
+left out), one forward a tile at the kind's tile size, as the
+configuration's architecture counts them (``archs/<arch>.py:forward_flops``;
+the U-Net's: :func:`benchmark.unet_ref.forward_flops`)."""
 
 PEAK = 989e12
 
@@ -24,6 +23,6 @@ def read(run):
     tiles = run.counters.get("tiles")
     if not tiles:
         return None
-    m, ts = run.config["model"], run.kind.tile_size(run.config)
-    flops = tiles * forward_flops(ts, ts, m["out_channels"], m["base_features"], m["depth"])
+    ts = run.kind.tile_size(run.config)
+    flops = tiles * run.arch.forward_flops(run.config["model"], ts, ts)
     return 100.0 * flops / (run.window_s * PEAK)

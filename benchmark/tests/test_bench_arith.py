@@ -10,7 +10,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from benchmark.harness import find, forbidden_modules, load_module  # noqa: E402
+from benchmark.harness import find, forbidden_modules, load_json, load_module  # noqa: E402
 from benchmark.spans import union_seconds  # noqa: E402
 from benchmark.trace import Trace  # noqa: E402
 from benchmark.unet_ref import conv_layers, forward_flops  # noqa: E402
@@ -33,9 +33,25 @@ def _run(**kw):
     base = dict(spans={}, shapes={}, counters={}, trace=None, work={}, window=(0.0, 2.0), window_s=2.0,
                 config={"model": {"out_channels": 1, "base_features": 2, "depth": 1},
                         "task": {"segmentation": {"tile_size": 4}, "model": {"tiling": {"size": 4}}}},
-                kind=load_module(METRICS, "kinds", "loki"))
+                kind=load_module(METRICS, "kinds", "loki"), arch=load_module(METRICS, "archs", "UNet"))
     base.update(kw)
     return SimpleNamespace(**base)
+
+
+@pytest.mark.parametrize("config, flops", [("loki-unet", 0.4378e12), ("predict-semseg", 27.37e9)])
+def test_unet_architecture_counts_the_plain_unets_flops(config, flops):
+    c = load_json(METRICS, "configs", config)
+    m, ts = c["model"], load_module(METRICS, "kinds", c["kind"]).tile_size(c)
+    got = load_module(METRICS, "archs", c["model"]["arch"]).forward_flops(m, ts, ts)
+    assert got == forward_flops(ts, ts, m["out_channels"], m["base_features"], m["depth"])
+    assert got == pytest.approx(flops, rel=1e-3)
+
+
+def test_mfu_takes_the_flops_from_the_architecture():
+    m = load_module(METRICS, "metrics", "mfu.predict")
+    arch = SimpleNamespace(forward_flops=lambda model_cfg, h, w: 1e9 * h * w)
+    run = _run(counters={"tiles": 2}, window_s=0.5, kind=load_module(METRICS, "kinds", "predict"), arch=arch)
+    assert m.read(run) == pytest.approx(100.0 * 2 * 1e9 * 16 / (0.5 * 989e12))
 
 
 def test_rates_are_all_work_over_all_time():

@@ -1,9 +1,12 @@
 """Whole runs of test-only cells on the CPU: the reference agrees with the
 program, the control and planted faults come out not correct, and a cell,
-configuration, traffic mix and metric added as files run without an edit.
+configuration, architecture, traffic mix and metric added as files run
+without an edit.
 
 The cells live in ``benchmark/tests/data`` (tiny U-Nets in float32, small
-frames and crops) and are found by name beside the benchmark's own files.
+frames and crops; ``tiny-seeded`` names a test-only architecture,
+``archs/SeededUNet.py``) and are found by name beside the benchmark's own
+files.
 Their control is the reference in bfloat16, the precision below float32 on
 a CPU (which has no TF32). A card's cells are tested by ``test_cells_on_card``
 (marked ``cuda``).
@@ -25,17 +28,19 @@ from benchmark import harness  # noqa: E402
 
 DATA = os.path.join(ROOT, "benchmark", "tests", "data")
 DIRS = [DATA, os.path.join(ROOT, "benchmark")]
-LOKI, SEMSEG = "tiny-loki.sparse", "tiny-semseg.crops"
+LOKI, SEMSEG, SEEDED = "tiny-loki.sparse", "tiny-semseg.crops", "tiny-seeded.crops"
 SPEC = {
     "workloads": [{"name": LOKI, "config": "tiny-loki", "traffic": "tiny-sparse", "chips": 1},
-                  {"name": SEMSEG, "config": "tiny-semseg", "traffic": "tiny-crops", "chips": 1}],
+                  {"name": SEMSEG, "config": "tiny-semseg", "traffic": "tiny-crops", "chips": 1},
+                  {"name": SEEDED, "config": "tiny-seeded", "traffic": "tiny-crops", "chips": 1}],
     "end_to_end": [{"name": "loki_frames_per_s", "unit": "frames/s", "workloads": [LOKI]},
-                   {"name": "predict_objects_per_s", "unit": "objects/s", "workloads": [SEMSEG]},
+                   {"name": "predict_objects_per_s", "unit": "objects/s", "workloads": [SEMSEG, SEEDED]},
                    {"name": "test_units_per_s", "unit": "units/s", "workloads": [LOKI]},
                    {"name": "setup_s", "unit": "s"}],
     "per_layer": [{"name": "host_outside_nodes_share.loki", "unit": "%", "moves": "loki_frames_per_s",
                    "workloads": [LOKI]},
-                  {"name": "mfu.predict", "unit": "%", "moves": "predict_objects_per_s", "workloads": [SEMSEG]},
+                  {"name": "mfu.predict", "unit": "%", "moves": "predict_objects_per_s",
+                   "workloads": [SEMSEG, SEEDED]},
                   {"name": "h5_write_share.predict", "unit": "%", "moves": "predict_objects_per_s",
                    "workloads": [SEMSEG]}],
 }
@@ -58,7 +63,7 @@ def failed_checks(result):
     return sorted(k for k, c in result["checks"].items() if c["value"] > c["limit"])
 
 
-@pytest.mark.parametrize("cell", [LOKI, SEMSEG])
+@pytest.mark.parametrize("cell", [LOKI, SEMSEG, SEEDED])
 def test_reference_agrees_with_the_program(cell):
     r = run(cell)
     assert r["correct"], r["checks"]
@@ -76,6 +81,32 @@ def test_added_files_run_without_an_edit():
     assert set(r["metrics"]) == {"loki_frames_per_s", "test_units_per_s", "setup_s"}
 
 
+def test_an_architecture_added_as_files(tmp_path):
+    """``archs/SeededUNet.py`` (test data) makes the weights from a seed
+    with no distillation; the checkpoint it writes loads in the program with
+    the same parameters, and ``mfu`` counts its FLOPs."""
+    from benchmark import weights
+    from benchmark.unet_ref import state_dict_of
+    from maze_image_processing_pipeline_tpu_torch.models.model_io import load_model
+
+    config = harness.load_json(DIRS, "configs", "tiny-seeded")
+    assert "distill" not in config
+    w = weights.ensure_weights(config, str(tmp_path), torch.device("cpu"), DIRS)
+    assert w["made"] and w["loss"] is None
+    assert w["arch"].__name__ == "benchmark.archs.SeededUNet"
+    unet = harness.load_module(DIRS, "archs", "UNet")
+    want = state_dict_of(unet.init_plain_unet(config["model"], config["model"]["init_seed"], "cpu"))
+    assert set(w["state"]) == set(want) and all(torch.equal(w["state"][k], want[k]) for k in want)
+    program = load_model(w["model_dir"]).module.state_dict()
+    assert all(torch.equal(program[k].float(), want[k]) for k in want)
+    again = weights.ensure_weights(config, str(tmp_path), torch.device("cpu"), DIRS)
+    assert not again["made"] and again["model_dir"] == w["model_dir"]
+
+    r = run(SEEDED, trace=True)
+    assert r["correct"], r["checks"]
+    assert r["metrics"]["mfu.predict"]["value"] > 0
+
+
 def test_traced_run_reports_per_layer_metrics():
     r = run(SEMSEG, trace=True)
     assert r["correct"]
@@ -84,7 +115,7 @@ def test_traced_run_reports_per_layer_metrics():
     assert r["device"]["window_s"] > 0 and "breakdown" in r
 
 
-@pytest.mark.parametrize("cell", [LOKI, SEMSEG])
+@pytest.mark.parametrize("cell", [LOKI, SEMSEG, SEEDED])
 def test_control_is_not_correct(cell):
     """The control: the reference in bfloat16 put in the program's place,
     judged on the same captures as the program."""

@@ -4,9 +4,9 @@ Run from the root of the checkout: ``python -m pytest benchmark/tests -q``.
 """
 
 import json
+import math
 import os
 import re
-
 import sys
 
 import pytest
@@ -62,8 +62,23 @@ def test_each_cell_names_a_known_configuration_and_traffic(spec):
             body = json.load(f)
         assert body["name"] == c["name"] and body["source"] == c["source"]
         assert os.path.exists(os.path.join(BENCH, "kinds", body["kind"] + ".py"))
-        for k in ("map_max_gap", "map_mean_gap"):
-            assert 0 < body["limits"][k] < 1
+        assert os.path.exists(os.path.join(BENCH, "archs", body["model"]["arch"] + ".py"))
+        # Each architecture compares its own numbers; a U-Net's maps are
+        # probabilities, so their gaps lie in (0, 1).
+        assert body["limits"] and all(v > 0 and math.isfinite(v) for v in body["limits"].values())
+        if body["model"]["arch"] == "UNet":
+            for k in ("map_max_gap", "map_mean_gap"):
+                assert 0 < body["limits"][k] < 1
+
+
+@pytest.mark.parametrize("config, key", [("loki-unet", "20a119e6b505f053"), ("predict-semseg", "10784378d9b358c7")])
+def test_weight_cache_keys_are_pinned(config, key):
+    # The key names a configuration's weight cache; it changes only with the
+    # settings that make the weights (values of the tree before archs/).
+    from benchmark.weights import cache_key
+
+    with open(os.path.join(BENCH, "configs", config + ".json")) as f:
+        assert cache_key(json.load(f)) == key
 
 
 def test_data_files_parse():

@@ -1,22 +1,17 @@
-"""The U-Nets' weights: made on the card from a configuration's model seed,
-distilled toward the threshold teacher by a plain trainer, cached in the
-checkout.
+"""The configurations' weights: made once per checkout by the configuration's
+architecture module, cached in the checkout.
 
-``ensure_weights`` returns the float32 state dict (the reference's copy)
-and a checkpoint directory that the program's Runners load as users' models
-are loaded. The cache (``benchmark/_cache/weights/<config>-<key>/``) holds
+``ensure_weights`` returns the float32 state dict (the reference's copy), a
+checkpoint directory that the program's Runners load as users' models are
+loaded, and the architecture module (``archs/<model.arch>.py``, found like
+any other file of the benchmark: see :mod:`benchmark.archs.UNet` for what it
+provides). The cache (``benchmark/_cache/weights/<config>-<key>/``) holds
 ``state.pt``, written here with ``torch.save``, and ``model/``, the same
-parameters written by the program's own checkpoint writer; the key hashes
-the configuration's model and distillation settings. Only a checkout's
-first run distils: every later run, of the parent or of the change, loads
-the same parameters whatever the program's kernels do.
-
-The trainer is plain PyTorch (:class:`.unet_ref.PlainUNet`: ``F.conv2d``,
-``F.group_norm``), float32 with TF32 off and deterministic algorithms:
-AdamW (lr 1e-3, betas 0.9 / 0.999, weight decay 1e-4), sigmoid BCE + soft
-Dice, on :mod:`.synth`'s batches. The initial weights are drawn on the card
-with one ``torch.Generator`` in one call (LeCun-normal convolutions, zero
-biases, unit norm scales).
+parameters written by the module with the program's own checkpoint writer;
+the key hashes the configuration's model and, where it has one, its
+distillation settings. Only a checkout's first run makes them: every later
+run, of the parent or of the change, loads the same parameters whatever the
+program's kernels do.
 """
 
 from __future__ import annotations
@@ -26,103 +21,36 @@ import json
 import os
 import shutil
 import time
-from typing import Dict, Tuple
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
-from .synth import batch_stream
-from .unet_ref import PlainUNet, state_dict_of
-
-
-def init_plain_unet(model_cfg: dict, seed: int, device) -> PlainUNet:
-    """A :class:`PlainUNet` with weights drawn on ``device`` from ``seed``."""
-    net = PlainUNet(model_cfg["out_channels"], model_cfg["base_features"], model_cfg["depth"]).to(device)
-    convs = [(n, p) for n, p in net.named_parameters() if p.dim() == 4]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    draw = torch.randn(sum(p.numel() for _, p in convs), generator=gen, device=device)
-    o = 0
-    with torch.no_grad():
-        for _, p in convs:
-            fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-            p.copy_(draw[o : o + p.numel()].view_as(p) / fan_in**0.5)
-            o += p.numel()
-        for n, p in net.named_parameters():
-            if p.dim() == 1:
-                p.fill_(1.0 if "GroupNorm" in n and n.endswith("weight") else 0.0)
-    return net
-
-
-def bce_dice(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Sigmoid BCE + soft Dice ``(2·inter + 1) / (union + 1)`` of NHWC logits."""
-    bce = -(targets * F.logsigmoid(logits) + (1.0 - targets) * F.logsigmoid(-logits)).mean()
-    probs = torch.sigmoid(logits)
-    inter = (probs * targets).sum((1, 2))
-    union = probs.sum((1, 2)) + targets.sum((1, 2))
-    return bce + (1.0 - (2 * inter + 1.0) / (union + 1.0)).mean()
-
-
-def distil(model_cfg: dict, distill_cfg: dict, device) -> Tuple[Dict[str, torch.Tensor], float]:
-    """Train the plain U-Net; returns its float32 state dict and the last
-    loss."""
-    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.use_deterministic_algorithms(True)
-    try:
-        net = init_plain_unet(model_cfg, distill_cfg["init_seed"], device)
-        opt = torch.optim.AdamW(net.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
-        batches = batch_stream(distill_cfg["batches"], model_cfg["out_channels"], distill_cfg["data_seed"])
-        loss = torch.zeros(())
-        for _ in range(int(distill_cfg["steps"])):
-            x, y = next(batches)
-            x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
-            y = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(device)
-            opt.zero_grad(set_to_none=True)
-            loss = bce_dice(net(x, "float32"), y)
-            loss.backward()
-            opt.step()
-        return state_dict_of(net), float(loss.detach())
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+from .harness import load_module
 
 
 def cache_key(config: dict) -> str:
-    blob = json.dumps({"model": config["model"], "distill": config["distill"]}, sort_keys=True)
-    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+    blob = {"model": config["model"]}
+    if "distill" in config:
+        blob["distill"] = config["distill"]
+    return hashlib.sha256(json.dumps(blob, sort_keys=True).encode()).hexdigest()[:16]
 
 
-def write_program_checkpoint(path: str, model_cfg: dict, state: Dict[str, torch.Tensor], channel_names) -> None:
-    """The parameters as a checkpoint directory the Runners load, written by
-    the program's own writer (its module takes the same state dict)."""
-    from maze_image_processing_pipeline_tpu_torch.models.model_io import save_model
-    from maze_image_processing_pipeline_tpu_torch.models.unet import UNet
-
-    module = UNet(model_cfg["out_channels"], model_cfg["base_features"], model_cfg["depth"], dtype=model_cfg["dtype"])
-    module.load_state_dict(state)
-    save_model(path, module, outputs={"pred": {"channel_names": list(channel_names)}})
-
-
-def ensure_weights(config: dict, cache_root: str, device) -> dict:
-    """``{"state", "model_dir", "made", "seconds", "loss"}`` of the
-    configuration's U-Net; distils and writes the cache when it is absent."""
+def ensure_weights(config: dict, cache_root: str, device, dirs) -> dict:
+    """``{"state", "model_dir", "arch", "made", "seconds", "loss"}`` of the
+    configuration's model; makes and writes the cache when it is absent."""
     t0 = time.perf_counter()
+    arch = load_module(dirs, "archs", config["model"]["arch"])
     final = os.path.join(cache_root, "weights", f"{config['name']}-{cache_key(config)}")
-    state_fn = os.path.join(final, "state.pt")
     made, loss = False, None
     if not os.path.exists(os.path.join(final, "model", "meta.json")):
-        state, loss = distil(config["model"], config["distill"], device)
+        state, loss = arch.make_state(config, device)
         tmp = final + ".partial"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         torch.save(state, os.path.join(tmp, "state.pt"))
-        write_program_checkpoint(os.path.join(tmp, "model"), config["model"], state, config["model"]["channel_names"])
+        arch.write_checkpoint(os.path.join(tmp, "model"), config, state)
         shutil.rmtree(final, ignore_errors=True)
         os.replace(tmp, final)
         made = True
-    state = torch.load(state_fn, map_location="cpu", weights_only=True)
-    return {"state": state, "model_dir": os.path.join(final, "model"), "made": made,
+    state = torch.load(os.path.join(final, "state.pt"), map_location="cpu", weights_only=True)
+    return {"state": state, "model_dir": os.path.join(final, "model"), "arch": arch, "made": made,
             "seconds": time.perf_counter() - t0, "loss": loss}
